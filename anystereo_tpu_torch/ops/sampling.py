@@ -1,0 +1,105 @@
+"""Sampling / interpolation primitives (twin of `anystereo_tpu/ops/sampling.py`).
+
+Public functions keep the JAX package's channels-last layout ([B, H, W, C]);
+inside, the pooling ops run on a channels-first view, so a caller that holds
+an NCHW tensor and passes `x.permute(0, 2, 3, 1)` pays for no copy.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+def gather_1d_linear(vol: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Linearly interpolate `vol` [..., L] along its last axis at fractional
+    `pos` [..., K] (pixel units); taps outside [0, L-1] contribute zero."""
+    L = vol.shape[-1]
+    x0f = torch.floor(pos)
+    w1 = (pos - x0f).to(vol.dtype)
+    i0 = x0f.long()
+    i1 = i0 + 1
+    valid0 = ((i0 >= 0) & (i0 <= L - 1)).to(vol.dtype)
+    valid1 = ((i1 >= 0) & (i1 <= L - 1)).to(vol.dtype)
+    v0 = torch.gather(vol, -1, i0.clamp(0, L - 1))
+    v1 = torch.gather(vol, -1, i1.clamp(0, L - 1))
+    return v0 * valid0 * (1.0 - w1) + v1 * valid1 * w1
+
+
+def _nearest_indices(c: torch.Tensor, n: int) -> torch.Tensor:
+    """Normalized coord → nearest pixel index (grid_sample align_corners=
+    False unnormalization, round half to even, clamp)."""
+    ix = ((c + 1.0) * n - 1.0) * 0.5
+    return torch.round(ix).long().clamp(0, n - 1)
+
+
+def nearest_dense_gather(x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor):
+    """Separable nearest gather of a dense map at normalized axis grids.
+
+    x: [B, h, w, C]; ys: [H'] / xs: [W'] in [-1, 1]
+    returns (out [B, H', W', C], iy [H'], ix [W']).  An index_select gives
+    exactly the one-hot contraction of the JAX twin."""
+    h, w = x.shape[1], x.shape[2]
+    iy = _nearest_indices(ys.clamp(-1 + 1e-6, 1 - 1e-6), h)
+    ix = _nearest_indices(xs.clamp(-1 + 1e-6, 1 - 1e-6), w)
+    out = x.index_select(1, iy).index_select(2, ix)
+    return out, iy, ix
+
+
+def _linear_resize_matrix(n_in: int, n_out: int, dtype, device) -> torch.Tensor:
+    """[n_out, n_in] row-stochastic 1-D linear interpolation matrix with
+    align_corners=True endpoints."""
+    if n_out == 1:
+        pos = torch.zeros((1,), dtype=torch.float32, device=device)
+    else:
+        pos = torch.arange(n_out, dtype=torch.float32, device=device) * (
+            (n_in - 1) / (n_out - 1)
+        )
+    i0 = torch.floor(pos).long().clamp(0, max(n_in - 2, 0))
+    frac = pos - i0.float()
+    lo = F.one_hot(i0, n_in).float()
+    hi = F.one_hot((i0 + 1).clamp(max=n_in - 1), n_in).float()
+    return ((1.0 - frac)[:, None] * lo + frac[:, None] * hi).to(dtype)
+
+
+def interp_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Bilinear align_corners=True resize of [B, H, W, C] as two small
+    matmuls (the resize matrices take x's dtype, as in the JAX twin)."""
+    _, h, w, _ = x.shape
+    oh, ow = out_hw
+    if (oh, ow) == (h, w):
+        return x
+    mh = _linear_resize_matrix(h, oh, x.dtype, x.device)
+    mw = _linear_resize_matrix(w, ow, x.dtype, x.device)
+    y = torch.einsum("oh,bhwc->bowc", mh, x)
+    return torch.einsum("pw,bowc->bopc", mw, y)
+
+
+def nearest_resize(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Nearest resize of [B, H, W, C] (F.interpolate mode='nearest')."""
+    _, h, w, _ = x.shape
+    oh, ow = out_hw
+    iy = torch.floor(torch.arange(oh, device=x.device) * (h / oh)).long()
+    ix = torch.floor(torch.arange(ow, device=x.device) * (w / ow)).long()
+    return x.index_select(1, iy).index_select(2, ix)
+
+
+def avg_pool2d(x: torch.Tensor, window: int, stride: int, padding: int = 0) -> torch.Tensor:
+    """F.avg_pool2d on [B, H, W, C] with count_include_pad=True."""
+    y = F.avg_pool2d(x.permute(0, 3, 1, 2), window, stride, padding)
+    return y.permute(0, 2, 3, 1)
+
+
+def pool_half_last(x: torch.Tensor) -> torch.Tensor:
+    """Average pool by 2 along the last axis; an odd trailing element is
+    dropped (floor semantics)."""
+    L2 = x.shape[-1] // 2
+    x = x[..., : 2 * L2]
+    return x.reshape(*x.shape[:-1], L2, 2).mean(dim=-1)
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """AdaptiveAvgPool2d(1) on [B, H, W, C] → [B, 1, 1, C]."""
+    return x.mean(dim=(1, 2), keepdim=True)

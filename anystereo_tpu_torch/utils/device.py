@@ -1,0 +1,24 @@
+"""Device selection for the port's entry points.
+
+Entry points run on the CUDA card unless the caller asks for the CPU by
+name.  There is no silent fallback: without a card and without an explicit
+CPU request they raise.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
+    """`None` means the current CUDA device; anything else is taken as
+    given.  Raises when CUDA is asked for (explicitly or by default) and no
+    card is present."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU"
+        )
+    return dev
