@@ -1,9 +1,9 @@
-"""Typed model configuration for the PyTorch port.
+"""Typed model and training configuration for the PyTorch port.
 
 A copy of the JAX package's `anystereo_tpu/config.py` model section (the
-enums, `LiifConfig`, `ModelConfig` and `raft_config`) with the same fields,
-defaults and validation, so one configuration value means the same model in
-both packages.  The port keeps its own copy rather than importing the JAX
+enums, `LiifConfig`, `ModelConfig` and `raft_config`) and of its
+`TrainConfig`, with the same fields, defaults and validation, so one
+configuration value means the same model and schedule in both packages.  The port keeps its own copy rather than importing the JAX
 package.
 
 The JAX schedule rewrites (`fuse_gru_gates`, `joint_gru_convs`,
@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 class CoreType(str, enum.Enum):
@@ -176,3 +176,42 @@ def raft_config(**overrides) -> ModelConfig:
     )
     base.update(overrides)
     return ModelConfig(**base)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimization schedule (the JAX package's `TrainConfig`, field for
+    field)."""
+
+    lr: float = 2e-4
+    weight_decay: float = 1e-5
+    num_steps: int = 100_000
+    warmup_frac: float = 0.01  # OneCycle pct_start
+    batch_size: int = 2
+    crop_size: Tuple[int, int] = (320, 736)
+    train_iters: int = 16
+    valid_iters: int = 32
+    grad_clip: float = 1.0
+    # a workaround of the JAX package for one TPU runtime (two compiled
+    # programs per step); accepted so configurations round-trip, ignored
+    split_opt_step: Optional[bool] = None
+    # skip (no-op) any update whose grads contain inf/NaN
+    skip_nonfinite: bool = True
+    # a trainer aborts after this many CONSECUTIVE skipped steps
+    max_consecutive_nonfinite: int = 50
+    loss_gamma: float = 0.9  # sequence-loss base, exponent 15/(N-1)
+    supervise_init: bool = False  # add smooth-L1 on the regressed init disparity
+    max_disp_loss: float = 700.0  # GT validity ceiling in the loss
+    # arbitrary-scale sampling
+    multi_scale: bool = True
+    inp_size: Tuple[int, int] = (160, 320)  # low-res input crop
+    scale_min: float = 1.0
+    scale_max: float = 2.95
+    ckpt_dir: str = "checkpoints"
+    ckpt_every: int = 10_000
+    seed: int = 1234
+
+    @property
+    def sample_q(self) -> int:
+        """Static per-sample query count."""
+        return self.inp_size[0] * self.inp_size[1]

@@ -29,6 +29,25 @@
 // the pairwise mean-of-means of repeated halving, and the interpolation is
 // v0*(1-w) + v1*w with explicit round-to-nearest intrinsics so that nvcc
 // contracts nothing into an FMA.
+//
+// Backward (`anystereo_gather_pyramid_aligned_bwd`, replaces
+// `_pyr_align_bwd_kernel` of the same file): the transpose of the above in
+// `vol`.  Row r of `dvol [R, L]` depends on that row's g[r, :] and x[r]
+// only, so there is no race and no atomic: one warp owns a row and its
+// lanes stride over the L entries, which makes the writes coalesced.  For
+// entry j and level lvl (only while j < (L >> lvl) << lvl: the odd tail is
+// never pooled and gets zero) the pooled cell is c = j >> lvl; every tap k
+// whose lower cell floor(base + k) is c adds g*(1 - w_k), every tap whose
+// upper cell is c adds g*w_k, and the level's sum is scaled by 2^-lvl (the
+// gradient of the mean of means).  A cell index that equals c is inside
+// [0, (L >> lvl) - 1] by construction, which is the forward's validity
+// test.  Every entry of dvol is written, zeros included, so the wrapper
+// hands in uninitialised memory.  `g` arrives in the forward's output type
+// (bf16 on the training path) and is widened to fp32 at the load.  Bound:
+// bytes (g and x read, the whole of dvol written once).  The tap positions,
+// weights and the order of the sums (taps ascending, lower cell before
+// upper, levels ascending) repeat `gather_pyramid_aligned_bwd_ref`, so the
+// two agree exactly.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -97,6 +116,48 @@ pyr_aligned_fwd(const float* __restrict__ vol, const float* __restrict__ x,
   }
 }
 
+__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+template <typename GT>
+__global__ void __launch_bounds__(kThreads)
+pyr_aligned_bwd(const float* __restrict__ x, const GT* __restrict__ g,
+                float* __restrict__ dvol, int64_t rows, int length, int taps,
+                int levels, float lo, float hi) {
+  const int lane = threadIdx.x & 31;
+  const int64_t r = (int64_t)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  if (r >= rows) return;
+  const int radius = (taps - 1) / 2;
+  const float xc = fminf(fmaxf(__ldg(x + r), lo), hi);
+  const GT* grow = g + r * (int64_t)(levels * taps);
+  float* drow = dvol + r * length;
+  for (int j = lane; j < length; j += 32) {
+    float acc = 0.0f;
+    for (int lvl = 0; lvl < levels; ++lvl) {
+      const int n_lvl = length >> lvl;
+      if (j >= (n_lvl << lvl)) continue;
+      const int c = j >> lvl;
+      const float inv = 1.0f / (float)(1 << lvl);
+      const float base = __fsub_rn(__fmul_rn(xc, inv), (float)radius);
+      float s = 0.0f;
+      for (int k = 0; k < taps; ++k) {
+        const float pos = __fadd_rn(base, (float)k);
+        const float f0 = floorf(pos);
+        const int i0 = (int)f0;
+        if (i0 != c && i0 + 1 != c) continue;
+        const float w1 = __fsub_rn(pos, f0);
+        const float gk = load_f32(grow + lvl * taps + k);
+        if (i0 == c) s = __fadd_rn(s, __fmul_rn(gk, __fsub_rn(1.0f, w1)));
+        if (i0 + 1 == c) s = __fadd_rn(s, __fmul_rn(gk, w1));
+      }
+      acc = __fadd_rn(acc, __fmul_rn(s, inv));
+    }
+    drow[j] = acc;
+  }
+}
+
 }  // namespace
 
 // vol [rows, length] fp32, x [rows] fp32, out [rows, levels*taps] fp32
@@ -120,6 +181,34 @@ extern "C" int anystereo_gather_pyramid_aligned(const void* vol, const void* x,
   } else {
     pyr_aligned_fwd<float><<<blocks, kThreads, 0, s>>>(
         (const float*)vol, (const float*)x, (float*)out, rows, length, taps,
+        levels, lo, hi);
+  }
+  return (int)cudaGetLastError();
+}
+
+// x [rows] fp32, g [rows, levels*taps] fp32 (g_bf16 == 0) or bf16, dvol
+// [rows, length] fp32, every entry written.  One warp per row.  Launches on
+// `stream`; returns cudaGetLastError().
+extern "C" int anystereo_gather_pyramid_aligned_bwd(const void* x, const void* g,
+                                                    void* dvol, long long rows,
+                                                    int length, int taps,
+                                                    int levels, int g_bf16,
+                                                    void* stream) {
+  const int radius = (taps - 1) / 2;
+  const float slack = (float)((radius + 2) * (1 << levels));
+  const float lo = -slack;
+  const float hi = (float)length + slack;
+  if (rows == 0 || length == 0) return (int)cudaGetLastError();
+  const int rows_per_block = kThreads / 32;
+  const unsigned blocks = (unsigned)((rows + rows_per_block - 1) / rows_per_block);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (g_bf16) {
+    pyr_aligned_bwd<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
+        (const float*)x, (const __nv_bfloat16*)g, (float*)dvol, rows, length,
+        taps, levels, lo, hi);
+  } else {
+    pyr_aligned_bwd<float><<<blocks, kThreads, 0, s>>>(
+        (const float*)x, (const float*)g, (float*)dvol, rows, length, taps,
         levels, lo, hi);
   }
   return (int)cudaGetLastError();

@@ -1,10 +1,11 @@
-"""LIIF implicit decoder, dense eval decode (twin of the dense path of
-`anystereo_tpu/nn/liif.py`): per-pixel MLP weights that combine a 3x3
-neighborhood of the low-res disparity at the output grid.
+"""LIIF implicit decoder (twin of `anystereo_tpu/nn/liif.py`): per-query MLP
+weights that combine a 3x3 neighborhood of the low-res disparity.
 
 Ported: the ISU feature augmentation (every `IsuMode`), `Mlp`, the cell
-input, and the dense separable decode with nearest sampling.  The query
-path, positional encoders, local ensemble and 4-nearest modes raise
+input, the dense separable decode over an output grid (eval) and the query
+decode at scattered coordinates (training, and eval with `coords`), both
+with nearest sampling and the raw relative coordinate.  Positional
+encoders, the local ensemble and the 4-nearest modes raise
 NotImplementedError.
 """
 
@@ -17,7 +18,12 @@ import torch.nn.functional as F
 
 from anystereo_tpu_torch.config import IsuMode, LiifConfig, PosEncType
 from anystereo_tpu_torch.nn.layers import Dense, FlaxNamed
-from anystereo_tpu_torch.ops.sampling import nearest_dense_gather
+from anystereo_tpu_torch.ops.sampling import (
+    nearest_dense_gather,
+    nearest_latent_coords,
+    nearest_sample,
+)
+from anystereo_tpu_torch.ops.upsample import _clamp_coords
 
 
 def affinity_features(
@@ -83,9 +89,9 @@ class Mlp(FlaxNamed):
 
 
 class LiifDecoder(FlaxNamed):
-    """Dense decode: `feats` [B,h_i,w_i,C_i] at the axis grids ys [H'],
-    xs [W'] → per-pixel tap logits [B, H', W', taps] (softmax is the
-    caller's)."""
+    """Tap logits (softmax is the caller's) from the latents `feats`
+    [B,h_i,w_i,C_i]: at scattered queries `coords` [B, Q, 2] → [B, Q, taps],
+    or densely at the axis grids ys [H'], xs [W'] → [B, H', W', taps]."""
 
     def __init__(self, cfg: LiifConfig, channels: Sequence[int],
                  dtype: Optional[torch.dtype] = None):
@@ -102,10 +108,34 @@ class LiifDecoder(FlaxNamed):
         dim += (2 + (2 if cfg.decode_cell else 0)) * len(channels)
         self.imnet = Mlp(dim, cfg.mlp_hidden, cfg.taps, dtype)
 
-    def forward(self, feats: List[torch.Tensor], ys: torch.Tensor, xs: torch.Tensor,
-                scale: torch.Tensor) -> torch.Tensor:
+    def forward(self, feats: List[torch.Tensor], ys: Optional[torch.Tensor] = None,
+                xs: Optional[torch.Tensor] = None, scale: Optional[torch.Tensor] = None,
+                coords: Optional[torch.Tensor] = None) -> torch.Tensor:
         feats = [structure_feature(f, self.cfg) for f in feats]
-        return self.imnet(self._build_latent_dense(feats, ys, xs, scale))
+        if coords is None:
+            return self.imnet(self._build_latent_dense(feats, ys, xs, scale))
+        return self.imnet(self._build_latent(feats, coords, coords, scale))
+
+    def _build_latent(self, feats, sample_coords, rel_coords, scale):
+        """Latent [B, Q, C]: per feat, the latent vector of the cell the
+        (clamped) sample coordinate lands in and the offset of the
+        (unclamped) `rel_coords` from that cell's center in latent-pixel
+        units."""
+        b, q, _ = sample_coords.shape
+        cl = _clamp_coords(sample_coords)
+        pieces = []
+        for feat in feats:
+            fh, fw = feat.shape[1], feat.shape[2]
+            q_feat = nearest_sample(feat, cl)  # [B, Q, C_i]
+            q_coord = nearest_latent_coords(cl, fh, fw)  # [B, Q, 2]
+            d = rel_coords - q_coord
+            rel = torch.stack([d[..., 0] * fh, d[..., 1] * fw], dim=-1)
+            piece = [q_feat, rel.to(q_feat.dtype)]
+            if self.cfg.decode_cell:
+                cell = (2.0 / scale).reshape(b, 1, 1).expand(b, q, 2)
+                piece.append(cell.to(q_feat.dtype))
+            pieces.append(torch.cat(piece, dim=-1))
+        return torch.cat(pieces, dim=-1)
 
     def _build_latent_dense(self, feats, ys, xs, scale):
         """Latent [B, H', W', C]: per feat, the nearest latent pixel and the

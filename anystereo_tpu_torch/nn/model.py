@@ -1,14 +1,17 @@
-"""The Any-Stereo pipeline, eval forward with the IGEV core (twin of
-`anystereo_tpu/nn/model.py`).
+"""The Any-Stereo pipeline with the IGEV core, eval and train forward (twin
+of `anystereo_tpu/nn/model.py`).
 
 normalize → matching features + stems → GWC volume → 3-D aggregation →
 softargmin init disparity → lookup pyramids → context encoder and gate
-precompute → `iters` × (pyramid lookup → GRU update) → dense LIIF decode.
+precompute → `iters` × (pyramid lookup → GRU update) → LIIF decode: once
+at the end in eval mode (densely over an output grid, or at scattered
+queries), after every iteration at the queries in train mode.
 
 Inputs and outputs keep the JAX package's layout ([B, H, W, 3] images in,
-[B, H', W'] disparity out); the modules run channels-first inside.  The
-forward runs without autograd: positions carry no gradient and the lookup
-has no backward kernel yet.
+[B, H', W'] or [B, Q] disparity out); the modules run channels-first
+inside.  Autograd follows `mode`: the eval forward records no graph, the
+train forward does, and its lookups and query gathers are
+`torch.autograd.Function`s whose backward is a kernel on the card.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from typing import NamedTuple, Optional, Tuple, Union
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from anystereo_tpu_torch.config import CoreType, ModelConfig, NormType
 from anystereo_tpu_torch.nn.aggregation import CostAggregation
@@ -26,18 +30,19 @@ from anystereo_tpu_torch.nn.layers import Conv, ConvNormAct, init_parameters
 from anystereo_tpu_torch.nn.liif import LiifDecoder
 from anystereo_tpu_torch.nn.stems import StemBranch
 from anystereo_tpu_torch.nn.update import BasicMultiUpdateBlock
-from anystereo_tpu_torch.ops.coords import _axis_centers
+from anystereo_tpu_torch.ops.coords import _axis_centers, make_coord
 from anystereo_tpu_torch.ops.cost_volume import build_gwc_and_corr, disparity_regression
 from anystereo_tpu_torch.ops.lookup import build_pyramid, pyramid_lookup
 from anystereo_tpu_torch.ops.sampling import nearest_dense_gather
-from anystereo_tpu_torch.ops.upsample import unfold3x3
+from anystereo_tpu_torch.ops.upsample import context_upsample_queries, unfold3x3
 from anystereo_tpu_torch.utils.device import resolve_device
 
 
 class StereoOutput(NamedTuple):
     """init_disp: [B, H/4, W/4] regressed initial disparity; disp_preds:
-    None (eval); disp_final: [B, H', W'] decoded disparity; disp_lowres:
-    [B, H/4, W/4] final pre-upsample disparity."""
+    [iters, B, Q] per-iteration decoded predictions (train), None (eval);
+    disp_final: [B, Q] (queries) or [B, H', W'] (dense grid) final decoded
+    disparity; disp_lowres: [B, H/4, W/4] final pre-upsample disparity."""
 
     init_disp: Optional[torch.Tensor]
     disp_preds: Optional[torch.Tensor]
@@ -47,6 +52,12 @@ class StereoOutput(NamedTuple):
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
+
+
+def dense_query_coords(b: int, out_h: int, out_w: int,
+                       device: Optional[torch.device] = None) -> torch.Tensor:
+    """Full-grid queries for fixed-size decoding ([B, H*W, 2], (y, x))."""
+    return make_coord((out_h, out_w), device=device)[None].expand(b, out_h * out_w, 2)
 
 
 class AnyStereo(nn.Module):
@@ -112,7 +123,12 @@ class AnyStereo(nn.Module):
         return net, ctx
 
     def _gru_update(self, net, disp, pyr, ctx):
+        """One refinement step.  The disparity enters detached at all its
+        uses (lookup positions, motion encoder input, the carried value):
+        an iteration's gradient reaches earlier ones only through the
+        hidden state, as in the JAX twin."""
         cfg = self.cfg
+        disp = disp.detach()
         if cfg.split_lookup_concat:
             geo = pyramid_lookup(pyr, disp, split=True, out_dtype=self.dt)
         else:
@@ -148,9 +164,22 @@ class AnyStereo(nn.Module):
             return disp_up / 1024.0 * factor
         return disp_up
 
-    def _upsample_dense(self, disp, hidden, stems, ys, xs, scale):
+    def _decoder_feats(self, hidden, stems):
+        """The decoder's latents, channels-last: [1/4 stem | hidden state]
+        and the 1/2 stem."""
         _, s2x, s4x = stems
-        feats = [_nhwc(torch.cat([s4x, hidden], dim=1)), _nhwc(s2x)]
+        return [_nhwc(torch.cat([s4x, hidden], dim=1)), _nhwc(s2x)]
+
+    def _upsample(self, disp, hidden, stems, coords, scale):
+        """Query decode: LIIF weights at `coords` [B, Q, 2] → softmax →
+        weighted 3x3 combine of disp * 4 * scale → [B, Q]."""
+        feats = self._decoder_feats(hidden, stems)
+        weights = torch.softmax(self.liif(feats, coords=coords, scale=scale).float(), dim=-1)
+        up = context_upsample_queries(self._scale_disp(disp, scale), weights, coords)
+        return self._denorm_disp(up, disp.shape[-1], scale)
+
+    def _upsample_dense(self, disp, hidden, stems, ys, xs, scale):
+        feats = self._decoder_feats(hidden, stems)
         weights = torch.softmax(self.liif(feats, ys, xs, scale).float(), dim=-1)
         w0 = disp.shape[-1]
         patches = unfold3x3(self._scale_disp(disp, scale))  # [B, h, w, 9] fp32
@@ -159,7 +188,6 @@ class AnyStereo(nn.Module):
 
     # ------------------------------------------------------------------ #
 
-    @torch.no_grad()
     def forward(
         self,
         left: torch.Tensor,
@@ -171,29 +199,66 @@ class AnyStereo(nn.Module):
         coords: Optional[torch.Tensor] = None,
     ) -> StereoOutput:
         """left/right: [B, H, W, 3] images in 0..255 on the model's device.
-        dense_grid: (ys [H'], xs [W']) normalized output grid (default: the
-        input's own pixel centers).  scale: [B] arbitrary-scale factor
-        (default 1).  Only mode="eval" with the dense decode is ported."""
-        if mode != "eval" or coords is not None:
-            raise NotImplementedError("only the eval forward with the dense decode is ported")
+        coords: [B, Q, 2] normalized (y, x) queries (training, scattered
+        ground truth).  dense_grid: (ys [H'], xs [W']) separable output
+        grid, eval only.  With neither, eval decodes the input's own pixel
+        centers densely and train queries them.  scale: [B] arbitrary-scale
+        factor (default 1).  mode: "eval" records no autograd graph and
+        decodes once; "train" records one and decodes after every
+        iteration (`disp_preds`)."""
+        if mode not in ("eval", "train"):
+            raise ValueError(f"mode must be 'eval' or 'train', got {mode!r}")
+        if dense_grid is not None and mode == "train":
+            raise ValueError("dense_grid is an eval-only decode path")
+        with torch.set_grad_enabled(mode == "train"):
+            return self._forward(left, right, iters, scale, mode, dense_grid, coords)
+
+    def _forward(self, left, right, iters, scale, mode, dense_grid, coords):
         b, h, w, _ = left.shape
         dev = left.device
         if scale is None:
             scale = torch.ones((b,), dtype=torch.float32, device=dev)
         else:
             scale = torch.broadcast_to(torch.as_tensor(scale, dtype=torch.float32, device=dev), (b,))
-        if dense_grid is None:
-            dense_grid = (_axis_centers(h, device=dev), _axis_centers(w, device=dev))
+        if coords is None and dense_grid is None:
+            if mode == "train":
+                coords = dense_query_coords(b, h, w, dev)
+            else:
+                dense_grid = (_axis_centers(h, device=dev), _axis_centers(w, device=dev))
         left = self._normalize(left)
         right = self._normalize(right)
         match_l, match_r, feats_l, stems = self._matching(left, right)
         pyr, init_disp = self._cost_stage(match_l, match_r, feats_l)
         net, ctx = self._context(left)
         disp = init_disp
+
+        if mode == "train":
+
+            def body(disp, *net):
+                net, disp = self._gru_update(list(net), disp, pyr, ctx)
+                return (disp, self._upsample(disp, net[0], stems, coords, scale), *net)
+
+            preds = []
+            for _ in range(iters):
+                if self.cfg.remat:
+                    # keep only the carried state per iteration; the body is
+                    # run again in the backward pass
+                    out = checkpoint(body, disp, *net, use_reentrant=False)
+                else:
+                    out = body(disp, *net)
+                disp, disp_up, net = out[0], out[1], list(out[2:])
+                preds.append(disp_up)
+            disp_preds = torch.stack(preds)  # [iters, B, Q]
+            return StereoOutput(init_disp=init_disp, disp_preds=disp_preds,
+                                disp_final=disp_preds[-1], disp_lowres=disp)
+
         for _ in range(iters):
             net, disp = self._gru_update(net, disp, pyr, ctx)
-        ys, xs = dense_grid
-        disp_up = self._upsample_dense(disp, net[0], stems, ys, xs, scale)
+        if dense_grid is not None:
+            ys, xs = dense_grid
+            disp_up = self._upsample_dense(disp, net[0], stems, ys, xs, scale)
+        else:
+            disp_up = self._upsample(disp, net[0], stems, coords, scale)
         return StereoOutput(init_disp=init_disp, disp_preds=None, disp_final=disp_up,
                             disp_lowres=disp)
 

@@ -35,3 +35,16 @@ def make_coord(
     if flatten:
         grid = grid.reshape(-1, grid.shape[-1])
     return grid
+
+
+def make_coord_grid(h: int, w: int, device: Optional[torch.device] = None) -> torch.Tensor:
+    """[2, H, W] coordinate map of latent pixel centers ((y, x) components)."""
+    return make_coord((h, w), flatten=False, device=device).permute(2, 0, 1)
+
+
+def to_pixel_samples(img_hw: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flatten a [H, W] (or [H, W, C]) map into (coords [H*W, 2], values
+    [H*W, C]) query pairs."""
+    h, w = img_hw.shape[:2]
+    coords = make_coord((h, w), flatten=True, device=img_hw.device)
+    return coords, img_hw.reshape(h * w, -1)

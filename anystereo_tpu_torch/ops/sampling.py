@@ -7,10 +7,13 @@ an NCHW tensor and passes `x.permute(0, 2, 3, 1)` pays for no copy.
 
 from __future__ import annotations
 
-from typing import Tuple
+import os
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from anystereo_tpu_torch.ops.kernels.gather import gather_rows, gather_rows_hybrid, gather_rows_ref
 
 
 def gather_1d_linear(vol: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
@@ -33,6 +36,69 @@ def _nearest_indices(c: torch.Tensor, n: int) -> torch.Tensor:
     False unnormalization, round half to even, clamp)."""
     ix = ((c + 1.0) * n - 1.0) * 0.5
     return torch.round(ix).long().clamp(0, n - 1)
+
+
+# -- query-gather implementation dispatch -- #
+GATHER_IMPLS = ("torch", "kernel", "hybrid")
+_GATHER_OVERRIDE: Optional[str] = None
+
+
+def set_gather_override(impl: Optional[str]) -> None:
+    """Force the query-gather implementation globally: "torch" (plain
+    indexing, autograd's own backward), "kernel" (`gather_rows`: kernel
+    forward and backward) or "hybrid" (`gather_rows_hybrid`: plain forward,
+    kernel backward); None restores the default dispatch."""
+    global _GATHER_OVERRIDE
+    if impl is not None and impl not in GATHER_IMPLS:
+        raise ValueError(f"gather impl {impl!r}: expected one of {GATHER_IMPLS}")
+    _GATHER_OVERRIDE = impl
+
+
+def _gather_impl(channels: int) -> str:
+    if _GATHER_OVERRIDE is not None:
+        return _GATHER_OVERRIDE
+    env = os.environ.get("ANYSTEREO_GATHER_IMPL")
+    if env:
+        if env not in GATHER_IMPLS:
+            raise ValueError(f"ANYSTEREO_GATHER_IMPL={env!r}: expected one of {GATHER_IMPLS}")
+        return env
+    # Narrow tables (the 9-tap disparity rows) take the kernel backward, as
+    # in the JAX package; wide latent tables keep plain indexing.  The JAX
+    # dispatch also asks for a table of at most 6 MB and 4096 rows: those
+    # price the TPU kernel's VMEM residency and its Q*N one-hot product,
+    # neither of which exists on the card, so they are dropped.  The rule
+    # is the same on the CPU, where both kernels are their plain versions.
+    return "hybrid" if channels <= 16 else "torch"
+
+
+def gather_rows_flat(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """out[b, q] = flat[b, idx[b, q]], a batched row gather with the
+    implementation dispatch above.  flat: [B, N, C]; idx: [B, Q] integer →
+    [B, Q, C].  Differentiable in `flat`; duplicate indices sum."""
+    impl = _gather_impl(flat.shape[2])
+    if impl == "torch":
+        return gather_rows_ref(flat, idx)
+    fn = gather_rows if impl == "kernel" else gather_rows_hybrid
+    return fn(flat.contiguous(), idx.to(torch.int32).contiguous())
+
+
+def nearest_sample(feat: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbor sample of a [B, H, W, C] map at normalized (y, x)
+    queries `coords` [B, Q, 2] in [-1, 1] → [B, Q, C]."""
+    b, h, w, c = feat.shape
+    iy = _nearest_indices(coords[..., 0], h)  # [B, Q]
+    ix = _nearest_indices(coords[..., 1], w)
+    return gather_rows_flat(feat.reshape(b, h * w, c), iy * w + ix)
+
+
+def nearest_latent_coords(coords: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Normalized pixel-center coordinates of the latent cell each query
+    lands in ([B, Q, 2], (y, x)), in closed form."""
+    iy = _nearest_indices(coords[..., 0], h)
+    ix = _nearest_indices(coords[..., 1], w)
+    qy = -1.0 + (2.0 * iy.to(coords.dtype) + 1.0) / h
+    qx = -1.0 + (2.0 * ix.to(coords.dtype) + 1.0) / w
+    return torch.stack([qy, qx], dim=-1)
 
 
 def nearest_dense_gather(x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor):

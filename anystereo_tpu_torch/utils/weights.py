@@ -14,6 +14,12 @@ change layout:
   FrozenBatchNorm batch_stats mean / var   → buffers running_mean / running_var
 
 This is the inverse of the torch→flax converters of the JAX package.
+
+A gradient tree has the parameter tree's shape and every layout change
+above is a permutation of entries, so `from_flax({"params": grads})` carries
+JAX gradients across as well: each comes out in the layout of the `.grad`
+of the parameter with the same key.  No leaf needs other treatment as a
+gradient.
 """
 
 from __future__ import annotations

@@ -142,7 +142,11 @@ def test_unported_paths_raise():
         MODELS["continuous_RAFTStereo"](device="cpu")
     with pytest.raises(NotImplementedError):
         AnyStereo(raft_config())
-    tm = AnyStereo(ModelConfig(max_disp=MAX_DISP))
-    left, right = (torch.from_numpy(a) for a in _images())
+    from anystereo_tpu_torch.config import LiifConfig
+
+    for liif in (LiifConfig(local_ensemble=True), LiifConfig(quarter_nearest="both"),
+                 LiifConfig(pos_enc="sinusoid")):
+        with pytest.raises(NotImplementedError):
+            AnyStereo(ModelConfig(max_disp=MAX_DISP, liif=liif))
     with pytest.raises(NotImplementedError):
-        tm(left, right, iters=1, mode="train")
+        AnyStereo(ModelConfig(max_disp=MAX_DISP, gru_type="sep"))
