@@ -1,5 +1,6 @@
 """Feature extraction (twin of `anystereo_tpu/nn/extractor.py`): the
-MobileNetV2 matching pyramid and the multi-scale context encoder.
+MobileNetV2 matching pyramid (IGEV core), the RAFT matching encoder and the
+multi-scale context encoder.
 Channels-first inside; child names follow the flax twin's."""
 
 from __future__ import annotations
@@ -130,6 +131,36 @@ class ResidualBlock(FlaxNamed):
         return F.relu(x + y)
 
 
+def _stage_plan(downsample: int):
+    """(channels, first-block stride) of the three residual stages shared by
+    the RAFT and context encoders, and the stem conv's stride."""
+    return 1 + (downsample > 2), ((64, 1), (96, 1 + (downsample > 1)), (128, 1 + (downsample > 0)))
+
+
+class BasicEncoder(FlaxNamed):
+    """RAFT matching encoder: 7x7 stem, three residual stages, 1x1 head;
+    instance norm; the strides follow `downsample` (2 → output at 1/4)."""
+
+    def __init__(self, output_dim: int = 256, downsample: int = 2,
+                 norm: NormType = NormType.INSTANCE, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        s1, stages = _stage_plan(downsample)
+        stem = (self.add(Conv(3, 64, 7, s1, 3, dtype=dtype)), self.add(make_norm(norm, 64, dtype)))
+        blocks, in_ch = [], 64
+        for ch, s in stages:
+            blocks.append(self.add(ResidualBlock(in_ch, ch, s, norm, dtype)))
+            blocks.append(self.add(ResidualBlock(ch, ch, 1, norm, dtype)))
+            in_ch = ch
+        self.parts = (stem, tuple(blocks), self.add(Conv(128, output_dim, 1, dtype=dtype)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        (conv, norm), blocks, head = self.parts
+        y = F.relu(norm(conv(x)))
+        for blk in blocks:
+            y = blk(y)
+        return head(y)
+
+
 class MultiBasicEncoder(FlaxNamed):
     """Context encoder: [(net, inp)] per GRU level, ordered [1/4, 1/8,
     1/16][:n_layers]."""
@@ -139,10 +170,10 @@ class MultiBasicEncoder(FlaxNamed):
                  downsample: int = 2, norm: NormType = NormType.GROUP,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
-        s1 = 1 + (downsample > 2)
+        s1, stages = _stage_plan(downsample)
         stem = [self.add(Conv(3, 64, 7, s1, 3, dtype=dtype)), self.add(make_norm(norm, 64, dtype))]
         in_ch = 64
-        for ch, s in ((64, 1), (96, 1 + (downsample > 1)), (128, 1 + (downsample > 0))):
+        for ch, s in stages:
             stem.append(self.add(ResidualBlock(in_ch, ch, s, norm, dtype)))
             stem.append(self.add(ResidualBlock(ch, ch, 1, norm, dtype)))
             in_ch = ch

@@ -1,9 +1,11 @@
-"""The Any-Stereo pipeline with the IGEV core, eval and train forward (twin
+"""The Any-Stereo pipeline with either core, eval and train forward (twin
 of `anystereo_tpu/nn/model.py`).
 
-normalize → matching features + stems → GWC volume → 3-D aggregation →
-softargmin init disparity → lookup pyramids → context encoder and gate
-precompute → `iters` × (pyramid lookup → GRU update) → LIIF decode: once
+IGEV core: normalize → matching features + stems → GWC volume → 3-D
+aggregation → softargmin init disparity → lookup pyramids (geometry volume
+and init correlation).  RAFT core: normalize → `BasicEncoder` features →
+all-pairs correlation → its lookup pyramid alone, zero initial disparity.
+Then, for both: context encoder and gate precompute → `iters` × (pyramid lookup → GRU update) → LIIF decode: once
 at the end in eval mode (densely over an output grid, or at scattered
 queries), after every iteration at the queries in train mode.
 
@@ -23,15 +25,19 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from anystereo_tpu_torch.config import CoreType, ModelConfig, NormType
+from anystereo_tpu_torch.config import AggregationType, CoreType, ModelConfig, NormType, raft_config
 from anystereo_tpu_torch.nn.aggregation import CostAggregation
-from anystereo_tpu_torch.nn.extractor import FeaturePyramid, MultiBasicEncoder
+from anystereo_tpu_torch.nn.extractor import BasicEncoder, FeaturePyramid, MultiBasicEncoder
 from anystereo_tpu_torch.nn.layers import Conv, ConvNormAct, init_parameters
 from anystereo_tpu_torch.nn.liif import LiifDecoder
-from anystereo_tpu_torch.nn.stems import StemBranch
+from anystereo_tpu_torch.nn.stems import StemBranch, stem_channels
 from anystereo_tpu_torch.nn.update import BasicMultiUpdateBlock
 from anystereo_tpu_torch.ops.coords import _axis_centers, make_coord
-from anystereo_tpu_torch.ops.cost_volume import build_gwc_and_corr, disparity_regression
+from anystereo_tpu_torch.ops.cost_volume import (
+    all_pairs_correlation,
+    build_gwc_and_corr,
+    disparity_regression,
+)
 from anystereo_tpu_torch.ops.lookup import build_pyramid, pyramid_lookup
 from anystereo_tpu_torch.ops.sampling import nearest_dense_gather
 from anystereo_tpu_torch.ops.upsample import context_upsample_queries, unfold3x3
@@ -63,18 +69,19 @@ def dense_query_coords(b: int, out_h: int, out_w: int,
 class AnyStereo(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.core is not CoreType.IGEV:
-            raise NotImplementedError("the RAFT core is not ported yet")
         self.cfg = cfg
         dt = getattr(torch, cfg.compute_dtype)
         self.dt = dt
         hd = cfg.hidden_dims
-        self.feature = FeaturePyramid(norm=cfg.norm_2d, dtype=dt)
-        # match-descriptor head over [pyramid 1/4 (48) | stem 1/4 (48)]
-        self.conv = ConvNormAct(96, 96, 3, stride=1, padding=1, norm=NormType.INSTANCE, dtype=dt)
-        self.desc = Conv(96, 96, 1, dtype=dt)
-        self.cost_agg = CostAggregation(cfg.gwc_groups, cfg.norm_3d, cfg.norm_2d, dt)
-        self.classifier = Conv(8, 1, 3, 1, 1, bias=False, dims=3, dtype=torch.float32)
+        if cfg.core is CoreType.IGEV:
+            self.feature = FeaturePyramid(norm=cfg.norm_2d, dtype=dt)
+            # match-descriptor head over [pyramid 1/4 (48) | stem 1/4 (48)]
+            self.conv = ConvNormAct(96, 96, 3, stride=1, padding=1, norm=NormType.INSTANCE, dtype=dt)
+            self.desc = Conv(96, 96, 1, dtype=dt)
+            self.cost_agg = CostAggregation(cfg.gwc_groups, cfg.norm_3d, cfg.norm_2d, dt)
+            self.classifier = Conv(8, 1, 3, 1, 1, bias=False, dims=3, dtype=torch.float32)
+        else:
+            self.fnet = BasicEncoder(cfg.fnet_dim, cfg.n_downsample, dtype=dt)
         self.stems = StemBranch(cfg.agg_type, dtype=dt)
         self.cnet = MultiBasicEncoder(hd, hd, cfg.n_gru_layers, cfg.n_downsample,
                                       cfg.norm_2d, dt)
@@ -82,7 +89,15 @@ class AnyStereo(nn.Module):
             self.add_module(f"context_zqr_{i}", Conv(hd[2 - i], hd[2 - i] * 3, 3, 1, 1, dtype=dt))
         self.update_block = BasicMultiUpdateBlock(hd, cfg.n_gru_layers, cfg.lookup_channels,
                                                   cfg.gru_type, dt)
-        self.liif = LiifDecoder(cfg.liif, (48 + hd[2], 32), dtype=dt)
+        # the decoder's latents, in `_decoder_feats` order
+        stems = stem_channels(cfg.agg_type)
+        if cfg.agg_type is AggregationType.TYPE2:
+            latents = (stems[0], stems[1], stems[2] + hd[2])
+        elif stems:
+            latents = (stems[1] + hd[2], stems[0])
+        else:
+            latents = (hd[2],)
+        self.liif = LiifDecoder(cfg.liif, latents, dtype=dt)
 
     # ------------------------------------------------------------------ #
 
@@ -91,6 +106,8 @@ class AnyStereo(nn.Module):
         return (2.0 * (img / 255.0) - 1.0).to(self.dt).permute(0, 3, 1, 2)
 
     def _matching(self, left, right):
+        if self.cfg.core is CoreType.RAFT:
+            return self.fnet(left), self.fnet(right), None, self.stems(left)
         feats_l = self.feature(left)
         feats_r = self.feature(right)
         s1x, s2x, s4x = self.stems(left)
@@ -102,7 +119,11 @@ class AnyStereo(nn.Module):
         return match_l, match_r, [f4_l] + feats_l[1:], (s1x, s2x, s4x)
 
     def _cost_stage(self, match_l, match_r, feats_l):
+        """The lookup pyramids and (IGEV) the initial disparity."""
         cfg = self.cfg
+        if cfg.core is CoreType.RAFT:
+            corr = all_pairs_correlation(_nhwc(match_l), _nhwc(match_r))  # fp32 [B, H, W, W2]
+            return build_pyramid(corr, None, cfg.corr_levels, cfg.corr_radius), None
         d = cfg.volume_disp
         gwc, corr = build_gwc_and_corr(_nhwc(match_l), _nhwc(match_r), d, cfg.gwc_groups)
         vol = gwc.permute(0, 3, 4, 1, 2).to(self.dt)  # [B, G, D, H, W]
@@ -166,9 +187,15 @@ class AnyStereo(nn.Module):
 
     def _decoder_feats(self, hidden, stems):
         """The decoder's latents, channels-last: [1/4 stem | hidden state]
-        and the 1/2 stem."""
-        _, s2x, s4x = stems
-        return [_nhwc(torch.cat([s4x, hidden], dim=1)), _nhwc(s2x)]
+        and the 1/2 stem; type2 stems put the full-resolution stem first
+        ([s1x, s2x, x]); without stems the hidden state alone."""
+        s1x, s2x, s4x = stems
+        x = _nhwc(hidden if s4x is None else torch.cat([s4x, hidden], dim=1))
+        if s1x is not None:
+            return [_nhwc(s1x), _nhwc(s2x), x]
+        if s2x is not None:
+            return [x, _nhwc(s2x)]
+        return [x]
 
     def _upsample(self, disp, hidden, stems, coords, scale):
         """Query decode: LIIF weights at `coords` [B, Q, 2] → softmax →
@@ -230,7 +257,10 @@ class AnyStereo(nn.Module):
         match_l, match_r, feats_l, stems = self._matching(left, right)
         pyr, init_disp = self._cost_stage(match_l, match_r, feats_l)
         net, ctx = self._context(left)
-        disp = init_disp
+        if init_disp is None:  # RAFT: zero initial disparity
+            disp = torch.zeros((b, *match_l.shape[2:]), dtype=torch.float32, device=dev)
+        else:
+            disp = init_disp
 
         if mode == "train":
 
@@ -277,7 +307,7 @@ def _build_igev(device=None, seed: int = 0, **kw) -> AnyStereo:
 
 
 def _build_raft(device=None, seed: int = 0, **kw) -> AnyStereo:
-    raise NotImplementedError("the RAFT core is not ported yet")
+    return build_model(raft_config(**kw), device, seed)
 
 
 MODELS = {

@@ -58,12 +58,36 @@ class ConvGRU(nn.Module):
         return (1.0 - z) * h + z * q
 
 
+class SepConvGRU(nn.Module):
+    """Separable ConvGRU: a 1x5 (horizontal) GRU step, then a 5x1 (vertical)
+    one.  Takes the context biases of `ConvGRU`'s signature and drops them,
+    as the JAX twin's cell has no context-bias form."""
+
+    def __init__(self, hidden_dim: int, input_dim: int, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        for tag, kernel, pad in (("h", (1, 5), (0, 2)), ("v", (5, 1), (2, 0))):
+            for gate in ("convz", "convr", "convq"):
+                self.add_module(f"{gate}{tag}", Conv(hidden_dim + input_dim, hidden_dim, kernel, 1,
+                                                     pad, dtype=dtype))
+
+    def forward(self, h: torch.Tensor, context, *inputs: torch.Tensor) -> torch.Tensor:
+        x = torch.cat(inputs, dim=1)
+        for tag in ("h", "v"):
+            convz, convr, convq = (getattr(self, f"{gate}{tag}") for gate in ("convz", "convr", "convq"))
+            hx = torch.cat([h, x], dim=1)
+            z = torch.sigmoid(convz(hx))
+            r = torch.sigmoid(convr(hx))
+            q = torch.tanh(convq(torch.cat([r * h, x], dim=1)))
+            h = (1.0 - z) * h + z * q
+        return h
+
+
 class BasicMotionEncoder(nn.Module):
     """Lookup features + current disparity → 128-ch motion features (the
     last channel is the disparity itself).
 
     `corr` is the [B, H, W, C] lookup or a tuple of its parts (pyramid_lookup
-    split=True); for a tuple, convc1's 1x1 kernel is sliced per part and the
+    split=True: (geo, corr) for the IGEV core, (corr,) for RAFT); for a tuple, convc1's 1x1 kernel is sliced per part and the
     partial products are summed in fp32 before one cast to the compute
     dtype, as in the JAX twin."""
 
@@ -116,16 +140,17 @@ class BasicMultiUpdateBlock(nn.Module):
                  corr_channels: int = 162, gru_type: str = "conv",
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if gru_type != "conv":
-            raise NotImplementedError("gru_type 'sep' is not ported yet")
+        if gru_type not in ("conv", "sep"):
+            raise ValueError(f"gru_type must be 'conv' or 'sep', got {gru_type!r}")
+        gru = ConvGRU if gru_type == "conv" else SepConvGRU
         self.n_layers = n_layers
         hd = hidden_dims
         if n_layers == 3:
-            self.gru16 = ConvGRU(hd[0], hd[1], dtype)
+            self.gru16 = gru(hd[0], hd[1], dtype)
         if n_layers >= 2:
-            self.gru08 = ConvGRU(hd[1], hd[2] + (hd[0] if n_layers == 3 else 0), dtype)
+            self.gru08 = gru(hd[1], hd[2] + (hd[0] if n_layers == 3 else 0), dtype)
         self.encoder = BasicMotionEncoder(corr_channels, dtype)
-        self.gru04 = ConvGRU(hd[2], 128 + (hd[1] if n_layers > 1 else 0), dtype)
+        self.gru04 = gru(hd[2], 128 + (hd[1] if n_layers > 1 else 0), dtype)
         self.disp_head = DispHead(hd[2], 256, dtype)
 
     def forward(self, net: List[torch.Tensor], context, corr=None, disp=None,

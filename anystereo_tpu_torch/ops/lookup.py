@@ -1,9 +1,13 @@
 """Correlation / geometry-volume pyramid lookup: the per-iteration gather
 that feeds the ConvGRU motion encoder (twin of `anystereo_tpu/ops/lookup.py`).
 
-Every call goes through `gather_pyramid_aligned`, which pools the levels
-from the level-0 rows itself: the CUDA kernel for a tensor on the card, the
-plain PyTorch version for one on the CPU.
+Two kernel flavors, as in the JAX package (`ANYSTEREO_LOOKUP_KERNEL`):
+"aligned" (default) goes through `gather_pyramid_aligned` on the level-0
+rows as they lie in memory; "classify" builds the per-level window starts
+and goes through `gather_pyramid_window_pm` on the transposed volumes
+([L, R]), which `CorrPyramid` makes once per forward.  Both pool the levels
+from the level-0 rows themselves: the CUDA kernel for a tensor on the card,
+the plain PyTorch version for one on the CPU.
 
 Channel order (the JAX package's internal order, which convc1's weights
 are bound to): all GEV taps group-major ([G, levels, K] flattened), then
@@ -13,11 +17,20 @@ the init-corr taps ([levels, K] flattened).  RAFT mode has no GEV.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import os
+from typing import Optional
 
 import torch
 
 from anystereo_tpu_torch.ops.kernels.lookup import gather_pyramid_aligned
+from anystereo_tpu_torch.ops.kernels.lookup_window import gather_pyramid_window_pm
+
+LOOKUP_KERNELS = ("aligned", "classify")
+
+
+def default_lookup_kernel() -> str:
+    """The process-level flavor: `ANYSTEREO_LOOKUP_KERNEL`, else "aligned"."""
+    return os.environ.get("ANYSTEREO_LOOKUP_KERNEL", "aligned")
 
 
 @dataclasses.dataclass
@@ -33,6 +46,22 @@ class CorrPyramid:
     geo: Optional[torch.Tensor]
     num_levels: int
     radius: int
+    _transposed: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def transposed(self, name: str) -> torch.Tensor:
+        """The volume `name` ("corr" or "geo") as [L, R], contiguous: the
+        layout of the "classify" flavor.  The JAX package transposes inside
+        every lookup and leaves it to XLA to hoist the copy out of the
+        iteration scan; eager PyTorch hoists nothing, so the copy is made at
+        the first lookup of a forward and kept (37.4 MB for the all-pairs
+        volume at 384x1248).  It is a differentiable function of the volume,
+        so the lookups' gradients sum into it and cross back once."""
+        t = self._transposed.get(name)
+        if t is None:
+            vol = getattr(self, name)
+            t = vol.reshape(-1, vol.shape[-1]).t().contiguous()
+            self._transposed[name] = t
+        return t
 
     @property
     def out_channels(self) -> int:
@@ -58,6 +87,7 @@ def pyramid_lookup(
     coords: Optional[torch.Tensor] = None,
     split: bool = False,
     out_dtype: Optional[torch.dtype] = None,
+    kernel: Optional[str] = None,
 ):
     """Sample 2r+1 taps around the current disparity at every level.
 
@@ -65,33 +95,49 @@ def pyramid_lookup(
     x-coordinate of each column (default arange(W)).  split: return the
     parts as a tuple ((geo, corr) for IGEV, (corr,) for RAFT) instead of
     concatenating.  out_dtype: dtype of the result (the math is fp32 and
-    rounds only at the store); None = fp32.
+    rounds only at the store); None = fp32.  kernel: "aligned" or
+    "classify"; None = `default_lookup_kernel()`.
     Returns [B, H, W, C_lookup] or the split tuple.
 
     Tap positions: GEV x = disp, corr x = coords - disp, at level i taps
     sit at x / 2^i - r + k for k = 0..2r.
     """
     b, h, w = disp.shape
-    k = 2 * pyr.radius + 1
+    r = pyr.radius
+    k = 2 * r + 1
     n_lvl = pyr.num_levels
     out_dtype = out_dtype or torch.float32
+    kernel = default_lookup_kernel() if kernel is None else kernel
+    if kernel not in LOOKUP_KERNELS:
+        raise ValueError(f"lookup kernel {kernel!r}: expected one of {LOOKUP_KERNELS}")
     disp = disp.float()
     if coords is None:
         coords = torch.arange(w, dtype=torch.float32, device=disp.device)
     coords = torch.broadcast_to(coords, (b, h, w)).float()
+    g = None if pyr.geo is None else pyr.geo.shape[-2]  # [B, H, W, G, D]
     out = []
-    if pyr.geo is not None:
-        g = pyr.geo.shape[-2]  # [B, H, W, G, D]
-        x_g = disp[..., None].expand(b, h, w, g).reshape(-1)
-        geo = gather_pyramid_aligned(
-            pyr.geo.reshape(-1, pyr.geo.shape[-1]), x_g, k, n_lvl, out_dtype
-        )  # [B*H*W*G, levels*K], rows (pixel, g)-major
-        out.append(geo.reshape(b, h, w, g * n_lvl * k))
-    corr = gather_pyramid_aligned(
-        pyr.corr.reshape(-1, pyr.corr.shape[-1]),
-        (coords - disp).reshape(-1).contiguous(), k, n_lvl, out_dtype,
-    )
-    out.append(corr.reshape(b, h, w, n_lvl * k))
+    if kernel == "aligned":
+        if g is not None:
+            x_g = disp[..., None].expand(b, h, w, g).reshape(-1)
+            out.append(gather_pyramid_aligned(
+                pyr.geo.reshape(-1, pyr.geo.shape[-1]), x_g, k, n_lvl, out_dtype
+            ))  # [B*H*W*G, levels*K], rows (pixel, g)-major
+        out.append(gather_pyramid_aligned(
+            pyr.corr.reshape(-1, pyr.corr.shape[-1]),
+            (coords - disp).reshape(-1).contiguous(), k, n_lvl, out_dtype,
+        ))
+    else:
+        # window starts per level, in that level's pooled units, levels first
+        # ([levels, R]); the kernel writes fp32 and the cast follows it
+        scales = torch.tensor([2.0 ** -i for i in range(n_lvl)], dtype=torch.float32,
+                              device=disp.device).reshape(n_lvl, 1, 1, 1)
+        if g is not None:
+            bases_g = (disp[None] * scales - r)[..., None].expand(n_lvl, b, h, w, g)
+            out.append(gather_pyramid_window_pm(
+                pyr.transposed("geo"), bases_g.reshape(n_lvl, -1).contiguous(), k).to(out_dtype))
+        cbases = ((coords - disp)[None] * scales - r).reshape(n_lvl, -1)
+        out.append(gather_pyramid_window_pm(pyr.transposed("corr"), cbases, k).to(out_dtype))
+    out = [o.reshape(b, h, w, -1) for o in out]
     if split:
         return tuple(out)
     return torch.cat(out, dim=-1) if len(out) > 1 else out[0]

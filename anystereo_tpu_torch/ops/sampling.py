@@ -7,13 +7,12 @@ an NCHW tensor and passes `x.permute(0, 2, 3, 1)` pays for no copy.
 
 from __future__ import annotations
 
-import os
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
-from anystereo_tpu_torch.ops.kernels.gather import gather_rows, gather_rows_hybrid, gather_rows_ref
+from anystereo_tpu_torch.ops.kernels.gather import gather_rows, gather_rows_ref
 
 
 def gather_1d_linear(vol: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
@@ -38,48 +37,29 @@ def _nearest_indices(c: torch.Tensor, n: int) -> torch.Tensor:
     return torch.round(ix).long().clamp(0, n - 1)
 
 
-# -- query-gather implementation dispatch -- #
-GATHER_IMPLS = ("torch", "kernel", "hybrid")
-_GATHER_OVERRIDE: Optional[str] = None
+# -- the query gather: one path on the card, one on the CPU -- #
+_GATHER_PLAIN = False
 
 
-def set_gather_override(impl: Optional[str]) -> None:
-    """Force the query-gather implementation globally: "torch" (plain
-    indexing, autograd's own backward), "kernel" (`gather_rows`: kernel
-    forward and backward) or "hybrid" (`gather_rows_hybrid`: plain forward,
-    kernel backward); None restores the default dispatch."""
-    global _GATHER_OVERRIDE
-    if impl is not None and impl not in GATHER_IMPLS:
-        raise ValueError(f"gather impl {impl!r}: expected one of {GATHER_IMPLS}")
-    _GATHER_OVERRIDE = impl
-
-
-def _gather_impl(channels: int) -> str:
-    if _GATHER_OVERRIDE is not None:
-        return _GATHER_OVERRIDE
-    env = os.environ.get("ANYSTEREO_GATHER_IMPL")
-    if env:
-        if env not in GATHER_IMPLS:
-            raise ValueError(f"ANYSTEREO_GATHER_IMPL={env!r}: expected one of {GATHER_IMPLS}")
-        return env
-    # Narrow tables (the 9-tap disparity rows) take the kernel backward, as
-    # in the JAX package; wide latent tables keep plain indexing.  The JAX
-    # dispatch also asks for a table of at most 6 MB and 4096 rows: those
-    # price the TPU kernel's VMEM residency and its Q*N one-hot product,
-    # neither of which exists on the card, so they are dropped.  The rule
-    # is the same on the CPU, where both kernels are their plain versions.
-    return "hybrid" if channels <= 16 else "torch"
+def set_gather_plain(plain: bool) -> None:
+    """Force `gather_rows_flat` to the plain version (advanced indexing under
+    PyTorch's own autograd) on every device, or restore the rule below.  For
+    tests and all-plain reference runs only; no main path sets it."""
+    global _GATHER_PLAIN
+    _GATHER_PLAIN = bool(plain)
 
 
 def gather_rows_flat(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """out[b, q] = flat[b, idx[b, q]], a batched row gather with the
-    implementation dispatch above.  flat: [B, N, C]; idx: [B, Q] integer →
-    [B, Q, C].  Differentiable in `flat`; duplicate indices sum."""
-    impl = _gather_impl(flat.shape[2])
-    if impl == "torch":
+    """out[b, q] = flat[b, idx[b, q]], a batched row gather.  flat:
+    [B, N, C]; idx: [B, Q] integer → [B, Q, C].  Differentiable in `flat`;
+    duplicate indices sum.
+
+    A table on the card goes through `gather_rows` whatever its width
+    (kernel forward, scatter-add kernel backward); a table on the CPU
+    through the plain version."""
+    if _GATHER_PLAIN or flat.device.type == "cpu":
         return gather_rows_ref(flat, idx)
-    fn = gather_rows if impl == "kernel" else gather_rows_hybrid
-    return fn(flat.contiguous(), idx.to(torch.int32).contiguous())
+    return gather_rows(flat.contiguous(), idx.to(torch.int32).contiguous())
 
 
 def nearest_sample(feat: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:

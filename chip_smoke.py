@@ -17,28 +17,32 @@ Phases (any failure raises, and the exit code is not 0):
            shapes the main paths give it, with its time (CUDA events, L2
            flushed before each launch), the plain version's time, the time
            of the one PyTorch call that computes the same function (where
-           there is one) and the least time the card could take: the pyramid
-           lookup's forward (eval and training shapes) and backward
-           (training shapes),
-           the query row gather and its scatter-add transpose (the 9-tap
-           disparity table and both latent tables, 51,200 queries a sample);
-3. model   the IGEV eval forward at its main-path configuration
-           (`ModelConfig()`, 1x384x1248, 32 GRU iterations, bf16, weights
-           from a seeded generator): one warm-up and three timed requests;
-           every kernel's launch count is read over exactly these requests;
-4. train   the IGEV training step at full width (`ModelConfig()`,
-           `TrainConfig()`: batch 2, 160x320, 51,200 queries a sample, 16
-           iterations with a query decode each, bf16, sequence loss, clip,
-           AdamW) on a seeded synthetic batch: one warm-up and three timed
-           steps with the exact launch counts of each, then one forward and
-           backward under the default gather dispatch and one with every
-           query gather forced through the kernels, from the same state,
-           and six more steps alternating the two dispatches, timed;
-5. check   fp32 (TF32 off): the eval forward with 4 iterations through the
-           kernels and with the lookup forced to its plain version; then a
-           training loss and every parameter's gradient (batch 1, 4
-           iterations, 4,096 queries) through the kernels and with every
-           kernel forced to its plain version.
+           there is one) and the least time the card could take: the aligned
+           pyramid lookup's forward and backward (IGEV shapes at 2 levels,
+           RAFT shapes at 4), the window-pyramid lookups in their three
+           layouts, forward and backward, held to their plain versions bit
+           for bit and to each other, the query row gather and its
+           scatter-add transpose (the 9-tap disparity table and both latent
+           tables, 51,200 queries a sample), and `gather_rows_hybrid`;
+3. model   the eval forward at full width, 1x384x1248, 32 GRU iterations,
+           bf16, weights from a seeded generator, one warm-up and three timed
+           requests each: the IGEV model (`ModelConfig()`), the RAFT model
+           (`raft_config()`) under the "aligned" lookup flavor and under
+           "classify"; every kernel's launch count is read over exactly these
+           requests;
+4. train   the training step at full width (`TrainConfig()`: batch 2,
+           160x320, 51,200 queries a sample, 16 iterations with a query decode
+           each, bf16, sequence loss, clip, AdamW) on a seeded synthetic
+           batch, one warm-up and three timed steps with the exact launch
+           counts of each: the IGEV model ("aligned") and the RAFT model
+           ("classify");
+5. check   fp32 (TF32 off, cuDNN deterministic), 4 iterations: the IGEV and
+           RAFT eval forwards through the kernels against the same with every
+           lookup forced to its plain version, under each flavor, and the
+           flavors against each other; a training loss and every parameter's
+           gradient (batch 1, 4,096 queries) through the kernels and with
+           every kernel forced to its plain version, IGEV under "aligned" and
+           RAFT under "classify".
 
 It prints a `kernels` JSON line, the card's name and power limit as
 nvidia-smi reports them, and last `{"ok": true, "device": {...}}`.  It
@@ -47,6 +51,7 @@ exits with code 2 and prints no result when no CUDA card is visible.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -55,7 +60,9 @@ import time
 
 H, W, ITERS = 384, 1248, 32
 CHECK_ITERS = 4
-TAPS, LEVELS = 9, 2
+TAPS = 9
+IGEV_LEVELS, RAFT_LEVELS = 2, 4  # ModelConfig().corr_levels, raft_config().corr_levels
+FAR = (-1e6, 1e6, -3e4, 2.5e3)  # level-0 positions far outside any row
 REQUESTS = 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
@@ -120,27 +127,53 @@ def _time_ms(torch, fn, reps=20, warmup=3):
     return times[len(times) // 2]
 
 
-def _lookup_cost(torch, x, length, out_itemsize):
-    """Bytes and fp32 operations the lookup needs for these positions: the
-    volume elements inside some level's window (each read once), x, and the
-    output (written once)."""
-    radius = (TAPS - 1) // 2
-    slack = (radius + 2) * 2 ** LEVELS
-    xc = x.clamp(-slack, length + slack)
-    j = torch.arange(length, device=x.device)
-    need = torch.zeros((x.shape[0], length), dtype=torch.bool, device=x.device)
-    flops = 0
-    for lvl in range(LEVELS):
+def _window_need(torch, starts, length, levels):
+    """[R, L] mask of the volume entries inside some level's window of
+    `TAPS + 1` cells, from the per-level window starts i0 ([R, levels])."""
+    j = torch.arange(length, device=starts.device)
+    need = torch.zeros((starts.shape[0], length), dtype=torch.bool, device=starts.device)
+    for lvl in range(levels):
         width, n = 2 ** lvl, length >> lvl
-        i0 = torch.floor(xc / width - radius).long()
-        start = i0.clamp(0, n) * width
-        end = (i0 + TAPS + 1).clamp(0, n) * width
+        start = starts[:, lvl].clamp(0, n) * width
+        end = (starts[:, lvl] + TAPS + 1).clamp(0, n) * width
         need |= (j >= start[:, None]) & (j < end[:, None])
-        # 6 per tap (position, weight, two products, sum); pooling 2 per pair
-        flops += x.shape[0] * (6 * TAPS + 2 * (width - 1) * (TAPS + 1))
+    return need
+
+
+def _lookup_flops(rows, levels):
+    # 6 per tap (position, weight, two products, sum); pooling 2 per pair
+    return sum(rows * (6 * TAPS + 2 * (2 ** lvl - 1) * (TAPS + 1)) for lvl in range(levels))
+
+
+def _lookup_cost(torch, x, length, out_itemsize, levels):
+    """Bytes and fp32 operations the aligned lookup needs for these
+    positions: the volume elements inside some level's window (each read
+    once), x, and the output (written once)."""
+    radius = (TAPS - 1) // 2
+    slack = (radius + 2) * 2 ** levels
+    xc = x.clamp(-slack, length + slack)
+    starts = torch.stack([torch.floor(xc / 2 ** lvl - radius).long() for lvl in range(levels)], 1)
     rows = x.shape[0]
-    nbytes = 4 * int(need.sum()) + 4 * rows + out_itemsize * rows * LEVELS * TAPS
-    return nbytes, flops
+    need = _window_need(torch, starts, length, levels)
+    nbytes = 4 * int(need.sum()) + 4 * rows + out_itemsize * rows * levels * TAPS
+    return nbytes, _lookup_flops(rows, levels)
+
+
+def _window_cost(torch, bases, length, transposed):
+    """The same for the window lookups, from the window starts `bases`
+    [R, levels]: bases and the fp32 output once, and of the volume the
+    entries inside some window; in the [L, R] layout whole 32-byte sectors
+    (8 neighbouring rows of one entry), the least the card can fetch."""
+    rows, levels = bases.shape
+    starts = torch.floor(bases).clamp(-(TAPS + 1), length).long()
+    need = _window_need(torch, starts, length, levels)
+    if transposed:
+        pad = (-rows) % 8
+        need = torch.nn.functional.pad(need.to(torch.uint8), (0, 0, 0, pad))
+        vol_bytes = 32 * int(need.reshape(-1, 8, length).any(dim=1).sum())
+    else:
+        vol_bytes = 4 * int(need.sum())
+    return vol_bytes + 4 * rows * levels + 4 * rows * levels * TAPS, _lookup_flops(rows, levels)
 
 
 def _bf16_ulps_ok(torch, got, want):
@@ -152,32 +185,45 @@ def _bf16_ulps_ok(torch, got, want):
     return bool(((g - w).abs() <= torch.maximum(ulp, torch.full_like(w, FP32_ATOL))).all())
 
 
+def _lookup_shapes():
+    """(call, rows, length, levels) of every lookup the main paths make: the
+    IGEV pairs (GEV rows of 48, correlation rows of W/4; 2 levels) and the
+    RAFT correlation alone (4 levels), at the eval (batch 1, 96x312 cells) and
+    the training size (batch 2, 40x80 cells)."""
+    h4, w4, groups, d = H // 4, W // 4, 8, 192 // 4
+    cells, tw4 = 2 * (TRAIN_H // 4) * (TRAIN_W // 4), TRAIN_W // 4
+    return (("gev", h4 * w4 * groups, d, IGEV_LEVELS), ("corr", h4 * w4, w4, IGEV_LEVELS),
+            ("train_gev", cells * groups, d, IGEV_LEVELS), ("train_corr", cells, tw4, IGEV_LEVELS),
+            ("raft_corr", h4 * w4, w4, RAFT_LEVELS), ("raft_train_corr", cells, tw4, RAFT_LEVELS))
+
+
+def _positions(torch, gen, rows, length):
+    """(x for the check, x for the timing): the check has positions over the
+    row and 20 past both ends, and a few far outside [0, L) at both signs;
+    the timing has positions inside the row, as disparities (GEV) and matched
+    columns (corr) mostly are."""
+    x_main = torch.rand(rows, device=DEVICE, generator=gen) * length
+    x = torch.rand(rows, device=DEVICE, generator=gen) * (length + 40) - 20
+    far = torch.tensor([*FAR, -60.0, length + 60.0], device=DEVICE)
+    x[: far.numel()] = far
+    return x, x_main
+
+
 def _kernels_lookup_fwd(torch):
     from anystereo_tpu_torch.ops.kernels.lookup import (
         gather_pyramid_aligned,
         gather_pyramid_aligned_ref,
     )
 
-    h4, w4, groups, d = H // 4, W // 4, 8, 192 // 4
-    cells, tw4 = 2 * (TRAIN_H // 4) * (TRAIN_W // 4), TRAIN_W // 4
     g = torch.Generator(device=DEVICE).manual_seed(0)
     calls = []
-    # the eval forward's pair of calls (batch 1, 96x312 cells), then the
-    # training step's pair (batch 2, 40x80 cells)
-    for call, rows, length in (("gev", h4 * w4 * groups, d), ("corr", h4 * w4, w4),
-                               ("train_gev", cells * groups, d), ("train_corr", cells, tw4)):
+    for call, rows, length, levels in _lookup_shapes():
         vol = torch.randn(rows, length, device=DEVICE, generator=g)
-        # the check: positions over the row and 20 past both ends, and a few
-        # far outside [0, L) at both signs; the timing: positions inside the
-        # row, as disparities (GEV) and matched columns (corr) mostly are
-        x_main = torch.rand(rows, device=DEVICE, generator=g) * length
-        x = torch.rand(rows, device=DEVICE, generator=g) * (length + 40) - 20
-        far = torch.tensor([-1e6, 1e6, -3e4, 2.5e3, -60.0, length + 60.0], device=DEVICE)
-        x[: far.numel()] = far
-        res = {"call": call, "rows": rows, "length": length}
+        x, x_main = _positions(torch, g, rows, length)
+        res = {"call": call, "rows": rows, "length": length, "levels": levels}
         for out_dtype in (torch.float32, torch.bfloat16):
-            got = gather_pyramid_aligned(vol, x, TAPS, LEVELS, out_dtype)
-            want = gather_pyramid_aligned_ref(vol, x, TAPS, LEVELS, out_dtype)
+            got = gather_pyramid_aligned(vol, x, TAPS, levels, out_dtype)
+            want = gather_pyramid_aligned_ref(vol, x, TAPS, levels, out_dtype)
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
             name = "fp32" if out_dtype == torch.float32 else "bf16"
@@ -190,23 +236,24 @@ def _kernels_lookup_fwd(torch):
             res[f"max_abs_err_{name}"] = err
         # the main path asks for bf16 out
         res["ms"] = _time_ms(torch, lambda: gather_pyramid_aligned(
-            vol, x_main, TAPS, LEVELS, torch.bfloat16))
+            vol, x_main, TAPS, levels, torch.bfloat16))
         res["plain_ms"] = _time_ms(torch, lambda: gather_pyramid_aligned_ref(
-            vol, x_main, TAPS, LEVELS, torch.bfloat16), reps=5)
-        nbytes, flops = _lookup_cost(torch, x_main, length, 2)
+            vol, x_main, TAPS, levels, torch.bfloat16), reps=5)
+        nbytes, flops = _lookup_cost(torch, x_main, length, 2, levels)
         res["bytes"], res["flops"] = nbytes, flops
         res["bound_ms"], res["bound_by"] = _bound(nbytes, flops)
-        _log(f"[kernels] gather_pyramid_aligned {call} R={rows} L={length}: "
+        _log(f"[kernels] gather_pyramid_aligned {call} R={rows} L={length} levels={levels}: "
              f"max|diff| fp32 {res['max_abs_err_fp32']:.3g} bf16 {res['max_abs_err_bf16']:.3g}; "
              f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
              f"bound {res['bound_ms']:.4f} ms ({nbytes} B)")
         del vol, x, x_main
         calls.append(res)
-    # the record's times are one eval GRU iteration's pair of calls (GEV then
-    # corr), bf16 out; the training pair stands in `per_call`.  No single
+    # the record's times are one IGEV eval GRU iteration's pair of calls (GEV
+    # then corr), bf16 out; the other calls stand in `per_call`.  No single
     # PyTorch call computes this lookup
     return _record("gather_pyramid_aligned", "anystereo_tpu_torch/csrc/lookup_aligned.cu",
-                   "anystereo_tpu/ops/pallas/lookup_kernel.py:1103", calls, main=(0, 1))
+                   "anystereo_tpu/ops/pallas/lookup_kernel.py:1103", calls, main=(0, 1),
+                   paths=("eval_igev", "train_igev", "eval_raft"))
 
 
 def _bound(nbytes, flops):
@@ -214,12 +261,15 @@ def _bound(nbytes, flops):
     return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
 
 
-def _record(name, source, replaces, calls, main, library=False):
+def _record(name, source, replaces, calls, main, paths, library=False):
     """One entry of the `kernels` line: the times are those of the calls the
-    main path makes (`main`: indices into `calls`), summed."""
+    main path makes (`main`: indices into `calls`), summed.  `paths`: the
+    system paths that launch the kernel, or ("op",) for one reached only as a
+    public function (in the JAX package too)."""
     picked = [calls[i] for i in main]
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "paths": list(paths),
         "ms": sum(c["ms"] for c in picked),
         "plain_ms": sum(c["plain_ms"] for c in picked),
         "bound_ms": sum(c["bound_ms"] for c in picked),
@@ -231,49 +281,182 @@ def _record(name, source, replaces, calls, main, library=False):
 
 
 def _kernels_lookup_bwd(torch):
-    """The lookup's backward at the two training shapes (batch 2, 40x80 cells:
-    GEV rows of 48, correlation rows of 80), against its plain version.  The
-    kernel repeats the plain version's operations in its order, so the two
-    must agree exactly, with the cotangent in fp32 and in bf16."""
+    """The aligned lookup's backward at the training shapes (batch 2, 40x80
+    cells: GEV rows of 48 and correlation rows of 80 at 2 levels, the RAFT
+    correlation at 4) and at the RAFT eval shape, against its plain version.
+    The kernel repeats the plain version's operations in its order, so the
+    two must agree exactly, with the cotangent in fp32 and in bf16."""
     from anystereo_tpu_torch.ops.kernels.lookup import (
         gather_pyramid_aligned_bwd,
         gather_pyramid_aligned_bwd_ref,
     )
 
-    cells, groups = 2 * (TRAIN_H // 4) * (TRAIN_W // 4), 8
     gen = torch.Generator(device=DEVICE).manual_seed(2)
     calls = []
-    for call, rows, length in (("gev", cells * groups, 192 // 4), ("corr", cells, TRAIN_W // 4)):
-        x_main = torch.rand(rows, device=DEVICE, generator=gen) * length
-        x = torch.rand(rows, device=DEVICE, generator=gen) * (length + 40) - 20
-        far = torch.tensor([-1e6, 1e6, -3e4, 2.5e3, -60.0, length + 60.0], device=DEVICE)
-        x[: far.numel()] = far
-        g32 = torch.randn(rows, LEVELS * TAPS, device=DEVICE, generator=gen)
-        res = {"call": call, "rows": rows, "length": length}
+    shapes = {c[0]: c for c in _lookup_shapes()}
+    for call in ("train_gev", "train_corr", "raft_train_corr", "raft_corr"):
+        _, rows, length, levels = shapes[call]
+        x, x_main = _positions(torch, gen, rows, length)
+        g32 = torch.randn(rows, levels * TAPS, device=DEVICE, generator=gen)
+        res = {"call": call, "rows": rows, "length": length, "levels": levels}
         for g in (g32, g32.bfloat16()):
-            got = gather_pyramid_aligned_bwd(x, g, length, TAPS, LEVELS)
-            want = gather_pyramid_aligned_bwd_ref(x, g, length, TAPS, LEVELS)
+            got = gather_pyramid_aligned_bwd(x, g, length, TAPS, levels)
+            want = gather_pyramid_aligned_bwd_ref(x, g, length, TAPS, levels)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
-            if err != 0.0 or not bool((got[: far.numel() - 2] == 0).all()):
+            if err != 0.0 or not bool((got[: len(FAR)] == 0).all()):
                 raise AssertionError(f"lookup backward {call} {g.dtype}: max |kernel - plain| "
                                      f"{err}, want 0 (and zero rows for far positions)")
             res["max_abs_err"] = max(res.get("max_abs_err", 0.0), err)
         g = g32.bfloat16()  # the main path's cotangent is bf16
-        res["ms"] = _time_ms(torch, lambda: gather_pyramid_aligned_bwd(x_main, g, length, TAPS, LEVELS))
+        res["ms"] = _time_ms(torch, lambda: gather_pyramid_aligned_bwd(x_main, g, length, TAPS, levels))
         res["plain_ms"] = _time_ms(torch, lambda: gather_pyramid_aligned_bwd_ref(
-            x_main, g, length, TAPS, LEVELS), reps=5)
+            x_main, g, length, TAPS, levels), reps=5)
         # g and x read once, the whole of dvol written once; per row a
         # product and a sum per tap side, a scale and a sum per entry and level
-        res["bytes"] = rows * (LEVELS * TAPS * 2 + 4 + length * 4)
-        res["flops"] = rows * LEVELS * (4 * TAPS + 2 * length)
+        res["bytes"] = rows * (levels * TAPS * 2 + 4 + length * 4)
+        res["flops"] = rows * levels * (4 * TAPS + 2 * length)
         res["bound_ms"], res["bound_by"] = _bound(res["bytes"], res["flops"])
-        _log(f"[kernels] gather_pyramid_aligned_bwd {call} R={rows} L={length}: max|diff| "
-             f"{res['max_abs_err']:.3g}; kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
-             f"bound {res['bound_ms']:.4f} ms ({res['bytes']} B)")
+        _log(f"[kernels] gather_pyramid_aligned_bwd {call} R={rows} L={length} levels={levels}: "
+             f"max|diff| {res['max_abs_err']:.3g}; kernel {res['ms']:.4f} ms, plain "
+             f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms ({res['bytes']} B)")
         calls.append(res)
     return _record("gather_pyramid_aligned_bwd", "anystereo_tpu_torch/csrc/lookup_aligned.cu",
-                   "anystereo_tpu/ops/pallas/lookup_kernel.py:965", calls, main=(0, 1))
+                   "anystereo_tpu/ops/pallas/lookup_kernel.py:965", calls, main=(0, 1),
+                   paths=("train_igev",))
+
+
+def _kernels_window(torch):
+    """The window-pyramid lookups in their three layouts, forward and
+    backward, at every shape a main path gives the "classify" flavor (the
+    RAFT correlation at 4 levels; the IGEV pair at 2), fp32.  Kernel and plain
+    version do the same operations in the same order (explicit round-to-nearest
+    intrinsics, no FMA), so they must agree exactly, not to a tolerance; the
+    three layouts must give one and the same result; far positions (+-1e6,
+    +-3e9 in the bases) must give zero taps and written zero gradients."""
+    from anystereo_tpu_torch.ops.kernels import lookup_window as tw
+
+    src = "anystereo_tpu_torch/csrc/lookup_window.cu"
+    layouts = (  # name, forward, backward, JAX line fwd/bwd, volume transposed, output transposed
+        ("gather_pyramid_window_pm", tw.gather_pyramid_window_pm, tw.gather_pyramid_window_pm_bwd,
+         767, 466, True, False),
+        ("gather_pyramid_window_t", tw.gather_pyramid_window_t, tw.gather_pyramid_window_t_bwd,
+         798, 466, True, True),
+        ("gather_pyramid_window", tw.gather_pyramid_window, tw.gather_pyramid_window_bwd,
+         357, 289, False, False),
+    )
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    radius = (TAPS - 1) // 2
+    calls = {name + tag: [] for name, *_ in layouts for tag in ("", "_bwd")}
+    for call, rows, length, levels in _lookup_shapes():
+        vol = torch.randn(rows, length, device=DEVICE, generator=gen)
+        x, x_main = _positions(torch, gen, rows, length)
+        scales = torch.tensor([2.0 ** -lvl for lvl in range(levels)], device=DEVICE)
+        bases, bases_main = x[:, None] * scales - radius, x_main[:, None] * scales - radius
+        bases[0, :], bases[1, :] = -3e9, 3e9  # beyond int32: not clamped by any caller
+        cot = torch.randn(rows, levels * TAPS, device=DEVICE, generator=gen)
+        results = {}
+        for name, fwd, bwd, _, _, vol_t, out_t in layouts:
+            ref, bwd_ref = getattr(tw, name + "_ref"), getattr(tw, name + "_bwd_ref")
+            tr = (lambda a: a.t().contiguous())
+            v, b, bm = (tr(vol), tr(bases), tr(bases_main)) if vol_t else (vol, bases, bases_main)
+            g = tr(cot) if out_t else cot
+            got, want = fwd(v, b, TAPS), ref(v, b, TAPS)
+            dgot, dwant = bwd(b, g, length, TAPS), bwd_ref(b, g, length, TAPS)
+            torch.cuda.synchronize()
+            rows_out = got.t() if out_t else got
+            rows_grad = dgot.t() if vol_t else dgot
+            for what, a, w, far_rows in (("forward", got, want, rows_out), ("backward", dgot, dwant, rows_grad)):
+                err = float((a - w).abs().max())
+                if err != 0.0 or a.shape != w.shape or bool(far_rows[: len(FAR)].any()):
+                    raise AssertionError(f"{name} {what} {call}: max |kernel - plain| {err}, want 0 "
+                                         f"(and zeros for far positions)")
+            results[name] = (rows_out, rows_grad)
+            f_bytes, f_flops = _window_cost(torch, bases_main, length, vol_t)
+            # backward: bases and g read once, the whole of dvol written once;
+            # per row the slot coefficients, per entry and level a sum
+            b_bytes = 4 * rows * (levels + levels * TAPS + length)
+            b_flops = rows * levels * (4 * (TAPS + 1) + length)
+            for tag, fn, plain, nbytes, flops in (
+                    ("", lambda: fwd(v, bm, TAPS), lambda: ref(v, bm, TAPS), f_bytes, f_flops),
+                    ("_bwd", lambda: bwd(bm, g, length, TAPS), lambda: bwd_ref(bm, g, length, TAPS),
+                     b_bytes, b_flops)):
+                res = {"call": call, "rows": rows, "length": length, "levels": levels,
+                       "max_abs_err": 0.0, "bytes": nbytes, "flops": flops}
+                res["ms"] = _time_ms(torch, fn)
+                res["plain_ms"] = _time_ms(torch, plain, reps=5)
+                res["bound_ms"], res["bound_by"] = _bound(nbytes, flops)
+                _log(f"[kernels] {name}{tag} {call} R={rows} L={length} levels={levels}: exact; "
+                     f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, bound "
+                     f"{res['bound_ms']:.4f} ms ({nbytes} B)")
+                calls[name + tag].append(res)
+        base_out, base_grad = results["gather_pyramid_window_pm"]
+        for name, (o, d) in results.items():
+            if not (torch.equal(o, base_out) and torch.equal(d, base_grad)):
+                raise AssertionError(f"{name} {call}: differs from gather_pyramid_window_pm on the "
+                                     "same operands in its layout")
+        del vol, cot, results
+    order = [c[0] for c in _lookup_shapes()]
+    records = []
+    for name, _, _, line_fwd, line_bwd, vol_t, out_t in layouts:
+        system = name == "gather_pyramid_window_pm"
+        for tag, line, main_call, paths in (
+                ("", line_fwd, "raft_corr", ("eval_raft", "train_raft")),
+                ("_bwd", line_bwd, "raft_train_corr", ("train_raft",))):
+            records.append(_record(
+                name + tag, src, f"anystereo_tpu/ops/pallas/lookup_kernel.py:{line}", calls[name + tag],
+                main=(order.index(main_call),), paths=paths if system else ("op",)))
+    return records
+
+
+def _kernels_hybrid(torch):
+    """`gather_rows_hybrid` (plain indexing forward, scatter-add kernel
+    backward): nothing dispatches to it; it stays a public function, as in
+    the JAX package, and is held here on the 9-tap table."""
+    from anystereo_tpu_torch.ops.kernels.gather import (
+        gather_rows_hybrid,
+        gather_rows_ref,
+        scatter_rows_add,
+        scatter_rows_add_ref,
+    )
+
+    batch, n, c, q = 2, 3200, 9, TRAIN_H * TRAIN_W
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    table = torch.randn(batch, n, c, device=DEVICE, generator=gen, requires_grad=True)
+    idx = torch.randint(0, n, (batch, q), device=DEVICE, generator=gen, dtype=torch.int32)
+    g = torch.randn(batch, q, c, device=DEVICE, generator=gen)
+    before = scatter_rows_add.launches
+    out = gather_rows_hybrid(table, idx)
+    out.backward(g)
+    torch.cuda.synchronize()
+    launched = scatter_rows_add.launches - before
+    plain = table.detach().clone().requires_grad_(True)
+    gather_rows_ref(plain, idx).backward(g)  # PyTorch's own autograd
+    bound = SCATTER_RTOL * (1.0 + scatter_rows_add_ref(idx, g.abs(), n))
+    diff = (table.grad - plain.grad).abs()
+    if launched != 1 or not torch.equal(out.detach(), gather_rows_ref(plain.detach(), idx)) \
+            or not bool((diff <= bound).all()):
+        raise AssertionError(f"gather_rows_hybrid: {launched} scatter launches, max |diff| "
+                             f"{float(diff.max())}")
+    det = table.detach()
+    res = {"table": [batch, n, c], "dtype": "float32", "queries": q, "max_abs_err": float(diff.max())}
+
+    def fwd_bwd(fn):
+        t = det.clone().requires_grad_(True)
+        fn(t, idx).backward(g)
+
+    res["ms"] = _time_ms(torch, lambda: fwd_bwd(gather_rows_hybrid))
+    res["plain_ms"] = _time_ms(torch, lambda: fwd_bwd(gather_rows_ref))
+    res["bytes"] = 2 * (idx.numel() * 4 + det.numel() * 4 + g.numel() * 4)
+    res["flops"] = g.numel()
+    res["bound_ms"], res["bound_by"] = _bound(res["bytes"], res["flops"])
+    _log(f"[kernels] gather_rows_hybrid {res['table']} forward+backward: max|diff| "
+         f"{res['max_abs_err']:.3g}; {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, bound "
+         f"{res['bound_ms']:.4f} ms")
+    rec = _record("gather_rows_hybrid", "anystereo_tpu_torch/csrc/gather_rows.cu",
+                  "anystereo_tpu/ops/pallas/gather_kernel.py:355", [res], main=(0,), paths=("op",))
+    rec["op_launches"] = launched
+    return rec
 
 
 def _kernels_gather(torch):
@@ -345,18 +528,32 @@ def _kernels_gather(torch):
         bwd.append(res)
         del table, idx, g, got, want, out, g32
     src = "anystereo_tpu_torch/csrc/gather_rows.cu"
-    # per decode: the default dispatch sends the 9-tap table's backward to the
-    # scatter; forcing the kernels sends all three tables both ways
+    # per decode all three tables go through the gather forward and the
+    # scatter backward
+    paths = ("train_igev", "train_raft")
     return [
         _record("gather_rows", src, "anystereo_tpu/ops/pallas/gather_kernel.py:319", fwd,
-                main=(0, 1, 2), library=True),
+                main=(0, 1, 2), paths=paths, library=True),
         _record("scatter_rows_add", src, "anystereo_tpu/ops/pallas/gather_kernel.py:355", bwd,
-                main=(0,), library=True),
+                main=(0, 1, 2), paths=paths, library=True),
     ]
 
 
 def phase_kernels(torch):
-    return [_kernels_lookup_fwd(torch), _kernels_lookup_bwd(torch), *_kernels_gather(torch)]
+    """The records of the `kernels` line; an "op" record carries the launches
+    this phase counted for it (`op_launches`)."""
+    from anystereo_tpu_torch.ops.kernels import lookup_window as tw
+
+    op_fns = {f.__name__: f for f in (tw.gather_pyramid_window_t, tw.gather_pyramid_window_t_bwd,
+                                      tw.gather_pyramid_window, tw.gather_pyramid_window_bwd)}
+    for f in op_fns.values():
+        f.launches = 0
+    records = [_kernels_lookup_fwd(torch), _kernels_lookup_bwd(torch), *_kernels_window(torch),
+               *_kernels_gather(torch), _kernels_hybrid(torch)]
+    for record in records:
+        if record["name"] in op_fns:
+            record["op_launches"] = op_fns[record["name"]].launches
+    return records
 
 
 # ----------------------------------------------------------------- phase 3
@@ -371,40 +568,70 @@ def _images(torch, seed):
     return left, right
 
 
-def phase_model(torch, kernels):
-    from anystereo_tpu_torch.config import ModelConfig
+@contextlib.contextmanager
+def _flavor(name):
+    """The process-level lookup flavor, as a user sets it."""
+    old = os.environ.get("ANYSTEREO_LOOKUP_KERNEL")
+    os.environ["ANYSTEREO_LOOKUP_KERNEL"] = name
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["ANYSTEREO_LOOKUP_KERNEL"]
+        else:
+            os.environ["ANYSTEREO_LOOKUP_KERNEL"] = old
+
+
+def _config(core, **kw):
+    from anystereo_tpu_torch.config import ModelConfig, raft_config
+
+    return ModelConfig(**kw) if core == "igev" else raft_config(**kw)
+
+
+def _lookup_counts(core, flavor, per_volume):
+    """Expected launches of the two lookup forwards for `per_volume` lookups
+    of each volume: the IGEV core has two volumes, RAFT one."""
+    n = per_volume * (2 if core == "igev" else 1)
+    return {"gather_pyramid_aligned": n if flavor == "aligned" else 0,
+            "gather_pyramid_window_pm": n if flavor == "classify" else 0}
+
+
+def phase_model(torch, kernels, core, flavor, keep=False):
+    """One warm-up and REQUESTS timed eval forwards of one model under one
+    lookup flavor at full width; the counts are set to 0 just before and read
+    just after.  Returns (launches, model or None)."""
     from anystereo_tpu_torch.nn.model import build_model
 
-    model = build_model(ModelConfig(), device=DEVICE, seed=0)
+    model = build_model(_config(core), device=DEVICE, seed=0)
     left, right = _images(torch, 1)
+    want = dict.fromkeys((k.__name__ for k in kernels), 0)
+    want.update(_lookup_counts(core, flavor, ITERS))
     for k in kernels:
         k.launches = 0
-    times, per_forward = [], []
+    times = []
     torch.cuda.reset_peak_memory_stats()
-    for i in range(1 + REQUESTS):
-        before = [k.launches for k in kernels]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = model(left, right, iters=ITERS)
-        torch.cuda.synchronize()
-        dt = (time.perf_counter() - t0) * 1e3
-        if i:
-            times.append(dt)
-        per_forward.append([k.launches - b for k, b in zip(kernels, before)])
-        disp = out.disp_final
-        if tuple(disp.shape) != (1, H, W) or not bool(torch.isfinite(disp).all()):
-            raise AssertionError(f"disp_final {tuple(disp.shape)} not finite [1, {H}, {W}]")
+    with _flavor(flavor):
+        for i in range(1 + REQUESTS):
+            before = _counts(kernels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = model(left, right, iters=ITERS)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) * 1e3
+            if i:
+                times.append(dt)
+            _expect_launches(kernels, before, want, f"{core} eval forward {i} ({flavor})")
+            disp = out.disp_final
+            if tuple(disp.shape) != (1, H, W) or not bool(torch.isfinite(disp).all()):
+                raise AssertionError(f"disp_final {tuple(disp.shape)} not finite [1, {H}, {W}]")
     launches = {k.__name__: k.launches for k in kernels}
-    want = [2 * ITERS if k.__name__ == "gather_pyramid_aligned" else 0 for k in kernels]
-    if any(n != want for n in per_forward):
-        raise AssertionError(f"launches per forward {per_forward}, want {want}")
-    _log(f"[model] IGEV eval 1x{H}x{W}, {ITERS} iters, bf16: "
+    _log(f"[model] {core.upper()} eval 1x{H}x{W}, {ITERS} iters, bf16, lookup {flavor}: "
          f"{sum(times) / len(times):.2f} ms/pair over {REQUESTS} requests "
          f"({', '.join(f'{t:.2f}' for t in times)} ms; warm-up excluded), "
          f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
          f"disp_final range [{float(disp.min()):.3f}, {float(disp.max()):.3f}] px; "
-         f"launches {launches}")
-    return launches, model
+         f"launches {({k: v for k, v in launches.items() if v})}")
+    return launches, (model if keep else None)
 
 
 # ----------------------------------------------------------------- phase 4
@@ -439,194 +666,199 @@ def _expect_launches(kernels, before, want, what):
         raise AssertionError(f"kernel launches of {what}: {got}, want {want}")
 
 
-def phase_train(torch, kernels):
-    from anystereo_tpu_torch.config import ModelConfig, TrainConfig
+def phase_train(torch, kernels, core, flavor):
+    """One warm-up and TRAIN_STEPS timed training steps of one model under
+    one lookup flavor at full width, with the exact launch counts of each:
+    per iteration one lookup forward and one backward a volume, and per
+    decode the three query tables through the gather kernel forward and the
+    scatter-add kernel backward."""
+    from anystereo_tpu_torch.config import TrainConfig
     from anystereo_tpu_torch.nn.model import build_model
-    from anystereo_tpu_torch.ops.sampling import set_gather_override
     from anystereo_tpu_torch.train.state import create_train_state
-    from anystereo_tpu_torch.train.step import loss_and_metrics, make_train_step
+    from anystereo_tpu_torch.train.step import make_train_step
 
     tcfg = TrainConfig()
-    model = build_model(ModelConfig(), device=DEVICE, seed=0)
+    model = build_model(_config(core), device=DEVICE, seed=0)
     state = create_train_state(model, tcfg)
     step = make_train_step(model, tcfg)
     batch = _train_batch(torch, tcfg.batch_size, TRAIN_H, TRAIN_W, tcfg.sample_q, seed=4)
     it = tcfg.train_iters
-    per_step = {"gather_pyramid_aligned": 2 * it, "gather_pyramid_aligned_bwd": 2 * it,
-                "gather_rows": 0, "scatter_rows_add": it}
-    forced = dict(per_step, gather_rows=3 * it, scatter_rows_add=3 * it)
+    per_step = dict.fromkeys((k.__name__ for k in kernels), 0)
+    per_step.update(_lookup_counts(core, flavor, it))
+    per_step.update({name + "_bwd": n for name, n in _lookup_counts(core, flavor, it).items()})
+    per_step.update(gather_rows=3 * it, scatter_rows_add=3 * it)
     for k in kernels:
         k.launches = 0
     start = {n: p.detach().clone() for n, p in model.named_parameters()}
     times, losses = [], []
     torch.cuda.reset_peak_memory_stats()
-    for i in range(1 + TRAIN_STEPS):
-        before = _counts(kernels)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, metrics = step(state, batch)
-        torch.cuda.synchronize()
-        dt = (time.perf_counter() - t0) * 1e3
-        if i:
-            times.append(dt)
-        _expect_launches(kernels, before, per_step, f"training step {i}")
-        loss, gnorm = float(metrics["loss"]), metrics["grad_norm"]
-        losses.append(loss)
-        if not (loss == loss and abs(loss) != float("inf") and 0 < gnorm < float("inf")):
-            raise AssertionError(f"step {i}: loss {loss}, grad_norm {gnorm}")
-        if metrics["nonfinite_skips"] != 0 or state.total_notfinite != 0:
-            raise AssertionError(f"step {i} was skipped for non-finite gradients")
-        grads = {n: p.grad for n, p in model.named_parameters()}
-        bad = [n for n, g in grads.items() if g is None or not bool(torch.isfinite(g).all())]
-        if bad:
-            raise AssertionError(f"step {i}: parameters without a finite gradient: {bad}")
+    with _flavor(flavor):
+        for i in range(1 + TRAIN_STEPS):
+            before = _counts(kernels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) * 1e3
+            if i:
+                times.append(dt)
+            _expect_launches(kernels, before, per_step, f"{core} training step {i} ({flavor})")
+            loss, gnorm = float(metrics["loss"]), metrics["grad_norm"]
+            losses.append(loss)
+            if not (loss == loss and abs(loss) != float("inf") and 0 < gnorm < float("inf")):
+                raise AssertionError(f"step {i}: loss {loss}, grad_norm {gnorm}")
+            if metrics["nonfinite_skips"] != 0 or state.total_notfinite != 0:
+                raise AssertionError(f"step {i} was skipped for non-finite gradients")
+            grads = {n: p.grad for n, p in model.named_parameters()}
+            bad = [n for n, g in grads.items() if g is None or not bool(torch.isfinite(g).all())]
+            if bad:
+                raise AssertionError(f"step {i}: parameters without a finite gradient: {bad}")
+    launches = {k.__name__: k.launches for k in kernels}
     peak = torch.cuda.max_memory_allocated() / 2**30
     zero = [n for n, g in grads.items() if not bool(g.any())]
     still = [n for n, p in model.named_parameters()
              if n not in zero and torch.equal(p.detach(), start[n])]
     if still:
         raise AssertionError(f"parameters with a gradient that did not change: {still}")
-    _log(f"[train] IGEV training step {tcfg.batch_size}x{TRAIN_H}x{TRAIN_W}, Q {tcfg.sample_q}, "
-         f"{it} iters, bf16: {sum(times) / len(times):.2f} ms/step over {TRAIN_STEPS} steps "
-         f"({', '.join(f'{t:.2f}' for t in times)} ms; warm-up excluded), peak {peak:.2f} GiB; "
-         f"losses {[round(v, 4) for v in losses]}; last grad_norm {gnorm:.3f}, lr "
-         f"{metrics['lr']:.3e}, epe {float(metrics['epe']):.3f} px; launches per step {per_step}; "
-         f"parameters with an exactly zero gradient: {zero}")
-
-    # one forward and backward under each dispatch, from the same state: with
-    # the kernels forced, the three query gathers of every decode launch the
-    # gather kernel forward and the scatter kernel backward
-    pair = []
-    for impl, want in ((None, per_step), ("kernel", forced)):
-        set_gather_override(impl)
-        try:
-            before = _counts(kernels)
-            state.optimizer.zero_grad()
-            loss, _ = loss_and_metrics(model, tcfg, batch)
-            loss.backward()
-            torch.cuda.synchronize()
-        finally:
-            set_gather_override(None)
-        _expect_launches(kernels, before, want, f"forward+backward, gather override {impl!r}")
-        pair.append(float(loss.detach()))
-    rel = abs(pair[0] - pair[1]) / abs(pair[0])
-    _log(f"[train] loss under the default dispatch {pair[0]:.6f}, with the gather kernels forced "
-         f"{pair[1]:.6f} (relative difference {rel:.2e}, bound 1e-3); launches when forced {forced}")
-    if not rel <= 1e-3:
-        raise AssertionError(f"forcing the gather kernels changed the loss: {pair}")
-    # whole steps under each dispatch, alternated within this run (the host's
-    # speed differs between runs): does sending every table to the kernels
-    # show end to end?
-    by_impl = {None: [], "kernel": []}
-    for impl in (None, "kernel", "kernel", None, None, "kernel"):
-        set_gather_override(impl)
-        try:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, metrics = step(state, batch)
-            torch.cuda.synchronize()
-            by_impl[impl].append((time.perf_counter() - t0) * 1e3)
-        finally:
-            set_gather_override(None)
-        if metrics["nonfinite_skips"] != 0:
-            raise AssertionError(f"a step under gather override {impl!r} was skipped")
-    _log("[train] ms/step alternating the dispatch: default "
-         f"{[round(t, 2) for t in by_impl[None]]}, every table through the gather kernels "
-         f"{[round(t, 2) for t in by_impl['kernel']]}")
-    launches = {k.__name__: k.launches for k in kernels}
+    _log(f"[train] {core.upper()} training step {tcfg.batch_size}x{TRAIN_H}x{TRAIN_W}, Q "
+         f"{tcfg.sample_q}, {it} iters, bf16, lookup {flavor}: {sum(times) / len(times):.2f} "
+         f"ms/step over {TRAIN_STEPS} steps ({', '.join(f'{t:.2f}' for t in times)} ms; warm-up "
+         f"excluded), peak {peak:.2f} GiB; losses {[round(v, 4) for v in losses]}; last grad_norm "
+         f"{gnorm:.3f}, lr {metrics['lr']:.3e}, epe {float(metrics['epe']):.3f} px; launches per "
+         f"step {({k: v for k, v in per_step.items() if v})}; parameters with an exactly zero "
+         f"gradient: {zero}")
     return launches, (model, tcfg, state, step, batch)
 
 
 # ----------------------------------------------------------------- phase 5
 
 
-def _check_eval(torch):
-    from anystereo_tpu_torch.config import ModelConfig
-    from anystereo_tpu_torch.nn.model import build_model
+@contextlib.contextmanager
+def _all_plain(lookups_only=False):
+    """Every lookup (and, unless `lookups_only`, every query gather) through
+    its plain version, under PyTorch's own autograd."""
     from anystereo_tpu_torch.ops import lookup
     from anystereo_tpu_torch.ops.kernels.lookup import gather_pyramid_aligned_ref
+    from anystereo_tpu_torch.ops.kernels.lookup_window import gather_pyramid_window_pm_ref
+    from anystereo_tpu_torch.ops.sampling import set_gather_plain
 
-    model = build_model(ModelConfig(compute_dtype="float32"), device=DEVICE, seed=0)
-    left, right = _images(torch, 1)
-    kernel_out = model(left, right, iters=CHECK_ITERS)
-    kernel_fn = lookup.gather_pyramid_aligned
+    kernel_fns = (lookup.gather_pyramid_aligned, lookup.gather_pyramid_window_pm)
     lookup.gather_pyramid_aligned = gather_pyramid_aligned_ref
+    lookup.gather_pyramid_window_pm = gather_pyramid_window_pm_ref
+    set_gather_plain(not lookups_only)
     try:
-        plain_out = model(left, right, iters=CHECK_ITERS)
+        yield
     finally:
-        lookup.gather_pyramid_aligned = kernel_fn
-    torch.cuda.synchronize()
-    diffs = {f: float((getattr(kernel_out, f) - getattr(plain_out, f)).abs().max())
-             for f in ("init_disp", "disp_lowres", "disp_final")}
-    _log(f"[check] fp32 forward, {CHECK_ITERS} iters, kernel vs plain lookup: "
-         f"max |diff| {json.dumps(diffs)} (bound {MODEL_CHECK_ATOL} px)")
+        lookup.gather_pyramid_aligned, lookup.gather_pyramid_window_pm = kernel_fns
+        set_gather_plain(False)
+
+
+def _check_eval(torch, kernels, core):
+    """fp32 eval forward, CHECK_ITERS iterations: under each flavor through
+    the kernels (with that flavor's launches counted: one a volume and
+    iteration, none of the other's) against the same with every lookup forced
+    to its plain version, and the two flavors against each other."""
+    from anystereo_tpu_torch.nn.model import build_model
+
+    model = build_model(_config(core, compute_dtype="float32"), device=DEVICE, seed=0)
+    left, right = _images(torch, 1)
+    fields = ("disp_lowres", "disp_final") if core == "raft" else \
+        ("init_disp", "disp_lowres", "disp_final")
+    outs = {}
+    for flavor in ("aligned", "classify"):
+        want = dict.fromkeys((k.__name__ for k in kernels), 0)
+        want.update(_lookup_counts(core, flavor, CHECK_ITERS))
+        with _flavor(flavor):
+            before = _counts(kernels)
+            kernel_out = model(left, right, iters=CHECK_ITERS)
+            _expect_launches(kernels, before, want, f"{core} fp32 eval forward ({flavor})")
+            with _all_plain(lookups_only=True):
+                plain_out = model(left, right, iters=CHECK_ITERS)
+            _expect_launches(kernels, before, want, f"{core} fp32 eval forward, all plain")
+        torch.cuda.synchronize()
+        diffs = {f: float((getattr(kernel_out, f) - getattr(plain_out, f)).abs().max())
+                 for f in fields}
+        _log(f"[check] {core.upper()} fp32 forward, {CHECK_ITERS} iters, lookup {flavor}, kernel vs "
+             f"plain: max |diff| {json.dumps(diffs)} (bound {MODEL_CHECK_ATOL} px)")
+        if not all(d <= MODEL_CHECK_ATOL for d in diffs.values()):
+            raise AssertionError(f"kernel and plain forwards disagree ({core}, {flavor}): {diffs}")
+        outs[flavor] = kernel_out
+    diffs = {f: float((getattr(outs["classify"], f) - getattr(outs["aligned"], f)).abs().max())
+             for f in fields}
+    _log(f"[check] {core.upper()} fp32 forward, classify vs aligned: max |diff| {json.dumps(diffs)} "
+         f"(bound {MODEL_CHECK_ATOL} px)")
     if not all(d <= MODEL_CHECK_ATOL for d in diffs.values()):
-        raise AssertionError(f"kernel and plain forwards disagree: {diffs}")
+        raise AssertionError(f"the lookup flavors disagree ({core}): {diffs}")
 
 
-def _fp32_train_runs(torch):
+def _fp32_train_runs(torch, core="igev", flavor="aligned"):
     """Two closures over one fp32 model and batch (batch 1, 4 iterations,
     4,096 queries): the training loss and every parameter's gradient through
     the kernels, and the same with every kernel forced to its plain version
-    (the lookup to `gather_pyramid_aligned_ref` under PyTorch's own autograd,
-    the query gathers to plain indexing)."""
-    from anystereo_tpu_torch.config import ModelConfig, TrainConfig
+    (the lookups to their `*_ref` under PyTorch's own autograd, the query
+    gathers to plain indexing)."""
+    from anystereo_tpu_torch.config import TrainConfig
     from anystereo_tpu_torch.nn.model import build_model
-    from anystereo_tpu_torch.ops import lookup
-    from anystereo_tpu_torch.ops.kernels.lookup import gather_pyramid_aligned_ref
-    from anystereo_tpu_torch.ops.sampling import set_gather_override
     from anystereo_tpu_torch.train.step import loss_and_metrics
 
     tcfg = TrainConfig(train_iters=CHECK_ITERS)
-    model = build_model(ModelConfig(compute_dtype="float32"), device=DEVICE, seed=0)
+    model = build_model(_config(core, compute_dtype="float32"), device=DEVICE, seed=0)
     batch = _train_batch(torch, 1, TRAIN_H, TRAIN_W, 4096, seed=5)
 
     def through_kernels():
         for p in model.parameters():
             p.grad = None
-        loss, _ = loss_and_metrics(model, tcfg, batch)
-        loss.backward()
+        with _flavor(flavor):
+            loss, _ = loss_and_metrics(model, tcfg, batch)
+            loss.backward()
         torch.cuda.synchronize()
         return float(loss.detach()), {n: p.grad for n, p in model.named_parameters()}
 
     def plain():
-        kernel_fn = lookup.gather_pyramid_aligned
-        lookup.gather_pyramid_aligned = gather_pyramid_aligned_ref
-        set_gather_override("torch")
-        try:
+        with _all_plain():
             return through_kernels()
-        finally:
-            lookup.gather_pyramid_aligned = kernel_fn
-            set_gather_override(None)
 
     return through_kernels, plain
 
 
 def _grad_diff(got, want):
-    """(worst ||dg|| / ||g||, its parameter, the parameters past the bound)."""
+    """(worst ||dg|| / ||g||, its parameter, the parameters past the bound).
+    The bound's absolute part is GRAD_CHECK_ATOL or, if larger, 1e-8 of the
+    largest gradient norm: a conv bias in front of an instance norm (the RAFT
+    matching encoder's) has a true gradient of zero, and what both runs hold
+    there is the rounding noise of sums of that size."""
     worst, worst_name, bad = 0.0, None, []
+    floor = max([GRAD_CHECK_ATOL] + [1e-8 * float(g.norm()) for g in want.values() if g is not None])
     for name, g in want.items():
         if g is None or got[name] is None:  # not reached by the loss: on both sides
             if g is not got[name]:
                 bad.append((name, "reached on one side only"))
             continue
         delta, norm = float((got[name] - g).norm()), float(g.norm())
-        if norm > 0 and delta / norm > worst:
+        if norm > floor and delta / norm > worst:
             worst, worst_name = delta / norm, name
-        if not delta <= GRAD_CHECK_RTOL * norm + GRAD_CHECK_ATOL:
+        if not delta <= GRAD_CHECK_RTOL * norm + floor:
             bad.append((name, delta, norm))
     return worst, worst_name, bad
 
 
-def _check_train(torch):
+def _check_train(torch, kernels, core, flavor):
     """fp32 training loss and gradients through the kernels against the same
-    with every kernel forced to its plain version."""
-    through_kernels, plain = _fp32_train_runs(torch)
+    with every kernel forced to its plain version (which launches nothing)."""
+    through_kernels, plain = _fp32_train_runs(torch, core, flavor)
+    want = dict.fromkeys((k.__name__ for k in kernels), 0)
+    want.update(_lookup_counts(core, flavor, CHECK_ITERS))
+    want.update({name + "_bwd": n for name, n in _lookup_counts(core, flavor, CHECK_ITERS).items()})
+    want.update(gather_rows=3 * CHECK_ITERS, scatter_rows_add=3 * CHECK_ITERS)
+    before = _counts(kernels)
     k_loss, k_grads = through_kernels()
+    _expect_launches(kernels, before, want, f"{core} fp32 forward and backward ({flavor})")
     p_loss, p_grads = plain()
+    _expect_launches(kernels, before, want, f"{core} fp32 forward and backward, all plain")
     worst, worst_name, bad = _grad_diff(k_grads, p_grads)
     rel = abs(k_loss - p_loss) / abs(p_loss)
-    _log(f"[check] fp32 training loss and gradients, {CHECK_ITERS} iters, kernels vs plain: loss "
+    _log(f"[check] {core.upper()} fp32 training loss and gradients, {CHECK_ITERS} iters, lookup "
+         f"{flavor}, kernels vs plain: loss "
          f"{k_loss:.6f} vs {p_loss:.6f} (relative {rel:.2e}, bound {LOSS_CHECK_RTOL}); worst "
          f"||dg||/||g|| {worst:.2e} ({worst_name}) over {len(p_grads)} parameters "
          f"(bound {GRAD_CHECK_RTOL})")
@@ -655,7 +887,7 @@ def phase_spread(torch):
              f"runs: " + "; ".join(f"{k} {v[0]:.2e} ({v[1]})" for k, v in worst.items()))
 
 
-def phase_check(torch):
+def phase_check(torch, kernels):
     """fp32 without TF32, and cuDNN held to its deterministic algorithms: its
     other backward algorithms sum with atomics, and two runs of one and the
     same path then differ by up to 1e-2 relative in the cost aggregation's
@@ -663,8 +895,12 @@ def phase_check(torch):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
-    _check_eval(torch)
-    _check_train(torch)
+    for core in ("igev", "raft"):
+        _check_eval(torch, kernels, core)
+        torch.cuda.empty_cache()
+    _check_train(torch, kernels, "igev", "aligned")
+    torch.cuda.empty_cache()
+    _check_train(torch, kernels, "raft", "classify")
 
 
 # ----------------------------------------------------------------- --profile
@@ -780,39 +1016,60 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; nothing was run", file=sys.stderr)
         return 2
+    from anystereo_tpu_torch.ops.kernels import lookup_window as tw
     from anystereo_tpu_torch.ops.kernels.gather import gather_rows, scatter_rows_add
     from anystereo_tpu_torch.ops.kernels.lookup import (
         gather_pyramid_aligned,
         gather_pyramid_aligned_bwd,
     )
 
-    kernels = [gather_pyramid_aligned, gather_pyramid_aligned_bwd, gather_rows, scatter_rows_add]
+    # every wrapper that counts launches; the main paths reach the first six
+    kernels = [gather_pyramid_aligned, gather_pyramid_aligned_bwd, tw.gather_pyramid_window_pm,
+               tw.gather_pyramid_window_pm_bwd, gather_rows, scatter_rows_add,
+               tw.gather_pyramid_window_t, tw.gather_pyramid_window_t_bwd,
+               tw.gather_pyramid_window, tw.gather_pyramid_window_bwd]
     profile = "--profile" in argv
     card = _card()
     _log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
          f"CUDA {torch.version.cuda}; nvidia-smi: {card}")
     phase_build()
     records = phase_kernels(torch)
-    eval_launches, model = phase_model(torch, kernels)
+    by_path = {}
+    by_path["eval_igev"], model = phase_model(torch, kernels, "igev", "aligned", keep=profile)
     if profile:
         phase_profile(torch, model)
     del model
     torch.cuda.empty_cache()
-    train_launches, trained = phase_train(torch, kernels)
+    by_path["eval_raft"], _ = phase_model(torch, kernels, "raft", "aligned")
+    torch.cuda.empty_cache()
+    classify, _ = phase_model(torch, kernels, "raft", "classify")
+    by_path["eval_raft"] = {k: v + classify[k] for k, v in by_path["eval_raft"].items()}
+    torch.cuda.empty_cache()
+    by_path["train_igev"], trained = phase_train(torch, kernels, "igev", "aligned")
     if profile:
         phase_profile_train(torch, *trained)
     del trained
     torch.cuda.empty_cache()
-    phase_check(torch)
+    by_path["train_raft"], trained = phase_train(torch, kernels, "raft", "classify")
+    del trained
+    torch.cuda.empty_cache()
+    phase_check(torch, kernels)
     if "--spread" in argv:
         phase_spread(torch)
     for record in records:
         name = record["name"]
-        record["launches_eval"], record["launches_train"] = eval_launches[name], train_launches[name]
-        record["launches"] = eval_launches[name] + train_launches[name]
+        if record["paths"] == ["op"]:
+            # reached only as a public function: launched and held in the
+            # kernels phase, on no system path
+            record["launches_by_path"] = {"op": record["op_launches"]}
+        else:
+            record["launches_by_path"] = {path: by_path[path][name] for path in by_path}
+            idle = [path for path in record["paths"] if by_path[path][name] == 0]
+            if idle:
+                raise AssertionError(f"{name} never launched on {idle}: {record['launches_by_path']}")
+        record["launches"] = sum(record["launches_by_path"].values())
         if record["launches"] == 0:
-            raise AssertionError(f"{name} never launched on a main path: "
-                                 f"{eval_launches}, {train_launches}")
+            raise AssertionError(f"{name} was never launched: {record['launches_by_path']}")
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

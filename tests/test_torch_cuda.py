@@ -12,10 +12,10 @@ holds the same kernels to their plain versions at the main-path shapes.
 import pytest
 import torch
 
-from anystereo_tpu_torch.config import ModelConfig
+from anystereo_tpu_torch.config import ModelConfig, TrainConfig, raft_config
 from anystereo_tpu_torch.nn.model import build_model
-from anystereo_tpu_torch.config import TrainConfig
 from anystereo_tpu_torch.ops import lookup
+from anystereo_tpu_torch.ops.kernels import lookup_window as tw
 from anystereo_tpu_torch.ops.kernels.gather import (
     gather_rows,
     gather_rows_hybrid,
@@ -29,7 +29,7 @@ from anystereo_tpu_torch.ops.kernels.lookup import (
     gather_pyramid_aligned_bwd_ref,
     gather_pyramid_aligned_ref,
 )
-from anystereo_tpu_torch.ops.sampling import set_gather_override
+from anystereo_tpu_torch.ops.sampling import set_gather_plain
 from anystereo_tpu_torch.train.step import loss_and_metrics
 
 pytestmark = pytest.mark.cuda
@@ -47,7 +47,7 @@ def card():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("levels", [1, 2, 3])
+@pytest.mark.parametrize("levels", [1, 2, 3, 4])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 def test_lookup_kernel_matches_plain_version(card, levels, out_dtype):
     """The kernel repeats the plain version's fp32 roundings, so the fp32
@@ -84,7 +84,7 @@ def test_eval_forward_through_kernel(card, monkeypatch):
     torch.testing.assert_close(out.disp_final, plain.disp_final, rtol=0, atol=1e-3)
 
 
-@pytest.mark.parametrize("levels", [1, 2, 3])
+@pytest.mark.parametrize("levels", [1, 2, 3, 4])
 @pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
 def test_lookup_backward_kernel_matches_plain_version(card, levels, g_dtype):
     """The backward kernel repeats the plain version's operations in its
@@ -174,20 +174,35 @@ def test_gather_functions_backward_through_the_scatter_kernel(card, fn, fwd_laun
     torch.testing.assert_close(table.grad.float(), want, rtol=2.0 ** -7, atol=1e-3)
 
 
-@pytest.mark.parametrize("impl,gathers", [(None, (0, 1)), ("kernel", (3, 3)), ("torch", (0, 0))])
-def test_training_forward_backward_through_kernels(card, impl, gathers):
-    """A small fp32 training forward and backward: 2 lookups forward and 2
-    backward per iteration; per decode the query gathers the dispatch asks
-    for; loss and gradients agree with the all-plain run."""
-    model = build_model(ModelConfig(max_disp=32, compute_dtype="float32"), device=card, seed=0)
-    tcfg = TrainConfig(train_iters=2)
+_CORES = {"igev": lambda **kw: ModelConfig(**kw), "raft": raft_config}
+
+
+def _plain_lookups(monkeypatch_like):
+    """Point `ops.lookup` at the plain versions of both lookup kernels."""
+    monkeypatch_like(lookup, "gather_pyramid_aligned", gather_pyramid_aligned_ref)
+    monkeypatch_like(lookup, "gather_pyramid_window_pm", tw.gather_pyramid_window_pm_ref)
+
+
+@pytest.mark.parametrize("core", sorted(_CORES))
+@pytest.mark.parametrize("flavor", lookup.LOOKUP_KERNELS)
+def test_training_forward_backward_through_kernels(card, monkeypatch, core, flavor):
+    """A small fp32 training forward and backward of each core under each
+    lookup flavor: per iteration one lookup forward and one backward for each
+    volume (IGEV two, RAFT one) through that flavor's kernels and none
+    through the other's; per decode three query gathers forward and three
+    scatter-adds backward; loss and gradients agree with the all-plain run."""
+    monkeypatch.setenv("ANYSTEREO_LOOKUP_KERNEL", flavor)
+    model = build_model(_CORES[core](max_disp=32, compute_dtype="float32"), device=card, seed=0)
+    iters = 2
+    tcfg = TrainConfig(train_iters=iters)
     g = torch.Generator(device=card).manual_seed(5)
-    left = torch.rand(2, 64, 128, 3, device=card, generator=g) * 255
+    left = torch.rand(2, 64, 160, 3, device=card, generator=g) * 255
     batch = {"left": left, "right": torch.roll(left, shifts=-4, dims=2),
              "coords": torch.rand(2, 1000, 2, device=card, generator=g) * 2 - 1,
              "scale": torch.tensor([1.5, 2.5], device=card),
              "gt": torch.full((2, 1000), 6.0, device=card), "valid": torch.ones(2, 1000, device=card)}
-    kernels = (gather_pyramid_aligned, gather_pyramid_aligned_bwd, gather_rows, scatter_rows_add)
+    kernels = (gather_pyramid_aligned, gather_pyramid_aligned_bwd, tw.gather_pyramid_window_pm,
+               tw.gather_pyramid_window_pm_bwd, gather_rows, scatter_rows_add)
 
     def run():
         for p in model.parameters():
@@ -198,21 +213,125 @@ def test_training_forward_backward_through_kernels(card, impl, gathers):
         return loss.detach(), {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
 
     before = [k.launches for k in kernels]
-    set_gather_override(impl)
+    loss, grads = run()
+    vols = iters * (2 if core == "igev" else 1)
+    mine, other = [vols, vols], [0, 0]
+    want = (mine + other if flavor == "aligned" else other + mine) + [3 * iters, 3 * iters]
+    assert [k.launches - b for k, b in zip(kernels, before)] == want
+    _plain_lookups(monkeypatch.setattr)
+    set_gather_plain(True)
     try:
-        loss, grads = run()
-    finally:
-        set_gather_override(None)
-    assert [k.launches - b for k, b in zip(kernels, before)] == [4, 4, 2 * gathers[0], 2 * gathers[1]]
-    kernel_fn = lookup.gather_pyramid_aligned
-    lookup.gather_pyramid_aligned = gather_pyramid_aligned_ref
-    set_gather_override("torch")
-    try:
+        before = [k.launches for k in kernels]
         plain_loss, plain_grads = run()
     finally:
-        lookup.gather_pyramid_aligned = kernel_fn
-        set_gather_override(None)
+        set_gather_plain(False)
+    assert [k.launches for k in kernels] == before  # the all-plain run launches nothing
     torch.testing.assert_close(loss, plain_loss, rtol=1e-5, atol=0)
     assert set(grads) == set(plain_grads)
-    for name, want in plain_grads.items():
-        assert float((grads[name] - want).norm()) <= 1e-3 * float(want.norm()) + 1e-7, name
+    # absolute part: 1e-7 or, if larger, 1e-8 of the largest gradient norm (a
+    # conv bias in front of an instance norm has a true gradient of zero and
+    # holds the rounding noise of sums of that size on both sides)
+    floor = max(1e-7, 1e-8 * max(float(g.norm()) for g in plain_grads.values()))
+    for name, want_g in plain_grads.items():
+        assert float((grads[name] - want_g).norm()) <= 1e-3 * float(want_g.norm()) + floor, name
+
+
+# ------------------------------------------------- the window-pyramid kernels
+
+# name: (function, its backward, plain versions, volume is [L, R], output is [C, R])
+_LAYOUTS = {
+    "pm": (tw.gather_pyramid_window_pm, tw.gather_pyramid_window_pm_bwd,
+           tw.gather_pyramid_window_pm_ref, tw.gather_pyramid_window_pm_bwd_ref, True, False),
+    "t": (tw.gather_pyramid_window_t, tw.gather_pyramid_window_t_bwd,
+          tw.gather_pyramid_window_t_ref, tw.gather_pyramid_window_t_bwd_ref, True, True),
+    "rows": (tw.gather_pyramid_window, tw.gather_pyramid_window_bwd,
+             tw.gather_pyramid_window_ref, tw.gather_pyramid_window_bwd_ref, False, False),
+}
+_FAR = (-1e6, 1e6, -3e9, 3e9, -60.0, 1e4)
+
+
+def _window_inputs(card, layout, rows, length, levels, seed=0):
+    g = torch.Generator(device=card).manual_seed(seed)
+    vol = torch.randn(rows, length, device=card, generator=g)
+    bases = torch.stack([torch.rand(rows, device=card, generator=g) * ((length >> lvl) + 16) - 10
+                         for lvl in range(levels)], 1)
+    bases[: len(_FAR)] = torch.tensor(_FAR, device=card)[:, None]
+    cot = torch.randn(rows, levels * 9, device=card, generator=g)
+    vol_t, out_t = _LAYOUTS[layout][4:]
+    return (vol.t().contiguous() if vol_t else vol, bases.t().contiguous() if vol_t else bases,
+            cot.t().contiguous() if out_t else cot)
+
+
+@pytest.mark.parametrize("layout", sorted(_LAYOUTS))
+@pytest.mark.parametrize("levels", [1, 2, 3, 4, 5])
+def test_window_kernels_match_plain_versions_exactly(card, layout, levels):
+    """Forward and backward repeat the plain versions' operations in their
+    order with round-to-nearest intrinsics, so they agree bit for bit; odd
+    tails (L 21, 39, 5), far bases (+-1e6, +-3e9) give written zeros."""
+    fn, bwd, ref, bwd_ref, vol_t, out_t = _LAYOUTS[layout]
+    for rows, length in ((4096, 48), (1000, 312), (777, 39), (300, 21), (33, 5)):
+        vol, bases, cot = _window_inputs(card, layout, rows, length, levels)
+        before = (fn.launches, bwd.launches)
+        got, want = fn(vol, bases, 9), ref(vol, bases, 9)
+        dgot, dwant = bwd(bases, cot, length, 9), bwd_ref(bases, cot, length, 9)
+        torch.cuda.synchronize()
+        assert (fn.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+        assert got.dtype == torch.float32 and got.shape == want.shape and torch.equal(got, want)
+        assert dgot.shape == vol.shape and torch.equal(dgot, dwant)
+        far_out = got[:, : len(_FAR)] if out_t else got[: len(_FAR)]
+        far_grad = dgot[:, : len(_FAR)] if vol_t else dgot[: len(_FAR)]
+        assert not far_out.any() and not far_grad.any()
+        with pytest.raises(ValueError):  # a strided view is refused, not copied silently
+            fn(vol[:, :-1], bases[:, :-1] if vol_t else bases, 9)
+
+
+def test_window_layouts_agree_on_the_card(card):
+    vol, bases, cot = _window_inputs(card, "rows", 5000, 80, 4, seed=1)
+    vt, bt = vol.t().contiguous(), bases.t().contiguous()
+    rows, pm, tt = tw.gather_pyramid_window(vol, bases, 9), tw.gather_pyramid_window_pm(vt, bt, 9), \
+        tw.gather_pyramid_window_t(vt, bt, 9)
+    assert torch.equal(rows, pm) and torch.equal(tt.t(), pm)
+    d_rows = tw.gather_pyramid_window_bwd(bases, cot, 80, 9)
+    d_pm = tw.gather_pyramid_window_pm_bwd(bt, cot, 80, 9)
+    d_t = tw.gather_pyramid_window_t_bwd(bt, cot.t().contiguous(), 80, 9)
+    assert torch.equal(d_rows.t(), d_pm) and torch.equal(d_t, d_pm)
+
+
+@pytest.mark.parametrize("layout", sorted(_LAYOUTS))
+def test_window_lookup_is_differentiable_through_the_kernels(card, layout):
+    fn, bwd, ref, _, _, _ = _LAYOUTS[layout]
+    vol, bases, cot = _window_inputs(card, layout, 2048, 80, 4, seed=2)
+    vol.requires_grad_(True)
+    before = (fn.launches, bwd.launches)
+    fn(vol, bases, 9).backward(cot)
+    assert (fn.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+    plain = vol.detach().clone().requires_grad_(True)
+    ref(plain, bases, 9).backward(cot)  # PyTorch's own autograd of the plain forward
+    torch.testing.assert_close(vol.grad, plain.grad, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("core", sorted(_CORES))
+@pytest.mark.parametrize("flavor", lookup.LOOKUP_KERNELS)
+def test_eval_forward_counts_and_flavors_agree(card, monkeypatch, core, flavor):
+    """A small fp32 eval forward: one lookup launch per volume and iteration
+    through the chosen flavor's kernel only, within 1e-3 px of the all-plain
+    forward and of the other flavor."""
+    model = build_model(_CORES[core](max_disp=32, compute_dtype="float32"), device=card, seed=0)
+    g = torch.Generator(device=card).manual_seed(1)
+    left = torch.rand(1, 64, 160, 3, device=card, generator=g) * 255
+    right = torch.roll(left, shifts=-4, dims=2)
+    other = [k for k in lookup.LOOKUP_KERNELS if k != flavor][0]
+    monkeypatch.setenv("ANYSTEREO_LOOKUP_KERNEL", other)
+    other_out = model(left, right, iters=3)
+    monkeypatch.setenv("ANYSTEREO_LOOKUP_KERNEL", flavor)
+    before = (gather_pyramid_aligned.launches, tw.gather_pyramid_window_pm.launches)
+    out = model(left, right, iters=3)
+    torch.cuda.synchronize()
+    n = 3 * (2 if core == "igev" else 1)
+    got = (gather_pyramid_aligned.launches - before[0], tw.gather_pyramid_window_pm.launches - before[1])
+    assert got == ((n, 0) if flavor == "aligned" else (0, n))
+    assert out.disp_final.shape == (1, 64, 160) and torch.isfinite(out.disp_final).all()
+    _plain_lookups(monkeypatch.setattr)
+    plain = model(left, right, iters=3)
+    torch.testing.assert_close(out.disp_final, plain.disp_final, rtol=0, atol=1e-3)
+    torch.testing.assert_close(out.disp_final, other_out.disp_final, rtol=0, atol=1e-3)

@@ -152,22 +152,25 @@ def test_wrappers_reject_bad_input(bad):
 
 # ------------------------------------------------------------- the dispatch
 
-_J_IMPL = {"torch": "jnp", "kernel": "pallas", "hybrid": "hybrid"}
+_J_IMPLS = ("jnp", "pallas", "hybrid")
 
 
 @pytest.fixture
 def no_override(monkeypatch):
     monkeypatch.delenv("ANYSTEREO_GATHER_IMPL", raising=False)
     yield
-    tsamp.set_gather_override(None)
+    tsamp.set_gather_plain(False)
     jsamp.set_gather_override(None)
 
 
-@pytest.mark.parametrize("impl", tsamp.GATHER_IMPLS)
-def test_gather_rows_flat_under_each_override(rng, no_override, impl):
+@pytest.mark.parametrize("plain", [False, True])
+@pytest.mark.parametrize("jimpl", _J_IMPLS)
+def test_gather_rows_flat_under_each_override(rng, no_override, jimpl, plain):
+    """The port's one gather path (and its forced plain version) against each
+    of the JAX package's three implementations."""
     table, idx, cot = _rand(rng, 2, 120, 9, 300)
-    tsamp.set_gather_override(impl)
-    jsamp.set_gather_override(_J_IMPL[impl], interpret=True)
+    tsamp.set_gather_plain(plain)
+    jsamp.set_gather_override(jimpl, interpret=True)
     t = torch.from_numpy(table).requires_grad_(True)
     got = tsamp.gather_rows_flat(t, torch.from_numpy(idx).long())  # indices as nearest_sample makes them
     got.backward(torch.from_numpy(cot))
@@ -177,27 +180,46 @@ def test_gather_rows_flat_under_each_override(rng, no_override, impl):
     np.testing.assert_allclose(t.grad.numpy(), np.asarray(vjp(j_cot)[0]), rtol=1e-5, atol=1e-5)
 
 
-def test_default_dispatch_and_env(no_override, monkeypatch):
-    assert tsamp._gather_impl(9) == "hybrid" and tsamp._gather_impl(16) == "hybrid"
-    assert tsamp._gather_impl(40) == "torch" and tsamp._gather_impl(184) == "torch"
-    monkeypatch.setenv("ANYSTEREO_GATHER_IMPL", "kernel")
-    assert tsamp._gather_impl(184) == "kernel"
-    tsamp.set_gather_override("torch")  # the override wins over the environment
-    assert tsamp._gather_impl(9) == "torch"
-    tsamp.set_gather_override(None)
-    monkeypatch.setenv("ANYSTEREO_GATHER_IMPL", "pallas")
-    with pytest.raises(ValueError):
-        tsamp._gather_impl(9)
-    with pytest.raises(ValueError):
-        tsamp.set_gather_override("jnp")
+class _Recorder:
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, table, idx):
+        self.calls.append((tuple(table.shape), idx.dtype, table.is_contiguous() and idx.is_contiguous()))
+        return table.new_empty((table.shape[0], idx.shape[1], table.shape[2]))
 
 
-@pytest.mark.parametrize("impl", [None, "kernel"])
-def test_nearest_sample_matches_jax(rng, no_override, impl):
+@pytest.mark.parametrize("channels", [9, 16, 40, 184])
+def test_default_dispatch_and_env(no_override, monkeypatch, channels):
+    """One rule: a table that is not on the CPU goes to `gather_rows` whatever
+    its width (int32 contiguous indices), a CPU table to the plain version;
+    the one switch forces the plain version; the environment is not read."""
+    kernel, plain = _Recorder(), _Recorder()
+    monkeypatch.setattr(tsamp, "gather_rows", kernel)
+    monkeypatch.setattr(tsamp, "gather_rows_ref", plain)
+    monkeypatch.setenv("ANYSTEREO_GATHER_IMPL", "torch")
+    off_cpu = torch.zeros(2, 30, channels, device="meta")
+    idx = torch.zeros(2, 7, dtype=torch.int64, device="meta")
+    tsamp.gather_rows_flat(off_cpu.transpose(0, 1).contiguous().transpose(0, 1), idx)
+    assert kernel.calls == [((2, 30, channels), torch.int32, True)] and plain.calls == []
+    tsamp.gather_rows_flat(torch.zeros(2, 30, channels), torch.zeros(2, 7, dtype=torch.int64))
+    assert len(kernel.calls) == 1 and len(plain.calls) == 1
+    tsamp.set_gather_plain(True)
+    tsamp.gather_rows_flat(off_cpu, idx)
+    assert len(kernel.calls) == 1 and len(plain.calls) == 2
+    tsamp.set_gather_plain(False)
+    tsamp.gather_rows_flat(off_cpu, idx)
+    assert len(kernel.calls) == 2
+    for gone in ("GATHER_IMPLS", "set_gather_override", "_gather_impl", "gather_rows_hybrid"):
+        assert not hasattr(tsamp, gone)
+
+
+@pytest.mark.parametrize("plain", [False, True])
+def test_nearest_sample_matches_jax(rng, no_override, plain):
     feat = rng.randn(2, 12, 17, 9).astype(np.float32)
     coords = ((rng.rand(2, 83, 2) * 2 - 1) * 0.98).astype(np.float32)
     coords[0, :3] = [[-1 + 1e-6, 1 - 1e-6], [0.0, 0.0], [1 - 1e-6, -1 + 1e-6]]
-    tsamp.set_gather_override(impl)
+    tsamp.set_gather_plain(plain)
     want = jsamp.nearest_sample(jnp.asarray(feat), jnp.asarray(coords))
     got = tsamp.nearest_sample(torch.from_numpy(feat), torch.from_numpy(coords))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))

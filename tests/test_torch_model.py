@@ -138,15 +138,17 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch):
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError):
-        MODELS["continuous_RAFTStereo"](device="cpu")
-    with pytest.raises(NotImplementedError):
-        AnyStereo(raft_config())
-    from anystereo_tpu_torch.config import LiifConfig
+    """What is still unported raises; the RAFT core, every stem type and the
+    separable GRU build."""
+    from anystereo_tpu_torch.config import AggregationType, LiifConfig
+
+    assert hasattr(AnyStereo(raft_config()), "fnet")
+    AnyStereo(ModelConfig(max_disp=MAX_DISP, gru_type="sep"))
+    AnyStereo(ModelConfig(max_disp=MAX_DISP, agg_type=AggregationType.TYPE1))
 
     for liif in (LiifConfig(local_ensemble=True), LiifConfig(quarter_nearest="both"),
                  LiifConfig(pos_enc="sinusoid")):
         with pytest.raises(NotImplementedError):
             AnyStereo(ModelConfig(max_disp=MAX_DISP, liif=liif))
-    with pytest.raises(NotImplementedError):
-        AnyStereo(ModelConfig(max_disp=MAX_DISP, gru_type="sep"))
+        with pytest.raises(NotImplementedError):
+            AnyStereo(raft_config(liif=liif))

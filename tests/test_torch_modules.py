@@ -206,8 +206,13 @@ def test_stem_branch(rng, agg):
 
 
 def test_stem_branch_unported_types_raise():
-    with pytest.raises(NotImplementedError):
-        tstems.StemBranch(tcfg.AggregationType.TYPE1)
+    """No stem type is unported any more: every one builds.  What still
+    raises is the configuration that puts a RAFT-only type on the IGEV core."""
+    for agg in tcfg.AggregationType:
+        tstems.StemBranch(agg)
+    for agg in (tcfg.AggregationType.IGEV, tcfg.AggregationType.NONE):
+        with pytest.raises(ValueError):
+            tcfg.ModelConfig(agg_type=agg)
 
 
 # ----------------------------------------------------------------- aggregation

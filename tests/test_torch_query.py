@@ -59,10 +59,12 @@ def test_liif_query_decode(rng, decode_cell, dtype):
     _check(got.float().detach().numpy(), want, FP32 if dtype == "float32" else BF16)
 
 
-@pytest.mark.parametrize("impl", [None, "kernel", "torch"])
-def test_liif_query_decode_gradients(rng, impl):
-    """Gradients in the latents and the MLP through the query path, under
-    the default dispatch and both forced gathers."""
+@pytest.mark.parametrize("gather", ["default", "plain", "kernel_function"])
+def test_liif_query_decode_gradients(rng, gather, monkeypatch):
+    """Gradients in the latents and the MLP through the query path: under
+    the default rule, with the plain version forced, and through the
+    `gather_rows` autograd function the card takes (its plain forward and
+    scatter-add backward on the CPU)."""
     feats, coords = _feats(rng), _queries(rng, 2, 150)
     cot = rng.randn(2, 150, 9).astype(np.float32)
     jm = jliif.LiifDecoder(LiifConfig(), dtype=jnp.float32)
@@ -72,11 +74,14 @@ def test_liif_query_decode_gradients(rng, impl):
     g_var, g_feats = jax.grad(
         lambda v, f: jnp.vdot(jm.apply(v, f, coords=coords, scale=None), cot), argnums=(0, 1))(var, jf)
     tf = [torch.from_numpy(f).requires_grad_(True) for f in feats]
-    tsamp.set_gather_override(impl)
+    if gather == "kernel_function":
+        monkeypatch.setattr(tsamp, "gather_rows_ref",
+                            lambda t, i: tsamp.gather_rows(t.contiguous(), i.to(torch.int32).contiguous()))
+    tsamp.set_gather_plain(gather == "plain")
     try:
         (tm(tf, coords=torch.from_numpy(coords)) * torch.from_numpy(cot)).sum().backward()
     finally:
-        tsamp.set_gather_override(None)
+        tsamp.set_gather_plain(False)
     for got, want in zip(tf, g_feats):
         want = np.asarray(want)
         np.testing.assert_allclose(got.grad.numpy(), want, rtol=0, atol=1e-4 * np.abs(want).max())
