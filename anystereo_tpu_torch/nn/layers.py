@@ -115,20 +115,42 @@ class TorchConvTranspose(nn.Module):
 
 
 class Dense(nn.Module):
-    """flax `nn.Dense` over the last axis: weight [O, I]."""
+    """flax `nn.Dense` over the last axis: weight [O, I].  `init_std`: draw
+    the weight from N(0, init_std^2) instead of lecun normal."""
 
-    def __init__(self, in_features: int, out_features: int, dtype: Optional[torch.dtype] = None):
+    def __init__(self, in_features: int, out_features: int, dtype: Optional[torch.dtype] = None,
+                 bias: bool = True, init_std: Optional[float] = None):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.init_std = dtype, init_std
         self.weight = nn.Parameter(torch.zeros(out_features, in_features))
-        self.bias = nn.Parameter(torch.zeros(out_features))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
 
     def init_parameters(self, generator: torch.Generator) -> None:
-        lecun_normal_(self.weight, self.weight.shape[1], generator)
+        if self.init_std is None:
+            lecun_normal_(self.weight, self.weight.shape[1], generator)
+        else:
+            with torch.no_grad():
+                self.weight.copy_(torch.randn(self.weight.shape, generator=generator) * self.init_std)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
-        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
+        y = F.linear(x.to(dt), self.weight.to(dt))
+        return y if self.bias is None else y + self.bias.to(dt)
+
+
+class LayerNorm(nn.Module):
+    """flax `nn.LayerNorm` over the last axis (biased variance), in the
+    promoted type of input and parameters."""
+
+    def __init__(self, features: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = torch.promote_types(x.dtype, self.weight.dtype)
+        return F.layer_norm(x.to(dt), self.weight.shape, self.weight, self.bias, self.eps)
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

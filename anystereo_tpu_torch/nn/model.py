@@ -40,7 +40,12 @@ from anystereo_tpu_torch.ops.cost_volume import (
 )
 from anystereo_tpu_torch.ops.lookup import build_pyramid, pyramid_lookup
 from anystereo_tpu_torch.ops.sampling import nearest_dense_gather
-from anystereo_tpu_torch.ops.upsample import context_upsample_queries, unfold3x3
+from anystereo_tpu_torch.ops.upsample import (
+    context_upsample_queries,
+    context_upsample_queries_quarter,
+    quarter_shifts,
+    unfold3x3,
+)
 from anystereo_tpu_torch.utils.device import resolve_device
 
 
@@ -199,18 +204,25 @@ class AnyStereo(nn.Module):
 
     def _upsample(self, disp, hidden, stems, coords, scale):
         """Query decode: LIIF weights at `coords` [B, Q, 2] → softmax →
-        weighted 3x3 combine of disp * 4 * scale → [B, Q]."""
+        weighted 3x3 (or 4-tap) combine of disp * 4 * scale → [B, Q]."""
         feats = self._decoder_feats(hidden, stems)
         weights = torch.softmax(self.liif(feats, coords=coords, scale=scale).float(), dim=-1)
-        up = context_upsample_queries(self._scale_disp(disp, scale), weights, coords)
+        combine = context_upsample_queries if self.cfg.liif.quarter_nearest == "none" \
+            else context_upsample_queries_quarter
+        up = combine(self._scale_disp(disp, scale), weights, coords)
         return self._denorm_disp(up, disp.shape[-1], scale)
 
     def _upsample_dense(self, disp, hidden, stems, ys, xs, scale):
         feats = self._decoder_feats(hidden, stems)
         weights = torch.softmax(self.liif(feats, ys, xs, scale).float(), dim=-1)
         w0 = disp.shape[-1]
-        patches = unfold3x3(self._scale_disp(disp, scale))  # [B, h, w, 9] fp32
-        up, _, _ = nearest_dense_gather(patches, ys, xs)  # [B, H', W', 9]
+        disp_scaled = self._scale_disp(disp, scale)  # [B, h, w] fp32
+        if self.cfg.liif.quarter_nearest != "none":
+            # the four corner cells, by per-axis shifts, in the weights' order
+            up = torch.cat([nearest_dense_gather(disp_scaled[..., None], ys + dy, xs + dx)[0]
+                            for dy, dx in quarter_shifts(*disp_scaled.shape[1:])], dim=-1)
+        else:
+            up, _, _ = nearest_dense_gather(unfold3x3(disp_scaled), ys, xs)  # [B, H', W', 9]
         return self._denorm_disp((up * weights).sum(dim=-1), w0, scale)
 
     # ------------------------------------------------------------------ #

@@ -17,7 +17,8 @@ import ctypes
 
 import torch
 
-from anystereo_tpu_torch.ops.sampling import gather_1d_linear, pool_half_last
+from anystereo_tpu_torch.ops.kernels.lookup_linear import gather_rows_linear_ref
+from anystereo_tpu_torch.ops.sampling import pool_half_last
 
 _MAX_LEVELS = 5  # the kernel pools in registers up to 2^(levels-1) = 16 values
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
@@ -71,7 +72,7 @@ def gather_pyramid_aligned_ref(
     lv, outs = vol.float(), []
     for lvl in range(levels):
         base = xc * (2.0 ** -lvl) - radius
-        outs.append(gather_1d_linear(lv, base[:, None] + k))
+        outs.append(gather_rows_linear_ref(lv, base[:, None] + k))
         lv = pool_half_last(lv)
     return torch.cat(outs, dim=-1).to(out_dtype)
 

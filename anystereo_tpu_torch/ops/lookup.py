@@ -1,12 +1,16 @@
 """Correlation / geometry-volume pyramid lookup: the per-iteration gather
 that feeds the ConvGRU motion encoder (twin of `anystereo_tpu/ops/lookup.py`).
 
-Two kernel flavors, as in the JAX package (`ANYSTEREO_LOOKUP_KERNEL`):
-"aligned" (default) goes through `gather_pyramid_aligned` on the level-0
-rows as they lie in memory; "classify" builds the per-level window starts
-and goes through `gather_pyramid_window_pm` on the transposed volumes
-([L, R]), which `CorrPyramid` makes once per forward.  Both pool the levels
-from the level-0 rows themselves: the CUDA kernel for a tensor on the card,
+Three flavors, the three ways the JAX package computes the lookup
+(`ANYSTEREO_LOOKUP_KERNEL`, or `pyramid_lookup(kernel=...)`): "aligned"
+(default) goes through `gather_pyramid_aligned` on the level-0 rows as they
+lie in memory; "classify" builds the per-level window starts and goes
+through `gather_pyramid_window_pm` on the transposed volumes ([L, R]);
+"levels" (the JAX `impl="jnp"` branch, the reference's own structure) reads
+a stored pyramid of pooled levels, one `gather_window_linear` per level and
+volume.  The first two pool the levels from the level-0 rows themselves;
+the transposed copies and the pooled levels are made by `CorrPyramid` once
+per forward.  Every flavor runs its CUDA kernel for a tensor on the card and
 the plain PyTorch version for one on the CPU.
 
 Channel order (the JAX package's internal order, which convc1's weights
@@ -23,9 +27,11 @@ from typing import Optional
 import torch
 
 from anystereo_tpu_torch.ops.kernels.lookup import gather_pyramid_aligned
+from anystereo_tpu_torch.ops.kernels.lookup_linear import gather_window_linear
 from anystereo_tpu_torch.ops.kernels.lookup_window import gather_pyramid_window_pm
+from anystereo_tpu_torch.ops.sampling import pool_half_last
 
-LOOKUP_KERNELS = ("aligned", "classify")
+LOOKUP_KERNELS = ("aligned", "classify", "levels")
 
 
 def default_lookup_kernel() -> str:
@@ -35,8 +41,9 @@ def default_lookup_kernel() -> str:
 
 @dataclasses.dataclass
 class CorrPyramid:
-    """The level-0 rows of the lookup pyramids.  The coarser levels are
-    never stored: `gather_pyramid_aligned` pools them from these rows.
+    """The level-0 rows of the lookup pyramids.  The "aligned" and
+    "classify" flavors never store the coarser levels (their kernels pool
+    them from these rows); the "levels" flavor asks for them (`levels`).
 
     corr: [B, H, W, W2] all-pairs correlation rows (fp32, contiguous);
     geo: [B, H, W, G, D] geometry volume (fp32, contiguous), or None for
@@ -47,6 +54,7 @@ class CorrPyramid:
     num_levels: int
     radius: int
     _transposed: dict = dataclasses.field(default_factory=dict, repr=False)
+    _levels: dict = dataclasses.field(default_factory=dict, repr=False)
 
     def transposed(self, name: str) -> torch.Tensor:
         """The volume `name` ("corr" or "geo") as [L, R], contiguous: the
@@ -62,6 +70,22 @@ class CorrPyramid:
             t = vol.reshape(-1, vol.shape[-1]).t().contiguous()
             self._transposed[name] = t
         return t
+
+    def levels(self, name: str) -> tuple:
+        """The pooled levels of the volume `name` ("corr" or "geo") as rows
+        ([R, L >> lvl], contiguous), level 0 first: the stored pyramid of the
+        "levels" flavor, each level `pool_half_last` of the one before.  Made
+        at the first lookup of a forward and kept, as `transposed` is, and a
+        differentiable function of the volume: the lookups' gradients sum
+        into each level and cross back through the pooling once."""
+        lv = self._levels.get(name)
+        if lv is None:
+            vol = getattr(self, name)
+            rows = [vol.reshape(-1, vol.shape[-1])]
+            for _ in range(self.num_levels - 1):
+                rows.append(pool_half_last(rows[-1]))
+            lv = self._levels[name] = tuple(rows)
+        return lv
 
     @property
     def out_channels(self) -> int:
@@ -95,12 +119,14 @@ def pyramid_lookup(
     x-coordinate of each column (default arange(W)).  split: return the
     parts as a tuple ((geo, corr) for IGEV, (corr,) for RAFT) instead of
     concatenating.  out_dtype: dtype of the result (the math is fp32 and
-    rounds only at the store); None = fp32.  kernel: "aligned" or
-    "classify"; None = `default_lookup_kernel()`.
+    rounds only at the store); None = fp32.  kernel: one of
+    `LOOKUP_KERNELS`; None = `default_lookup_kernel()`.
     Returns [B, H, W, C_lookup] or the split tuple.
 
     Tap positions: GEV x = disp, corr x = coords - disp, at level i taps
-    sit at x / 2^i - r + k for k = 0..2r.
+    sit at x / 2^i - r + k for k = 0..2r.  "aligned" clamps x to where the
+    last live window ends; "classify" and "levels" do not, and a window far
+    outside its row gives exact zeros.
     """
     b, h, w = disp.shape
     r = pyr.radius
@@ -126,6 +152,17 @@ def pyramid_lookup(
             pyr.corr.reshape(-1, pyr.corr.shape[-1]),
             (coords - disp).reshape(-1).contiguous(), k, n_lvl, out_dtype,
         ))
+    elif kernel == "levels":
+        # one launch per level and volume on the stored pooled level; the
+        # GEV taps stack as [G, levels, K], the corr taps level-major
+        if g is not None:
+            taps = [gather_window_linear(
+                lv, (disp * 2.0 ** -i - r)[..., None].expand(b, h, w, g).reshape(-1), k)
+                for i, lv in enumerate(pyr.levels("geo"))]  # each [B*H*W*G, K]
+            out.append(torch.stack(taps, dim=1).to(out_dtype))
+        cx = coords - disp
+        out.append(torch.cat([gather_window_linear(lv, (cx * 2.0 ** -i - r).reshape(-1), k)
+                              for i, lv in enumerate(pyr.levels("corr"))], dim=1).to(out_dtype))
     else:
         # window starts per level, in that level's pooled units, levels first
         # ([levels, R]); the kernel writes fp32 and the cast follows it

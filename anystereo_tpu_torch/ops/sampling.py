@@ -13,21 +13,29 @@ import torch
 import torch.nn.functional as F
 
 from anystereo_tpu_torch.ops.kernels.gather import gather_rows, gather_rows_ref
+from anystereo_tpu_torch.ops.kernels.lookup_linear import gather_rows_linear, gather_rows_linear_ref
 
 
 def gather_1d_linear(vol: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """Linearly interpolate `vol` [..., L] along its last axis at fractional
-    `pos` [..., K] (pixel units); taps outside [0, L-1] contribute zero."""
-    L = vol.shape[-1]
-    x0f = torch.floor(pos)
-    w1 = (pos - x0f).to(vol.dtype)
-    i0 = x0f.long()
-    i1 = i0 + 1
-    valid0 = ((i0 >= 0) & (i0 <= L - 1)).to(vol.dtype)
-    valid1 = ((i1 >= 0) & (i1 <= L - 1)).to(vol.dtype)
-    v0 = torch.gather(vol, -1, i0.clamp(0, L - 1))
-    v1 = torch.gather(vol, -1, i1.clamp(0, L - 1))
-    return v0 * valid0 * (1.0 - w1) + v1 * valid1 * w1
+    `pos` [..., K] (pixel units; the leading axes of the two are equal);
+    taps outside [0, L-1] contribute zero.  Differentiable in `vol` only:
+    the JAX function of the same name is also differentiable in `pos`
+    (through the weight `pos - floor(pos)`), the kernel is not, so a `pos`
+    that asks for a gradient is refused rather than given zeros.
+
+    A volume on the card goes through `gather_rows_linear` with the leading
+    axes flattened to rows (kernel forward, kernel backward, fp32); a volume
+    on the CPU through the plain version."""
+    if pos.requires_grad and torch.is_grad_enabled():
+        raise ValueError("gather_1d_linear gives no gradient to `pos`; detach it")
+    if vol.device.type == "cpu":
+        return gather_rows_linear_ref(vol, pos)
+    if vol.shape[:-1] != pos.shape[:-1]:
+        raise ValueError(f"leading axes differ: {tuple(vol.shape)}, {tuple(pos.shape)}")
+    out = gather_rows_linear(vol.float().reshape(-1, vol.shape[-1]).contiguous(),
+                             pos.float().reshape(-1, pos.shape[-1]).contiguous())
+    return out.reshape(pos.shape).to(vol.dtype)
 
 
 def _nearest_indices(c: torch.Tensor, n: int) -> torch.Tensor:

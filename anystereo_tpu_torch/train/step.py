@@ -1,6 +1,7 @@
-"""The training step (twin of `anystereo_tpu/train/step.py`): train-mode
-forward → sequence loss (+ optional init-disparity supervision) → backward
-→ clip → AdamW under the schedule.
+"""The training and eval steps (twin of `anystereo_tpu/train/step.py`).
+Training: train-mode forward → sequence loss (+ optional init-disparity
+supervision) → backward → clip → AdamW under the schedule.  Eval: the
+disparity at queried coordinates.
 
 The JAX package's `split_opt_step`, mesh arguments and buffer donation are
 matters of its compiler and runtime and have no counterpart here.
@@ -16,7 +17,7 @@ from anystereo_tpu_torch.config import TrainConfig
 from anystereo_tpu_torch.nn.model import AnyStereo
 from anystereo_tpu_torch.train.loss import init_disp_loss, sequence_loss_queries
 from anystereo_tpu_torch.train.state import TrainState
-from anystereo_tpu_torch.utils.device import resolve_device
+from anystereo_tpu_torch.utils.device import model_device
 
 
 def loss_and_metrics(model: AnyStereo, tcfg: TrainConfig, batch: Dict[str, torch.Tensor]):
@@ -44,10 +45,7 @@ def make_train_step(
     `supervise_init`).  metrics: `loss`, `epe`, `1px`, `3px` (0-d tensors),
     `grad_norm` (before clipping), `lr`, and `nonfinite_skips`, the count of
     consecutive skipped steps."""
-    dev = resolve_device(device)
-    found = next(model.parameters()).device
-    if found.type != dev.type:
-        raise RuntimeError(f"the model lies on {found}, the step was asked for {dev}")
+    model_device(model, device)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
         state.optimizer.zero_grad()
@@ -61,5 +59,21 @@ def make_train_step(
         metrics["lr"] = info["lr"]
         metrics["nonfinite_skips"] = state.optimizer.notfinite_count
         return state, metrics
+
+    return step
+
+
+def make_eval_step(
+    model: AnyStereo, valid_iters: int = 32, device=None
+) -> Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]:
+    """Returns step(left, right, coords, scale) -> the disparity at the
+    queried coordinates [B, Q], after `valid_iters` iterations in eval mode
+    (no autograd graph).  `model` must lie on `device` (default: the CUDA
+    card; the CPU only when asked for by name), and so must the inputs."""
+    model_device(model, device)
+
+    def step(left, right, coords, scale):
+        return model(left, right, iters=valid_iters, coords=coords, scale=scale,
+                     mode="eval").disp_final
 
     return step

@@ -22,3 +22,13 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "no CUDA device is available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def model_device(model: torch.nn.Module, device: Optional[Union[str, torch.device]] = None) -> torch.device:
+    """The device `model` lies on, after checking that it is the one the
+    caller asked for (`resolve_device(device)`); raises when they differ."""
+    dev = resolve_device(device)
+    found = next(model.parameters()).device
+    if found.type != dev.type:
+        raise RuntimeError(f"the model lies on {found}, the caller asked for {dev}")
+    return found

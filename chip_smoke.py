@@ -23,26 +23,39 @@ Phases (any failure raises, and the exit code is not 0):
            layouts, forward and backward, held to their plain versions bit
            for bit and to each other, the query row gather and its
            scatter-add transpose (the 9-tap disparity table and both latent
-           tables, 51,200 queries a sample), and `gather_rows_hybrid`;
+           tables, 51,200 queries a sample), `gather_rows_hybrid`, and the
+           single-level linear lookups, forward and backward, bit for bit:
+           `gather_window_linear` at the eight level shapes of the "levels"
+           flavor's eval forwards and the four of its training step,
+           `gather_rows_linear` at the evaluator's occlusion shape
+           (375 rows of 1242 positions) and at 300 x 312 x 9;
 3. model   the eval forward at full width, 1x384x1248, 32 GRU iterations,
            bf16, weights from a seeded generator, one warm-up and three timed
            requests each: the IGEV model (`ModelConfig()`), the RAFT model
            (`raft_config()`) under the "aligned" lookup flavor and under
-           "classify"; every kernel's launch count is read over exactly these
-           requests;
-4. train   the training step at full width (`TrainConfig()`: batch 2,
+           "classify", and both models under "levels" (path `eval_levels`);
+           every kernel's launch count is read over exactly these requests;
+4. validate `validate_dataset` on a seeded in-memory dataset of three
+           375x1242 frames with left and right ground truth (IGEV model, 32
+           iterations, bf16, padded to 384x1248 by the evaluator, the
+           left-right occlusion split), then `Validator.infer` with
+           `fixed_upscale=2` on a 188x624 pair and with `scale_test=2.0` on a
+           375x1242 pair; ms per frame and the host's share of it;
+5. train   the training step at full width (`TrainConfig()`: batch 2,
            160x320, 51,200 queries a sample, 16 iterations with a query decode
            each, bf16, sequence loss, clip, AdamW) on a seeded synthetic
            batch, one warm-up and three timed steps with the exact launch
            counts of each: the IGEV model ("aligned") and the RAFT model
-           ("classify");
-5. check   fp32 (TF32 off, cuDNN deterministic), 4 iterations: the IGEV and
+           ("classify"); one timed step of the IGEV model under "levels";
+6. check   fp32 (TF32 off, cuDNN deterministic), 4 iterations: the IGEV and
            RAFT eval forwards through the kernels against the same with every
            lookup forced to its plain version, under each flavor, and the
-           flavors against each other; a training loss and every parameter's
+           flavors against "aligned"; the occlusion mask through the kernel
+           against its plain version; a training loss and every parameter's
            gradient (batch 1, 4,096 queries) through the kernels and with
            every kernel forced to its plain version, IGEV under "aligned" and
-           RAFT under "classify".
+           under "levels", RAFT under "classify"; one forward each with
+           `quarter_nearest="both"` and with `local_ensemble=True`.
 
 It prints a `kernels` JSON line, the card's name and power limit as
 nvidia-smi reports them, and last `{"ok": true, "device": {...}}`.  It
@@ -68,12 +81,14 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 FP32_ATOL = 1e-5
 MODEL_CHECK_ATOL = 1e-3  # px, fp32 forward, kernel vs plain lookup
-TRAIN_H, TRAIN_W, TRAIN_SHIFT = 160, 320, 6  # TrainConfig().inp_size, px of disparity
+TRAIN_BATCH, TRAIN_H, TRAIN_W, TRAIN_SHIFT = 2, 160, 320, 6  # TrainConfig(): batch, inp_size; px of disparity
 TRAIN_STEPS = 3
+EVAL_H, EVAL_W, EVAL_FRAMES = 375, 1242, 3  # KITTI-sized frames of the validate path
 SCATTER_RTOL = 1e-5  # |kernel - plain| <= rtol * (1 + sum_q |g[q, c]| of that element): atomic order
 GRAD_CHECK_RTOL, GRAD_CHECK_ATOL, LOSS_CHECK_RTOL = 1e-3, 1e-7, 1e-5
 OUT_DIR = "chiprun_out"
 DEVICE = "cuda"
+PAIR_MS = {}  # (core, flavor) -> mean ms per pair of the timed eval requests
 
 
 def _log(*a):
@@ -539,17 +554,160 @@ def _kernels_gather(torch):
     ]
 
 
+def _level_shapes():
+    """(call, rows, length) of every `gather_window_linear` launch of one GRU
+    iteration under the "levels" flavor: at 1x384x1248 the IGEV pair (GEV
+    rows of 48 and 24, correlation rows of 312 and 156) and the four RAFT
+    correlation levels, then the IGEV pair of the training step (batch 2,
+    40x80 cells: GEV rows of 48 and 24, correlation rows of 80 and 40)."""
+    def igev(prefix, cells, w4, groups=8, d=192 // 4):
+        return [(f"{prefix}gev_l{i}", cells * groups, d >> i) for i in range(IGEV_LEVELS)] + \
+            [(f"{prefix}corr_l{i}", cells, w4 >> i) for i in range(IGEV_LEVELS)]
+
+    h4, w4, th4, tw4 = H // 4, W // 4, TRAIN_H // 4, TRAIN_W // 4
+    return igev("", h4 * w4, w4) + \
+        [(f"raft_corr_l{i}", h4 * w4, w4 >> i) for i in range(RAFT_LEVELS)] + \
+        igev("train_", TRAIN_BATCH * th4 * tw4, tw4)
+
+
+def _old_gather_1d_linear(torch, vol, pos):
+    """The body `ops/sampling.gather_1d_linear` had before it went through
+    the kernel (two `torch.gather`s and their masks): the library column."""
+    length = vol.shape[-1]
+    x0f = torch.floor(pos)
+    w1 = pos - x0f
+    i0 = x0f.long()
+    i1 = i0 + 1
+    valid0 = ((i0 >= 0) & (i0 <= length - 1)).to(vol.dtype)
+    valid1 = ((i1 >= 0) & (i1 <= length - 1)).to(vol.dtype)
+    v0 = torch.gather(vol, -1, i0.clamp(0, length - 1))
+    v1 = torch.gather(vol, -1, i1.clamp(0, length - 1))
+    return v0 * valid0 * (1.0 - w1) + v1 * valid1 * w1
+
+
+def _kernels_linear(torch):
+    """The single-level linear lookups, forward and backward, fp32.  Kernel
+    and plain version do the same operations in the same order (explicit
+    round-to-nearest intrinsics, no FMA; the rows backward adds a row's taps
+    in ascending k, no atomics), so they must agree exactly; far positions
+    (+-1e6, +-3e9) must give zero taps and written zero gradients."""
+    from anystereo_tpu_torch.ops.kernels import lookup_linear as tl
+
+    src, jax_file = "anystereo_tpu_torch/csrc/lookup_linear.cu", "anystereo_tpu/ops/pallas/lookup_kernel.py"
+    gen = torch.Generator(device=DEVICE).manual_seed(8)
+    far = torch.tensor([-3e9, 3e9, -1e6, 1e6], device=DEVICE)
+
+    def timed(res, what, fn, plain, nbytes, flops, library=None):
+        res.update(max_abs_err=0.0, bytes=nbytes, flops=flops)
+        res["ms"] = _time_ms(torch, fn)
+        res["plain_ms"] = _time_ms(torch, plain, reps=5)
+        res["library_ms"] = None if library is None else _time_ms(torch, library)
+        res["bound_ms"], res["bound_by"] = _bound(nbytes, flops)
+        lib = "" if library is None else f", torch.gather body {res['library_ms']:.4f} ms"
+        _log(f"[kernels] {what} {res['call']} R={res['rows']} L={res['length']} K={res['taps']}: "
+             f"exact; kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms{lib}, bound "
+             f"{res['bound_ms']:.4f} ms ({nbytes} B)")
+        return res
+
+    # the window form at the eight eval level shapes and the four training ones
+    win_fwd, win_bwd = [], []
+    for call, rows, length in _level_shapes():
+        vol = torch.randn(rows, length, device=DEVICE, generator=gen)
+        base_main = torch.rand(rows, device=DEVICE, generator=gen) * length - (TAPS - 1) // 2
+        base = torch.rand(rows, device=DEVICE, generator=gen) * (length + 40) - 20 - (TAPS - 1) // 2
+        base[:4] = far
+        cot = torch.randn(rows, TAPS, device=DEVICE, generator=gen)
+        got, want = tl.gather_window_linear(vol, base, TAPS), tl.gather_window_linear_ref(vol, base, TAPS)
+        dgot = tl.gather_window_linear_bwd(base, cot, length, TAPS)
+        dwant = tl.gather_window_linear_bwd_ref(base, cot, length, TAPS)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and torch.equal(dgot, dwant)) or bool(got[:4].any()) \
+                or bool(dgot[:4].any()):
+            raise AssertionError(f"gather_window_linear {call}: max |kernel - plain| forward "
+                                 f"{float((got - want).abs().max())}, backward "
+                                 f"{float((dgot - dwant).abs().max())}, want 0 (and zeros for far starts)")
+        shape = {"call": call, "rows": rows, "length": length, "taps": TAPS}
+        i0 = torch.floor(base_main).long()
+        live = (i0 + TAPS + 1).clamp(0, length) - i0.clamp(0, length)  # entries inside the window
+        win_fwd.append(timed(
+            dict(shape), "gather_window_linear", lambda: tl.gather_window_linear(vol, base_main, TAPS),
+            lambda: tl.gather_window_linear_ref(vol, base_main, TAPS),
+            4 * int(live.sum()) + 4 * rows + 4 * rows * TAPS, 4 * rows * TAPS))
+        win_bwd.append(timed(
+            dict(shape), "gather_window_linear_bwd",
+            lambda: tl.gather_window_linear_bwd(base_main, cot, length, TAPS),
+            lambda: tl.gather_window_linear_bwd_ref(base_main, cot, length, TAPS),
+            4 * rows * (1 + TAPS + length), 4 * rows * (TAPS + 1)))
+        del vol, cot
+
+    # arbitrary positions: the evaluator's occlusion warp, and the small op shape
+    rows_fwd, rows_bwd = [], []
+    for call, rows, length, taps in (("occ_mask", EVAL_H, EVAL_W, EVAL_W), ("op_300x312x9", 300, 312, 9)):
+        vol = torch.rand(rows, length, device=DEVICE, generator=gen) * 60
+        if call == "occ_mask":  # x - disparity, as `warp_disparity` forms it
+            pos_main = torch.arange(length, device=DEVICE, dtype=torch.float32) - vol
+        else:
+            pos_main = torch.rand(rows, taps, device=DEVICE, generator=gen) * length
+        pos = pos_main + torch.randn(rows, taps, device=DEVICE, generator=gen) * 8
+        pos[0, :4] = far
+        pos[1] = 2.25  # every tap of a row on one entry
+        cot = torch.randn(rows, taps, device=DEVICE, generator=gen)
+        got, want = tl.gather_rows_linear(vol, pos), tl.gather_rows_linear_ref(vol, pos)
+        dgot = tl.gather_rows_linear_bwd(pos, cot, length)
+        dwant = tl.gather_rows_linear_bwd_ref(pos, cot, length)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and torch.equal(dgot, dwant)) or bool(got[0, :4].any()):
+            raise AssertionError(f"gather_rows_linear {call}: max |kernel - plain| forward "
+                                 f"{float((got - want).abs().max())}, backward "
+                                 f"{float((dgot - dwant).abs().max())}, want 0 (and zeros for far taps)")
+        if not torch.allclose(_old_gather_1d_linear(torch, vol, pos_main),
+                              tl.gather_rows_linear(vol, pos_main), rtol=0, atol=FP32_ATOL):
+            raise AssertionError(f"gather_rows_linear {call} disagrees with the torch.gather body")
+        shape = {"call": call, "rows": rows, "length": length, "taps": taps}
+        i0 = torch.floor(pos_main).clamp(-2, length).long()
+        touched = torch.zeros(rows, length + 4, dtype=torch.bool, device=DEVICE)
+        touched.scatter_(1, i0 + 2, True)
+        touched.scatter_(1, i0 + 3, True)
+        vol_bytes = 4 * int(touched[:, 2:length + 2].sum())  # each entry some tap reads, once
+        rows_fwd.append(timed(
+            dict(shape), "gather_rows_linear", lambda: tl.gather_rows_linear(vol, pos_main),
+            lambda: tl.gather_rows_linear_ref(vol, pos_main), vol_bytes + 8 * rows * taps,
+            4 * rows * taps, library=lambda: _old_gather_1d_linear(torch, vol, pos_main)))
+        rows_bwd.append(timed(
+            dict(shape), "gather_rows_linear_bwd", lambda: tl.gather_rows_linear_bwd(pos_main, cot, length),
+            lambda: tl.gather_rows_linear_bwd_ref(pos_main, cot, length),
+            4 * rows * (2 * taps + length), 5 * rows * taps))
+        del vol, cot
+    # one IGEV iteration's four launches: the forward's at the eval shapes, the
+    # backward's at the training shapes (the one path that runs it)
+    calls = [c["call"] for c in win_fwd]
+    eval_iteration = tuple(calls.index(f"{v}_l{i}") for v in ("gev", "corr") for i in range(IGEV_LEVELS))
+    train_iteration = tuple(calls.index(f"train_{v}_l{i}") for v in ("gev", "corr")
+                            for i in range(IGEV_LEVELS))
+    return [
+        _record("gather_window_linear", src, f"{jax_file}:215", win_fwd, main=eval_iteration,
+                paths=("eval_levels", "train_levels")),
+        _record("gather_window_linear_bwd", src, f"{jax_file}:155", win_bwd, main=train_iteration,
+                paths=("train_levels",)),
+        _record("gather_rows_linear", src, f"{jax_file}:1137", rows_fwd, main=(0,),
+                paths=("validate",), library=True),
+        _record("gather_rows_linear_bwd", src, f"{jax_file}:63", rows_bwd, main=(0,), paths=("op",)),
+    ]
+
+
 def phase_kernels(torch):
     """The records of the `kernels` line; an "op" record carries the launches
     this phase counted for it (`op_launches`)."""
+    from anystereo_tpu_torch.ops.kernels import lookup_linear as tl
     from anystereo_tpu_torch.ops.kernels import lookup_window as tw
 
     op_fns = {f.__name__: f for f in (tw.gather_pyramid_window_t, tw.gather_pyramid_window_t_bwd,
-                                      tw.gather_pyramid_window, tw.gather_pyramid_window_bwd)}
+                                      tw.gather_pyramid_window, tw.gather_pyramid_window_bwd,
+                                      tl.gather_rows_linear_bwd)}
     for f in op_fns.values():
         f.launches = 0
     records = [_kernels_lookup_fwd(torch), _kernels_lookup_bwd(torch), *_kernels_window(torch),
-               *_kernels_gather(torch), _kernels_hybrid(torch)]
+               *_kernels_gather(torch), _kernels_hybrid(torch), *_kernels_linear(torch)]
     for record in records:
         if record["name"] in op_fns:
             record["op_launches"] = op_fns[record["name"]].launches
@@ -589,11 +747,14 @@ def _config(core, **kw):
 
 
 def _lookup_counts(core, flavor, per_volume):
-    """Expected launches of the two lookup forwards for `per_volume` lookups
-    of each volume: the IGEV core has two volumes, RAFT one."""
+    """Expected launches of the three lookup forwards for `per_volume` lookups
+    of each volume: the IGEV core has two volumes, RAFT one; the "levels"
+    flavor launches once a level of each (IGEV 2 levels, RAFT 4)."""
     n = per_volume * (2 if core == "igev" else 1)
+    levels = IGEV_LEVELS if core == "igev" else RAFT_LEVELS
     return {"gather_pyramid_aligned": n if flavor == "aligned" else 0,
-            "gather_pyramid_window_pm": n if flavor == "classify" else 0}
+            "gather_pyramid_window_pm": n if flavor == "classify" else 0,
+            "gather_window_linear": n * levels if flavor == "levels" else 0}
 
 
 def phase_model(torch, kernels, core, flavor, keep=False):
@@ -625,6 +786,7 @@ def phase_model(torch, kernels, core, flavor, keep=False):
             if tuple(disp.shape) != (1, H, W) or not bool(torch.isfinite(disp).all()):
                 raise AssertionError(f"disp_final {tuple(disp.shape)} not finite [1, {H}, {W}]")
     launches = {k.__name__: k.launches for k in kernels}
+    PAIR_MS[(core, flavor)] = sum(times) / len(times)
     _log(f"[model] {core.upper()} eval 1x{H}x{W}, {ITERS} iters, bf16, lookup {flavor}: "
          f"{sum(times) / len(times):.2f} ms/pair over {REQUESTS} requests "
          f"({', '.join(f'{t:.2f}' for t in times)} ms; warm-up excluded), "
@@ -635,6 +797,125 @@ def phase_model(torch, kernels, core, flavor, keep=False):
 
 
 # ----------------------------------------------------------------- phase 4
+
+
+class _MemoryDataset:
+    """Seeded frames held in memory, as `validate_dataset` reads a dataset:
+    the right view is the left one shifted by 24 px; the left ground truth is
+    24 px with a step to 48 px at mid-width (an occluding edge) and the right
+    view's ground truth agrees with it away from that edge, so the
+    left-right check finds a band of occluded pixels."""
+
+    def __init__(self, torch, n, h, w, seed):
+        gen = torch.Generator().manual_seed(seed)
+        self.frames = []
+        for _ in range(n):
+            left = (torch.rand(h, w, 3, generator=gen) * 255).numpy()
+            dl = torch.full((h, w), 24.0)
+            dl[:, w // 2:] = 48.0
+            dr = torch.full((h, w), 24.0)
+            dr[:, w // 2 - 48:] = 48.0
+            self.frames.append((left, torch.roll(torch.from_numpy(left), -24, 1).numpy(),
+                                dl.numpy(), dr.numpy()))
+        self.image_list = [[f"memory/{i}/left", f"memory/{i}/right"] for i in range(n)]
+        self.disparity_list = [f"memory/{i}/disparity" for i in range(n)]
+
+    def __len__(self):
+        return len(self.frames)
+
+    def _load_raw(self, i):
+        import numpy as np
+
+        left, right, dl, _ = self.frames[i]
+        return left, right, np.stack([dl, np.zeros_like(dl)], axis=-1), np.ones_like(dl)
+
+    def disparity_pair(self, i):
+        return self.frames[i][2], self.frames[i][3]
+
+
+def phase_validate(torch, kernels):
+    """The evaluation entry point at KITTI size.  One warm-up frame, then,
+    with the counts at 0: `validate_dataset` over EVAL_FRAMES frames with the
+    left-right occlusion provider, one `infer(fixed_upscale=2)` on a
+    half-size pair and one `infer(scale_test=2.0)` through `utils/resize`.
+    The model's own time is read by hooks around its forward (synchronised);
+    the rest of a frame is the host's: pad, transfers, the occlusion mask,
+    the metrics."""
+    from anystereo_tpu_torch.eval.validate import (
+        Validator,
+        lr_consistency_occ_provider,
+        validate_dataset,
+    )
+    from anystereo_tpu_torch.nn.model import build_model
+
+    model = build_model(_config("igev"), device=DEVICE, seed=0)
+    ds = _MemoryDataset(torch, EVAL_FRAMES, EVAL_H, EVAL_W, seed=9)
+    provider = lr_consistency_occ_provider()
+    in_model, preds = [], []
+
+    def before_forward(*_):
+        torch.cuda.synchronize()
+        in_model.append(-time.perf_counter())
+
+    def after_forward(_module, _args, out):
+        torch.cuda.synchronize()
+        in_model[-1] += time.perf_counter()
+        preds.append(out.disp_final)
+
+    hooks = (model.register_forward_pre_hook(before_forward), model.register_forward_hook(after_forward))
+    validate_dataset(model, ds, valid_iters=ITERS, occ_provider=provider, max_images=1)  # warm-up
+    in_model.clear()
+    preds.clear()
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = validate_dataset(model, ds, valid_iters=ITERS, occ_provider=provider)
+    torch.cuda.synchronize()
+    frame_ms = (time.perf_counter() - t0) * 1e3 / EVAL_FRAMES
+    model_ms = sum(in_model) * 1e3 / EVAL_FRAMES
+    keys = {f"{m}{sfx}" for m in ("epe", "d1", "thres1", "thres2", "thres3") for sfx in ("", "_occ", "_noc")}
+    bad = [k for k in keys if k not in metrics or metrics[k] != metrics[k] or abs(metrics[k]) == float("inf")]
+    if bad or set(metrics) != keys:
+        raise AssertionError(f"validate_dataset: metrics {metrics}; missing or not finite: {bad}")
+    for disp in preds:
+        if tuple(disp.shape) != (1, EVAL_H, EVAL_W) or not bool(torch.isfinite(disp).all()):
+            raise AssertionError(f"validate_dataset: prediction {tuple(disp.shape)} not finite "
+                                 f"[1, {EVAL_H}, {EVAL_W}]")
+    want = dict.fromkeys((k.__name__ for k in kernels), 0)
+    want.update(gather_pyramid_aligned=2 * ITERS * EVAL_FRAMES, gather_rows_linear=EVAL_FRAMES)
+    _expect_launches(kernels, [0] * len(kernels), want, f"validate_dataset over {EVAL_FRAMES} frames")
+    _log(f"[validate] host share: model {model_ms:.2f} ms of {frame_ms:.2f} ms a frame; the host's "
+         f"pad, transfers, occlusion mask and metrics {frame_ms - model_ms:.2f} ms "
+         f"({(frame_ms - model_ms) / frame_ms:.1%})")
+    vd = Validator(model, ITERS)
+    half = _MemoryDataset(torch, 1, EVAL_H // 2 + 1, EVAL_W // 2 + 3, seed=10).frames[0]
+    extra = {}
+    for name, (left, right), kw, shape in (
+            ("fixed_upscale=2", half[:2], dict(fixed_upscale=2), (2 * half[0].shape[0], 2 * half[0].shape[1])),
+            ("scale_test=2.0", ds.frames[0][:2], dict(scale_test=2.0), (EVAL_H, EVAL_W))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        disp = vd.infer(left, right, **kw)
+        extra[name] = (time.perf_counter() - t0) * 1e3
+        if disp.shape != shape or not bool(torch.isfinite(torch.from_numpy(disp)).all()):
+            raise AssertionError(f"infer({name}): {disp.shape} not finite {shape}")
+    want["gather_pyramid_aligned"] += 2 * 2 * ITERS
+    _expect_launches(kernels, [0] * len(kernels), want, "the validate path")
+    for h in hooks:
+        h.remove()
+    launches = {k.__name__: k.launches for k in kernels}
+    _log(f"[validate] validate_dataset, IGEV, {EVAL_FRAMES} frames of {EVAL_H}x{EVAL_W} (padded to "
+         f"{H}x{W}), {ITERS} iters, bf16, occlusion split: {frame_ms:.2f} ms/frame; epe "
+         f"{metrics['epe']:.3f}, d1 {metrics['d1']:.4f}, epe_occ {metrics['epe_occ']:.3f}, epe_noc "
+         f"{metrics['epe_noc']:.3f} (random weights); infer(fixed_upscale=2) on "
+         f"{half[0].shape[0]}x{half[0].shape[1]} {extra['fixed_upscale=2']:.2f} ms, "
+         f"infer(scale_test=2.0) {extra['scale_test=2.0']:.2f} ms; launches "
+         f"{({k: v for k, v in launches.items() if v})}")
+    return launches
+
+
+# ----------------------------------------------------------------- phase 5
 
 
 def _train_batch(torch, batch, h, w, q, seed):
@@ -666,8 +947,8 @@ def _expect_launches(kernels, before, want, what):
         raise AssertionError(f"kernel launches of {what}: {got}, want {want}")
 
 
-def phase_train(torch, kernels, core, flavor):
-    """One warm-up and TRAIN_STEPS timed training steps of one model under
+def phase_train(torch, kernels, core, flavor, steps=TRAIN_STEPS):
+    """One warm-up and `steps` timed training steps of one model under
     one lookup flavor at full width, with the exact launch counts of each:
     per iteration one lookup forward and one backward a volume, and per
     decode the three query tables through the gather kernel forward and the
@@ -693,7 +974,7 @@ def phase_train(torch, kernels, core, flavor):
     times, losses = [], []
     torch.cuda.reset_peak_memory_stats()
     with _flavor(flavor):
-        for i in range(1 + TRAIN_STEPS):
+        for i in range(1 + steps):
             before = _counts(kernels)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -722,7 +1003,7 @@ def phase_train(torch, kernels, core, flavor):
         raise AssertionError(f"parameters with a gradient that did not change: {still}")
     _log(f"[train] {core.upper()} training step {tcfg.batch_size}x{TRAIN_H}x{TRAIN_W}, Q "
          f"{tcfg.sample_q}, {it} iters, bf16, lookup {flavor}: {sum(times) / len(times):.2f} "
-         f"ms/step over {TRAIN_STEPS} steps ({', '.join(f'{t:.2f}' for t in times)} ms; warm-up "
+         f"ms/step over {steps} steps ({', '.join(f'{t:.2f}' for t in times)} ms; warm-up "
          f"excluded), peak {peak:.2f} GiB; losses {[round(v, 4) for v in losses]}; last grad_norm "
          f"{gnorm:.3f}, lr {metrics['lr']:.3e}, epe {float(metrics['epe']):.3f} px; launches per "
          f"step {({k: v for k, v in per_step.items() if v})}; parameters with an exactly zero "
@@ -730,7 +1011,7 @@ def phase_train(torch, kernels, core, flavor):
     return launches, (model, tcfg, state, step, batch)
 
 
-# ----------------------------------------------------------------- phase 5
+# ----------------------------------------------------------------- phase 6
 
 
 @contextlib.contextmanager
@@ -739,17 +1020,21 @@ def _all_plain(lookups_only=False):
     its plain version, under PyTorch's own autograd."""
     from anystereo_tpu_torch.ops import lookup
     from anystereo_tpu_torch.ops.kernels.lookup import gather_pyramid_aligned_ref
+    from anystereo_tpu_torch.ops.kernels.lookup_linear import gather_window_linear_ref
     from anystereo_tpu_torch.ops.kernels.lookup_window import gather_pyramid_window_pm_ref
     from anystereo_tpu_torch.ops.sampling import set_gather_plain
 
-    kernel_fns = (lookup.gather_pyramid_aligned, lookup.gather_pyramid_window_pm)
+    kernel_fns = (lookup.gather_pyramid_aligned, lookup.gather_pyramid_window_pm,
+                  lookup.gather_window_linear)
     lookup.gather_pyramid_aligned = gather_pyramid_aligned_ref
     lookup.gather_pyramid_window_pm = gather_pyramid_window_pm_ref
+    lookup.gather_window_linear = gather_window_linear_ref
     set_gather_plain(not lookups_only)
     try:
         yield
     finally:
-        lookup.gather_pyramid_aligned, lookup.gather_pyramid_window_pm = kernel_fns
+        (lookup.gather_pyramid_aligned, lookup.gather_pyramid_window_pm,
+         lookup.gather_window_linear) = kernel_fns
         set_gather_plain(False)
 
 
@@ -757,7 +1042,7 @@ def _check_eval(torch, kernels, core):
     """fp32 eval forward, CHECK_ITERS iterations: under each flavor through
     the kernels (with that flavor's launches counted: one a volume and
     iteration, none of the other's) against the same with every lookup forced
-    to its plain version, and the two flavors against each other."""
+    to its plain version, and "classify" and "levels" against "aligned"."""
     from anystereo_tpu_torch.nn.model import build_model
 
     model = build_model(_config(core, compute_dtype="float32"), device=DEVICE, seed=0)
@@ -765,7 +1050,7 @@ def _check_eval(torch, kernels, core):
     fields = ("disp_lowres", "disp_final") if core == "raft" else \
         ("init_disp", "disp_lowres", "disp_final")
     outs = {}
-    for flavor in ("aligned", "classify"):
+    for flavor in ("aligned", "classify", "levels"):
         want = dict.fromkeys((k.__name__ for k in kernels), 0)
         want.update(_lookup_counts(core, flavor, CHECK_ITERS))
         with _flavor(flavor):
@@ -783,12 +1068,13 @@ def _check_eval(torch, kernels, core):
         if not all(d <= MODEL_CHECK_ATOL for d in diffs.values()):
             raise AssertionError(f"kernel and plain forwards disagree ({core}, {flavor}): {diffs}")
         outs[flavor] = kernel_out
-    diffs = {f: float((getattr(outs["classify"], f) - getattr(outs["aligned"], f)).abs().max())
-             for f in fields}
-    _log(f"[check] {core.upper()} fp32 forward, classify vs aligned: max |diff| {json.dumps(diffs)} "
-         f"(bound {MODEL_CHECK_ATOL} px)")
-    if not all(d <= MODEL_CHECK_ATOL for d in diffs.values()):
-        raise AssertionError(f"the lookup flavors disagree ({core}): {diffs}")
+    for flavor in ("classify", "levels"):
+        diffs = {f: float((getattr(outs[flavor], f) - getattr(outs["aligned"], f)).abs().max())
+                 for f in fields}
+        _log(f"[check] {core.upper()} fp32 forward, {flavor} vs aligned: max |diff| "
+             f"{json.dumps(diffs)} (bound {MODEL_CHECK_ATOL} px)")
+        if not all(d <= MODEL_CHECK_ATOL for d in diffs.values()):
+            raise AssertionError(f"the lookup flavors disagree ({core}, {flavor}): {diffs}")
 
 
 def _fp32_train_runs(torch, core="igev", flavor="aligned"):
@@ -866,6 +1152,47 @@ def _check_train(torch, kernels, core, flavor):
         raise AssertionError(f"kernel and plain training disagree: loss {k_loss} vs {p_loss}; {bad}")
 
 
+def _check_occlusion(torch):
+    """The left-right occlusion mask through the kernel against the same
+    arithmetic on the plain version: identical masks."""
+    from anystereo_tpu_torch.eval.occlusion import occ_mask
+    from anystereo_tpu_torch.ops.kernels import lookup_linear as tl
+
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    dl = torch.rand(1, EVAL_H, EVAL_W, device=DEVICE, generator=gen) * 60
+    dr = torch.rand(1, EVAL_H, EVAL_W, device=DEVICE, generator=gen) * 60
+    before = tl.gather_rows_linear.launches
+    mask = occ_mask(dl, dr)
+    xs = torch.arange(EVAL_W, device=DEVICE, dtype=torch.float32)
+    plain = (dl - tl.gather_rows_linear_ref(dr, xs - dl)).abs() > 3.0
+    torch.cuda.synchronize()
+    share = float(mask.float().mean())
+    _log(f"[check] occ_mask {EVAL_H}x{EVAL_W} through gather_rows_linear vs plain: "
+         f"{int((mask != plain).sum())} pixels differ; {share:.1%} occluded")
+    if tl.gather_rows_linear.launches != before + 1 or not torch.equal(mask, plain) \
+            or not 0.0 < share < 1.0:
+        raise AssertionError("occ_mask through the kernel and through its plain version differ")
+
+
+def _check_liif_modes(torch):
+    """One full-size eval forward each with 4-nearest latents and with the
+    local ensemble: finite, of the input's size."""
+    from anystereo_tpu_torch.config import LiifConfig
+    from anystereo_tpu_torch.nn.model import build_model
+
+    left, right = _images(torch, 1)
+    for kw in (dict(quarter_nearest="both"), dict(local_ensemble=True)):
+        model = build_model(_config("igev", liif=LiifConfig(**kw)), device=DEVICE, seed=0)
+        disp = model(left, right, iters=CHECK_ITERS).disp_final
+        torch.cuda.synchronize()
+        _log(f"[check] IGEV eval forward with {kw}: disp_final {tuple(disp.shape)}, range "
+             f"[{float(disp.min()):.3f}, {float(disp.max()):.3f}] px")
+        if tuple(disp.shape) != (1, H, W) or not bool(torch.isfinite(disp).all()):
+            raise AssertionError(f"eval forward with {kw}: {tuple(disp.shape)} not finite [1, {H}, {W}]")
+        del model
+        torch.cuda.empty_cache()
+
+
 def phase_spread(torch):
     """--spread: how far two runs of one and the same fp32 path differ in
     their gradients, with cuDNN free to pick its algorithms and held to the
@@ -898,9 +1225,11 @@ def phase_check(torch, kernels):
     for core in ("igev", "raft"):
         _check_eval(torch, kernels, core)
         torch.cuda.empty_cache()
-    _check_train(torch, kernels, "igev", "aligned")
-    torch.cuda.empty_cache()
-    _check_train(torch, kernels, "raft", "classify")
+    _check_occlusion(torch)
+    for core, flavor in (("igev", "aligned"), ("igev", "levels"), ("raft", "classify")):
+        _check_train(torch, kernels, core, flavor)
+        torch.cuda.empty_cache()
+    _check_liif_modes(torch)
 
 
 # ----------------------------------------------------------------- --profile
@@ -1016,6 +1345,7 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; nothing was run", file=sys.stderr)
         return 2
+    from anystereo_tpu_torch.ops.kernels import lookup_linear as tl
     from anystereo_tpu_torch.ops.kernels import lookup_window as tw
     from anystereo_tpu_torch.ops.kernels.gather import gather_rows, scatter_rows_add
     from anystereo_tpu_torch.ops.kernels.lookup import (
@@ -1023,10 +1353,11 @@ def main(argv) -> int:
         gather_pyramid_aligned_bwd,
     )
 
-    # every wrapper that counts launches; the main paths reach the first six
+    # every wrapper that counts launches; the main paths reach the first nine
     kernels = [gather_pyramid_aligned, gather_pyramid_aligned_bwd, tw.gather_pyramid_window_pm,
                tw.gather_pyramid_window_pm_bwd, gather_rows, scatter_rows_add,
-               tw.gather_pyramid_window_t, tw.gather_pyramid_window_t_bwd,
+               tl.gather_window_linear, tl.gather_window_linear_bwd, tl.gather_rows_linear,
+               tl.gather_rows_linear_bwd, tw.gather_pyramid_window_t, tw.gather_pyramid_window_t_bwd,
                tw.gather_pyramid_window, tw.gather_pyramid_window_bwd]
     profile = "--profile" in argv
     card = _card()
@@ -1045,12 +1376,25 @@ def main(argv) -> int:
     classify, _ = phase_model(torch, kernels, "raft", "classify")
     by_path["eval_raft"] = {k: v + classify[k] for k, v in by_path["eval_raft"].items()}
     torch.cuda.empty_cache()
+    by_path["eval_levels"], _ = phase_model(torch, kernels, "igev", "levels")
+    torch.cuda.empty_cache()
+    raft_levels, _ = phase_model(torch, kernels, "raft", "levels")
+    by_path["eval_levels"] = {k: v + raft_levels[k] for k, v in by_path["eval_levels"].items()}
+    torch.cuda.empty_cache()
+    _log("[model] ms per pair by lookup flavor: " + "; ".join(
+        f"{core.upper()} " + ", ".join(f"{fl} {ms:.2f}" for (c, fl), ms in PAIR_MS.items() if c == core)
+        for core in ("igev", "raft")))
+    by_path["validate"] = phase_validate(torch, kernels)
+    torch.cuda.empty_cache()
     by_path["train_igev"], trained = phase_train(torch, kernels, "igev", "aligned")
     if profile:
         phase_profile_train(torch, *trained)
     del trained
     torch.cuda.empty_cache()
     by_path["train_raft"], trained = phase_train(torch, kernels, "raft", "classify")
+    del trained
+    torch.cuda.empty_cache()
+    by_path["train_levels"], trained = phase_train(torch, kernels, "igev", "levels", steps=1)
     del trained
     torch.cuda.empty_cache()
     phase_check(torch, kernels)

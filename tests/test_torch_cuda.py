@@ -14,7 +14,9 @@ import torch
 
 from anystereo_tpu_torch.config import ModelConfig, TrainConfig, raft_config
 from anystereo_tpu_torch.nn.model import build_model
-from anystereo_tpu_torch.ops import lookup
+from anystereo_tpu_torch.eval.occlusion import occ_mask
+from anystereo_tpu_torch.ops import lookup, sampling
+from anystereo_tpu_torch.ops.kernels import lookup_linear as tl
 from anystereo_tpu_torch.ops.kernels import lookup_window as tw
 from anystereo_tpu_torch.ops.kernels.gather import (
     gather_rows,
@@ -177,10 +179,29 @@ def test_gather_functions_backward_through_the_scatter_kernel(card, fn, fwd_laun
 _CORES = {"igev": lambda **kw: ModelConfig(**kw), "raft": raft_config}
 
 
+# flavor: (its forward kernel, its backward kernel)
+_FLAVOR_KERNELS = {
+    "aligned": (gather_pyramid_aligned, gather_pyramid_aligned_bwd),
+    "classify": (tw.gather_pyramid_window_pm, tw.gather_pyramid_window_pm_bwd),
+    "levels": (tl.gather_window_linear, tl.gather_window_linear_bwd),
+}
+
+
+def _lookup_launches(core, flavor, iters):
+    """Forward launches of each flavor's kernel (in `_FLAVOR_KERNELS` order)
+    over `iters` iterations under `flavor`: one a volume (IGEV two, RAFT
+    one), and for "levels" one a volume and level (IGEV 2 levels, RAFT 4)."""
+    n = iters * (2 if core == "igev" else 1)
+    if flavor == "levels":
+        n *= 2 if core == "igev" else 4
+    return [n if f == flavor else 0 for f in _FLAVOR_KERNELS]
+
+
 def _plain_lookups(monkeypatch_like):
-    """Point `ops.lookup` at the plain versions of both lookup kernels."""
+    """Point `ops.lookup` at the plain versions of all three lookup kernels."""
     monkeypatch_like(lookup, "gather_pyramid_aligned", gather_pyramid_aligned_ref)
     monkeypatch_like(lookup, "gather_pyramid_window_pm", tw.gather_pyramid_window_pm_ref)
+    monkeypatch_like(lookup, "gather_window_linear", tl.gather_window_linear_ref)
 
 
 @pytest.mark.parametrize("core", sorted(_CORES))
@@ -188,9 +209,10 @@ def _plain_lookups(monkeypatch_like):
 def test_training_forward_backward_through_kernels(card, monkeypatch, core, flavor):
     """A small fp32 training forward and backward of each core under each
     lookup flavor: per iteration one lookup forward and one backward for each
-    volume (IGEV two, RAFT one) through that flavor's kernels and none
-    through the other's; per decode three query gathers forward and three
-    scatter-adds backward; loss and gradients agree with the all-plain run."""
+    volume (IGEV two, RAFT one; under "levels" for each level of it too)
+    through that flavor's kernels and none through the others'; per decode
+    three query gathers forward and three scatter-adds backward; loss and
+    gradients agree with the all-plain run."""
     monkeypatch.setenv("ANYSTEREO_LOOKUP_KERNEL", flavor)
     model = build_model(_CORES[core](max_disp=32, compute_dtype="float32"), device=card, seed=0)
     iters = 2
@@ -201,8 +223,8 @@ def test_training_forward_backward_through_kernels(card, monkeypatch, core, flav
              "coords": torch.rand(2, 1000, 2, device=card, generator=g) * 2 - 1,
              "scale": torch.tensor([1.5, 2.5], device=card),
              "gt": torch.full((2, 1000), 6.0, device=card), "valid": torch.ones(2, 1000, device=card)}
-    kernels = (gather_pyramid_aligned, gather_pyramid_aligned_bwd, tw.gather_pyramid_window_pm,
-               tw.gather_pyramid_window_pm_bwd, gather_rows, scatter_rows_add)
+    kernels = (*(f for f, _ in _FLAVOR_KERNELS.values()), *(b for _, b in _FLAVOR_KERNELS.values()),
+               gather_rows, scatter_rows_add)
 
     def run():
         for p in model.parameters():
@@ -214,9 +236,7 @@ def test_training_forward_backward_through_kernels(card, monkeypatch, core, flav
 
     before = [k.launches for k in kernels]
     loss, grads = run()
-    vols = iters * (2 if core == "igev" else 1)
-    mine, other = [vols, vols], [0, 0]
-    want = (mine + other if flavor == "aligned" else other + mine) + [3 * iters, 3 * iters]
+    want = 2 * _lookup_launches(core, flavor, iters) + [3 * iters, 3 * iters]
     assert [k.launches - b for k, b in zip(kernels, before)] == want
     _plain_lookups(monkeypatch.setattr)
     set_gather_plain(True)
@@ -314,8 +334,8 @@ def test_window_lookup_is_differentiable_through_the_kernels(card, layout):
 @pytest.mark.parametrize("flavor", lookup.LOOKUP_KERNELS)
 def test_eval_forward_counts_and_flavors_agree(card, monkeypatch, core, flavor):
     """A small fp32 eval forward: one lookup launch per volume and iteration
-    through the chosen flavor's kernel only, within 1e-3 px of the all-plain
-    forward and of the other flavor."""
+    (and, under "levels", level) through the chosen flavor's kernel only,
+    within 1e-3 px of the all-plain forward and of another flavor."""
     model = build_model(_CORES[core](max_disp=32, compute_dtype="float32"), device=card, seed=0)
     g = torch.Generator(device=card).manual_seed(1)
     left = torch.rand(1, 64, 160, 3, device=card, generator=g) * 255
@@ -324,14 +344,104 @@ def test_eval_forward_counts_and_flavors_agree(card, monkeypatch, core, flavor):
     monkeypatch.setenv("ANYSTEREO_LOOKUP_KERNEL", other)
     other_out = model(left, right, iters=3)
     monkeypatch.setenv("ANYSTEREO_LOOKUP_KERNEL", flavor)
-    before = (gather_pyramid_aligned.launches, tw.gather_pyramid_window_pm.launches)
+    forwards = [f for f, _ in _FLAVOR_KERNELS.values()]
+    before = [f.launches for f in forwards]
     out = model(left, right, iters=3)
     torch.cuda.synchronize()
-    n = 3 * (2 if core == "igev" else 1)
-    got = (gather_pyramid_aligned.launches - before[0], tw.gather_pyramid_window_pm.launches - before[1])
-    assert got == ((n, 0) if flavor == "aligned" else (0, n))
+    assert [f.launches - b for f, b in zip(forwards, before)] == _lookup_launches(core, flavor, 3)
     assert out.disp_final.shape == (1, 64, 160) and torch.isfinite(out.disp_final).all()
     _plain_lookups(monkeypatch.setattr)
     plain = model(left, right, iters=3)
     torch.testing.assert_close(out.disp_final, plain.disp_final, rtol=0, atol=1e-3)
     torch.testing.assert_close(out.disp_final, other_out.disp_final, rtol=0, atol=1e-3)
+
+
+# ------------------------------------------------- the single-level lookups
+
+_LINEAR_FAR = (-3e9, 3e9, -1e6, 1e6)
+
+
+@pytest.mark.parametrize("rows,length,taps", [(300, 312, 9), (375, 1242, 1242), (4096, 48, 9),
+                                              (777, 39, 9), (50, 78, 2500), (33, 5, 3)])
+def test_rows_linear_kernels_match_plain_versions_exactly(card, rows, length, taps):
+    """`gather_rows_linear` forward and backward repeat the plain versions'
+    operations in their order (the backward adds a row's taps in ascending k,
+    no atomics), so they agree bit for bit; far positions give zeros; a row
+    whose taps all land on one entry sums them in that order too."""
+    g = torch.Generator(device=card).manual_seed(0)
+    vol = torch.randn(rows, length, device=card, generator=g)
+    pos = torch.rand(rows, taps, device=card, generator=g) * (length + 8) - 4
+    pos[0, : min(taps, 4)] = torch.tensor(_LINEAR_FAR, device=card)[: min(taps, 4)]
+    pos[1] = 2.25  # every tap of the row collides
+    pos[2, 0], pos[2, 1] = -1.0, length - 1.0
+    cot = torch.randn(rows, taps, device=card, generator=g)
+    before = (tl.gather_rows_linear.launches, tl.gather_rows_linear_bwd.launches)
+    got, want = tl.gather_rows_linear(vol, pos), tl.gather_rows_linear_ref(vol, pos)
+    dgot, dwant = tl.gather_rows_linear_bwd(pos, cot, length), tl.gather_rows_linear_bwd_ref(pos, cot, length)
+    torch.cuda.synchronize()
+    assert (tl.gather_rows_linear.launches, tl.gather_rows_linear_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert got.dtype == torch.float32 and got.shape == (rows, taps) and torch.equal(got, want)
+    assert dgot.shape == (rows, length) and torch.equal(dgot, dwant)
+    assert not got[0, : min(taps, 4)].any()
+    with pytest.raises(ValueError):  # a strided view is refused, not copied silently
+        tl.gather_rows_linear(vol[:, :-1], pos)
+
+
+@pytest.mark.parametrize("rows,length", [(239616, 48), (29952, 312), (4096, 24), (777, 39),
+                                         (1000, 156), (33, 5)])
+def test_window_linear_kernels_match_plain_versions_exactly(card, rows, length):
+    g = torch.Generator(device=card).manual_seed(1)
+    vol = torch.randn(rows, length, device=card, generator=g)
+    base = torch.rand(rows, device=card, generator=g) * (length + 18) - 9
+    base[:4] = torch.tensor(_LINEAR_FAR, device=card)
+    base[4], base[5] = -1.0, float(length - 9)
+    cot = torch.randn(rows, 9, device=card, generator=g)
+    before = (tl.gather_window_linear.launches, tl.gather_window_linear_bwd.launches)
+    got, want = tl.gather_window_linear(vol, base, 9), tl.gather_window_linear_ref(vol, base, 9)
+    dgot = tl.gather_window_linear_bwd(base, cot, length, 9)
+    dwant = tl.gather_window_linear_bwd_ref(base, cot, length, 9)
+    torch.cuda.synchronize()
+    assert (tl.gather_window_linear.launches, tl.gather_window_linear_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert got.shape == (rows, 9) and torch.equal(got, want)
+    assert dgot.shape == (rows, length) and torch.equal(dgot, dwant)
+    assert not got[:4].any() and not dgot[:4].any()
+    # against the arbitrary-position kernel at base + k: the rounding of that sum
+    pos = base[:, None] + torch.arange(9, device=card)
+    torch.testing.assert_close(got[4:], tl.gather_rows_linear(vol, pos.contiguous())[4:],
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_linear_lookups_are_differentiable_through_the_kernels(card):
+    g = torch.Generator(device=card).manual_seed(2)
+    vol = torch.randn(2048, 80, device=card, generator=g, requires_grad=True)
+    pos = torch.rand(2048, 30, device=card, generator=g) * 88 - 4
+    cot = torch.randn(2048, 30, device=card, generator=g)
+    kernels = (tl.gather_rows_linear, tl.gather_rows_linear_bwd, tl.gather_window_linear,
+               tl.gather_window_linear_bwd)
+    before = [k.launches for k in kernels]
+    tl.gather_rows_linear(vol, pos).backward(cot)
+    tl.gather_window_linear(vol, pos[:, 0].contiguous(), 9).backward(cot[:, :9].contiguous())
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 1, 1]
+    plain = vol.detach().clone().requires_grad_(True)
+    tl.gather_rows_linear_ref(plain, pos).backward(cot)  # PyTorch's own autograd
+    tl.gather_window_linear_ref(plain, pos[:, 0], 9).backward(cot[:, :9])
+    torch.testing.assert_close(vol.grad, plain.grad, rtol=1e-5, atol=1e-5)
+
+
+def test_occ_mask_goes_through_the_rows_kernel(card):
+    """`gather_1d_linear` on the card: one launch whatever the leading axes,
+    and the occlusion mask equals the plain version's."""
+    g = torch.Generator(device=card).manual_seed(3)
+    dl = torch.rand(2, 375, 1242, device=card, generator=g) * 60
+    dr = torch.rand(2, 375, 1242, device=card, generator=g) * 60
+    before = tl.gather_rows_linear.launches
+    mask = occ_mask(dl, dr)
+    assert tl.gather_rows_linear.launches == before + 1
+    xs = torch.arange(1242, device=card, dtype=torch.float32)
+    plain = (dl - tl.gather_rows_linear_ref(dr, xs - dl)).abs() > 3.0
+    assert mask.dtype == torch.bool and torch.equal(mask, plain) and 0 < int(mask.sum()) < mask.numel()
+    vol = torch.randn(1, 4, 5, 2, 8, device=card, generator=g)
+    pos = torch.rand(1, 4, 5, 2, 7, device=card, generator=g) * 12 - 2
+    assert torch.equal(sampling.gather_1d_linear(vol, pos), tl.gather_rows_linear_ref(vol, pos))

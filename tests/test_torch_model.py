@@ -138,17 +138,24 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch):
 
 
 def test_unported_paths_raise():
-    """What is still unported raises; the RAFT core, every stem type and the
-    separable GRU build."""
+    """Nothing is left to raise: the RAFT core, every stem type, the
+    separable GRU and every LIIF mode build, and each mode runs an eval
+    forward (densely and at queries) to a finite disparity."""
     from anystereo_tpu_torch.config import AggregationType, LiifConfig
 
     assert hasattr(AnyStereo(raft_config()), "fnet")
     AnyStereo(ModelConfig(max_disp=MAX_DISP, gru_type="sep"))
     AnyStereo(ModelConfig(max_disp=MAX_DISP, agg_type=AggregationType.TYPE1))
 
+    left, right = (torch.from_numpy(a) for a in _images())
+    coords = torch.rand(B, 40, 2, generator=torch.Generator().manual_seed(0)) * 2 - 1
     for liif in (LiifConfig(local_ensemble=True), LiifConfig(quarter_nearest="both"),
-                 LiifConfig(pos_enc="sinusoid")):
-        with pytest.raises(NotImplementedError):
-            AnyStereo(ModelConfig(max_disp=MAX_DISP, liif=liif))
-        with pytest.raises(NotImplementedError):
-            AnyStereo(raft_config(liif=liif))
+                 LiifConfig(quarter_nearest="only_disp"), LiifConfig(pos_enc="spatial", pos_dim=8),
+                 LiifConfig(pos_enc="sinusoid"), LiifConfig(pos_enc="ipe"),
+                 LiifConfig(pos_enc="learn"), LiifConfig(pos_enc="dpb")):
+        AnyStereo(raft_config(liif=liif))
+        model = build_model(ModelConfig(max_disp=MAX_DISP, liif=liif), device="cpu", seed=1)
+        dense = model(left, right, iters=1).disp_final
+        at_queries = model(left, right, iters=1, coords=coords, scale=1.5).disp_final
+        assert dense.shape == (B, H, W) and at_queries.shape == (B, 40)
+        assert torch.isfinite(dense).all() and torch.isfinite(at_queries).all()

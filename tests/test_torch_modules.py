@@ -380,7 +380,17 @@ def test_liif_dense_decode(rng, decode_cell, dtype):
 
 
 def test_liif_unported_modes_raise():
-    for kw in (dict(local_ensemble=True), dict(quarter_nearest="only_disp"),
-               dict(pos_enc="sinusoid")):
-        with pytest.raises(NotImplementedError):
-            tliif.LiifDecoder(tcfg.LiifConfig(**kw), (20, 6))
+    """No decoder mode raises any more: each builds with the input width the
+    JAX package computes for it and decodes densely to its tap count."""
+    from anystereo_tpu.ops.coords import _axis_centers
+
+    feats = [torch.randn(1, 4, 6, 20), torch.randn(1, 8, 12, 6)]
+    ys, xs = (torch.from_numpy(np.array(_axis_centers(n))) for n in (8, 12))
+    for kw, taps in ((dict(local_ensemble=True), 9), (dict(quarter_nearest="only_disp"), 4),
+                     (dict(quarter_nearest="both"), 4), (dict(pos_enc="sinusoid"), 9),
+                     (dict(pos_enc="learn"), 9), (dict(pos_enc="dpb"), 9), (dict(pos_enc="ipe"), 9),
+                     (dict(pos_enc="spatial", pos_dim=8), 9)):
+        tm = tliif.LiifDecoder(tcfg.LiifConfig(**kw), (20, 6))
+        assert tm.imnet.parts[0].weight.shape[1] == jliif.decoder_input_dim(LiifConfig(**kw), (20, 6))
+        out = tm(feats, ys, xs, torch.tensor([1.5]))
+        assert out.shape == (1, 8, 12, taps) and torch.isfinite(out).all()

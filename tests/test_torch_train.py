@@ -406,3 +406,44 @@ def test_entry_points_never_fall_back_to_cpu(variables, monkeypatch):
     with pytest.raises(RuntimeError):
         make_train_step(tm, TCFG)
     assert isinstance(create_train_state(tm, TCFG, device="cpu"), TrainState)
+
+
+def test_train_step_width_96_against_float64():
+    """The step at 1x32x96 (rows of 24 at 1/4): loss and every gradient of
+    the port in fp32 against the JAX package in float64."""
+    w = 96
+    rng = np.random.RandomState(42)
+    b = dict(left=(rng.rand(B, H, w, 3) * 255).astype(np.float32),
+             right=(rng.rand(B, H, w, 3) * 255).astype(np.float32),
+             coords=(rng.rand(B, Q, 2) * 2 - 1).astype(np.float32),
+             gt=(rng.rand(B, Q) * 20 + 2).astype(np.float32),
+             valid=(rng.rand(B, Q) > 0.1).astype(np.float32),
+             scale=np.asarray([1.5], np.float32),
+             gt_low=(rng.rand(B, H // 4, w // 4) * 6).astype(np.float32))
+    jm32 = JaxAnyStereo(JaxConfig(max_disp=MAX_DISP, compute_dtype="float32"))
+    variables = _seeded_variables(jax.eval_shape(
+        lambda: jm32.init(jax.random.PRNGKey(0), b["left"], b["right"], iters=1, mode="eval")))
+    with jax.enable_x64(True):
+        jm = JaxAnyStereo(JaxConfig(max_disp=MAX_DISP, compute_dtype="float64"))
+        jb = {k: jnp.asarray(v, jnp.float64) for k, v in b.items()}
+
+        def loss_fn(p):
+            out = jm.apply({"params": p}, jb["left"], jb["right"], iters=ITERS, coords=jb["coords"],
+                           scale=jb["scale"], mode="train")
+            loss, _ = jloss.sequence_loss_queries(out.disp_preds, jb["gt"], jb["valid"],
+                                                  max_disp=TCFG.max_disp_loss, gamma=TCFG.loss_gamma)
+            return loss + jloss.init_disp_loss(out.init_disp, jb["gt_low"], TCFG.max_disp_loss)
+
+        params64 = jax.tree_util.tree_map(lambda x: jnp.asarray(x, jnp.float64), variables["params"])
+        want_loss, want = jax.jit(jax.value_and_grad(loss_fn))(params64)
+        assert jax.tree_util.tree_leaves(want)[0].dtype == jnp.float64
+        want_loss, want = float(want_loss), jax.tree_util.tree_map(np.asarray, want)
+    tm = _torch_model(variables, "float32")
+    loss, _ = loss_and_metrics(tm, TCFG, {k: torch.from_numpy(v) for k, v in b.items()})
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), want_loss, rtol=1e-4)
+    want = from_flax({"params": want})
+    bad = [(n, float((p.grad - want[n]).norm()), float(want[n].norm()))
+           for n, p in tm.named_parameters()
+           if float((p.grad - want[n]).norm()) > 1e-3 * float(want[n].norm()) + 1e-6]
+    assert not bad, bad
