@@ -103,13 +103,27 @@ def scatter_rows_add_ref(idx: torch.Tensor, g: torch.Tensor, n: int) -> torch.Te
     return dtbl
 
 
+def scatter_vec(c: int, dtype: torch.dtype, ptr: int) -> int:
+    """Channels one lane of the scatter kernel adds at once: the widest of 4,
+    2 and 1 that divides the row and g's address.  A table row is then
+    aligned to the vector too (the table is a fresh allocation), so 4 adds
+    through one float4 atomic, 2 through a float2 one, 1 through a scalar
+    one.  bf16 stops at 4 channels (an 8-byte load), not 8 (16 bytes): with 8
+    a lane's two float4 atomics go 32 bytes apart and each atomic instruction
+    of a warp covers half of every sector it touches, which measured 1.5x
+    slower on the H100 (`PERF.md` §6)."""
+    size = torch.empty((), dtype=dtype).element_size()
+    return next(v for v in (4, 2, 1) if c % v == 0 and ptr % (v * size) == 0)
+
+
 def scatter_rows_add(idx: torch.Tensor, g: torch.Tensor, n: int) -> torch.Tensor:
     """`dtbl[b, p, :] = sum of g[b, q, :] over q with idx[b, q] == p`, summed
     in fp32: idx [B, Q] int32, g [B, Q, C] fp32 or bf16 → [B, n, C] fp32.
 
-    A CUDA tensor goes to the kernel (fp32 atomics into a table this
-    wrapper zero-fills, so the order of each row's sum changes from run to
-    run), a CPU tensor to the plain version; any other device raises.
+    A CUDA tensor goes to the kernel (fp32 vector atomics, `scatter_vec`
+    channels a lane, into a table this wrapper zero-fills, so the order of
+    each row's sum changes from run to run), a CPU tensor to the plain
+    version; any other device raises.
     Each kernel launch adds one to `scatter_rows_add.launches`."""
     if g.dim() != 3:
         raise ValueError(f"expected g [B, Q, C], got {tuple(g.shape)}")
@@ -125,11 +139,12 @@ def scatter_rows_add(idx: torch.Tensor, g: torch.Tensor, n: int) -> torch.Tensor
     batch, q, c = g.shape
     dtbl = torch.zeros((batch, n, c), dtype=torch.float32, device=g.device)
     fn = _entry("anystereo_scatter_rows_add",
-                [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2
+                [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3
                 + [ctypes.c_void_p])
     with torch.cuda.device(g.device):
         err = fn(idx.data_ptr(), g.data_ptr(), dtbl.data_ptr(), batch, n, q, c,
-                 int(g.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+                 int(g.dtype == torch.bfloat16), scatter_vec(c, g.dtype, g.data_ptr()),
+                 torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"scatter_rows_add kernel failed: CUDA error {err}")
     scatter_rows_add.launches += 1

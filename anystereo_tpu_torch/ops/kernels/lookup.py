@@ -72,7 +72,10 @@ def gather_pyramid_aligned_ref(
     lv, outs = vol.float(), []
     for lvl in range(levels):
         base = xc * (2.0 ** -lvl) - radius
-        outs.append(gather_rows_linear_ref(lv, base[:, None] + k))
+        if lv.shape[-1] == 0:  # L < 2^lvl: the pooled row is empty, every tap zero
+            outs.append(vol.new_zeros((vol.shape[0], taps)))
+        else:
+            outs.append(gather_rows_linear_ref(lv, base[:, None] + k))
         lv = pool_half_last(lv)
     return torch.cat(outs, dim=-1).to(out_dtype)
 

@@ -4,10 +4,20 @@
     python3 chip_smoke.py             # the phases below
     python3 chip_smoke.py --profile   # and time breakdowns of one eval
                                       # forward and one training step,
-                                      # written to chiprun_out/
+                                      # written to chiprun_out/, with the
+                                      # aligned lookup's forward summed
+                                      # inside them
     python3 chip_smoke.py --spread    # and the run-to-run spread of the fp32
                                       # gradients with and without cuDNN's
                                       # deterministic algorithms
+    python3 chip_smoke.py --parent DIR
+                                      # and, in the kernels phase, the aligned
+                                      # lookup's forward and the scatter-add
+                                      # as the checkout at DIR builds them
+                                      # (an earlier commit): held to this
+                                      # tree's (the lookup bit for bit) and
+                                      # timed beside them, in turns (with
+                                      # --profile also inside the paths)
 
 Phases (any failure raises, and the exit code is not 0):
 
@@ -28,7 +38,12 @@ Phases (any failure raises, and the exit code is not 0):
            `gather_window_linear` at the eight level shapes of the "levels"
            flavor's eval forwards and the four of its training step,
            `gather_rows_linear` at the evaluator's occlusion shape
-           (375 rows of 1242 positions) and at 300 x 312 x 9;
+           (375 rows of 1242 positions) and at 300 x 312 x 9.  The aligned
+           lookup's forward is held and timed at uniformly random positions
+           and at path-shaped ones (a smooth disparity field), beside a
+           PyTorch copy of as many bytes as its bound counts; it and the
+           scatter-add carry `floor_ms`, the same wrapper's time on one row or
+           one query;
 3. model   the eval forward at full width, 1x384x1248, 32 GRU iterations,
            bf16, weights from a seeded generator, one warm-up and three timed
            requests each: the IGEV model (`ModelConfig()`), the RAFT model
@@ -57,8 +72,10 @@ Phases (any failure raises, and the exit code is not 0):
            under "levels", RAFT under "classify"; one forward each with
            `quarter_nearest="both"` and with `local_ensemble=True`.
 
-It prints a `kernels` JSON line, the card's name and power limit as
-nvidia-smi reports them, and last `{"ok": true, "device": {...}}`.  It
+It prints a `kernels` JSON line, with `--parent` a short line of the
+aligned lookup's and the scatter-add's times beside the parent's, the
+card's name and power limit as nvidia-smi reports them, and last
+`{"ok": true, "device": {...}}`.  It
 exits with code 2 and prints no result when no CUDA card is visible.
 """
 
@@ -88,7 +105,9 @@ SCATTER_RTOL = 1e-5  # |kernel - plain| <= rtol * (1 + sum_q |g[q, c]| of that e
 GRAD_CHECK_RTOL, GRAD_CHECK_ATOL, LOSS_CHECK_RTOL = 1e-3, 1e-7, 1e-5
 OUT_DIR = "chiprun_out"
 DEVICE = "cuda"
+PARENT = {}  # --parent: C entry points built from an earlier checkout's sources
 PAIR_MS = {}  # (core, flavor) -> mean ms per pair of the timed eval requests
+IN_PATH = {}  # --profile: B1's forward summed inside the profiled forward and step
 
 
 def _log(*a):
@@ -105,15 +124,73 @@ def _card() -> str:
 # ----------------------------------------------------------------- phase 1
 
 
-def phase_build():
+def phase_build(parent=None):
+    """Every source of this tree, and with `parent` (a checkout's root) that
+    checkout's aligned lookup and row gather sources, all at once."""
     from anystereo_tpu_torch.ops.kernels import build
 
     t0 = time.perf_counter()
+    procs = []
+    for name in ("lookup_aligned", "gather_rows") if parent else ():
+        out = build.BUILD_DIR / f"libparent_{name}.so"
+        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        src = os.path.join(parent, "anystereo_tpu_torch", "csrc", f"{name}.cu")
+        procs.append((name, out, subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-o", str(out), src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     seconds = build.build()
+    for name, out, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the parent's {name}.cu:\n{log}")
+        PARENT[name] = _parent_entry(out, name)
     for name, log in build.BUILD_LOGS.items():
         _log(f"[build] {name}.cu ptxas:\n{log.strip()}")
     _log(f"[build] {sorted(seconds)} built in {time.perf_counter() - t0:.2f} s "
          f"(per source: {json.dumps({k: round(v, 2) for k, v in seconds.items()})})")
+
+
+def _parent_entry(path, name):
+    """The parent's C entry point: the lookup's forward has this tree's
+    signature, the scatter the one it had before it took `vec`."""
+    import ctypes
+
+    lib = ctypes.CDLL(str(path))
+    if name == "lookup_aligned":
+        fn = lib.anystereo_gather_pyramid_aligned
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    else:
+        fn = lib.anystereo_scatter_rows_add
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _parent_lookup(torch, vol, x, levels, out_dtype):
+    out = torch.empty((vol.shape[0], levels * TAPS), dtype=out_dtype, device=DEVICE)
+    err = PARENT["lookup_aligned"](vol.data_ptr(), x.data_ptr(), out.data_ptr(), vol.shape[0], vol.shape[1],
+                                   TAPS, levels, int(out_dtype == torch.bfloat16),
+                                   torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"the parent's lookup kernel failed: CUDA error {err}")
+    return out
+
+
+def _parent_scatter(torch, idx, g, n):
+    batch, q, c = g.shape
+    dtbl = torch.zeros((batch, n, c), dtype=torch.float32, device=DEVICE)
+    err = PARENT["gather_rows"](idx.data_ptr(), g.data_ptr(), dtbl.data_ptr(), batch, n, q, c,
+                                int(g.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"the parent's scatter kernel failed: CUDA error {err}")
+    return dtbl
+
+
+def _beside_parent(torch, res, key, fn, parent_fn):
+    """Times in turns, parent, this tree, this tree, parent: `parent_<key>`
+    and `<key>_beside_parent`, two each."""
+    p1, n1, n2, p2 = (_time_ms(torch, f) for f in (parent_fn, fn, fn, parent_fn))
+    res[f"parent_{key}"], res[f"{key}_beside_parent"] = [p1, p2], [n1, n2]
 
 
 # ----------------------------------------------------------------- phase 2
@@ -224,6 +301,49 @@ def _positions(torch, gen, rows, length):
     return x, x_main
 
 
+def _path_positions(torch, call, rows):
+    """Positions shaped as the main path gives them: a smooth disparity field
+    d over the cells (4 to 40 cells; eval 1x96x312, training 2x40x80); the
+    GEV volume has one x = d for each run of 8 consecutive rows (a cell's
+    groups), the correlation x = column - d."""
+    import math
+
+    batch, h4, w4 = (TRAIN_BATCH, TRAIN_H // 4, TRAIN_W // 4) if "train" in call else (1, H // 4, W // 4)
+    hh = torch.arange(h4, device=DEVICE, dtype=torch.float32)[:, None] / h4
+    ww = torch.arange(w4, device=DEVICE, dtype=torch.float32)[None, :]
+    d = torch.stack([22 + 18 * torch.sin(2 * math.pi * (1.5 * ww / w4 + 0.5 * hh + 0.3 * b))
+                     * torch.cos(math.pi * hh) for b in range(batch)])
+    x = d.reshape(-1).repeat_interleave(8) if call.endswith("gev") else (ww - d).reshape(-1)
+    assert x.numel() == rows, (call, x.numel(), rows)
+    return x.contiguous()
+
+
+def _check_lookup(torch, res, tag, vol, x, levels):
+    """B1 against its plain version (fp32 within FP32_ATOL, bf16 within one
+    ulp) and, with --parent, against the parent's kernel bit for bit."""
+    from anystereo_tpu_torch.ops.kernels.lookup import (
+        gather_pyramid_aligned,
+        gather_pyramid_aligned_ref,
+    )
+
+    call = res["call"]
+    for out_dtype, name in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        got = gather_pyramid_aligned(vol, x, TAPS, levels, out_dtype)
+        want = gather_pyramid_aligned_ref(vol, x, TAPS, levels, out_dtype)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        if out_dtype == torch.float32 and not err <= FP32_ATOL:
+            raise AssertionError(f"{call} {tag} fp32: max |kernel - plain| {err} > {FP32_ATOL}")
+        if out_dtype == torch.bfloat16 and not _bf16_ulps_ok(torch, got, want):
+            raise AssertionError(f"{call} {tag} bf16: kernel and plain differ by more than 1 ulp")
+        res[f"max_abs_err_{tag}{name}"] = err
+        res["max_abs_err"] = max(res.get("max_abs_err", 0.0), err if name == "fp32" else 0.0)
+        if PARENT:
+            if not torch.equal(got, _parent_lookup(torch, vol, x, levels, out_dtype)):
+                raise AssertionError(f"{call} {tag} {name}: differs from the parent's kernel")
+            res["equal_to_parent"] = True
+
+
 def _kernels_lookup_fwd(torch):
     from anystereo_tpu_torch.ops.kernels.lookup import (
         gather_pyramid_aligned,
@@ -232,36 +352,49 @@ def _kernels_lookup_fwd(torch):
 
     g = torch.Generator(device=DEVICE).manual_seed(0)
     calls = []
+    bf16 = torch.bfloat16
     for call, rows, length, levels in _lookup_shapes():
         vol = torch.randn(rows, length, device=DEVICE, generator=g)
         x, x_main = _positions(torch, g, rows, length)
+        x_path = _path_positions(torch, call, rows)
         res = {"call": call, "rows": rows, "length": length, "levels": levels}
-        for out_dtype in (torch.float32, torch.bfloat16):
-            got = gather_pyramid_aligned(vol, x, TAPS, levels, out_dtype)
-            want = gather_pyramid_aligned_ref(vol, x, TAPS, levels, out_dtype)
-            torch.cuda.synchronize()
-            err = float((got.float() - want.float()).abs().max())
-            name = "fp32" if out_dtype == torch.float32 else "bf16"
-            if out_dtype == torch.float32:
-                if not err <= FP32_ATOL:
-                    raise AssertionError(f"{call} fp32: max |kernel - plain| {err} > {FP32_ATOL}")
-                res["max_abs_err"] = err
-            elif not _bf16_ulps_ok(torch, got, want):
-                raise AssertionError(f"{call} bf16: kernel and plain differ by more than 1 ulp")
-            res[f"max_abs_err_{name}"] = err
+        _check_lookup(torch, res, "", vol, x, levels)
+        _check_lookup(torch, res, "path_", vol, x_path, levels)
         # the main path asks for bf16 out
-        res["ms"] = _time_ms(torch, lambda: gather_pyramid_aligned(
-            vol, x_main, TAPS, levels, torch.bfloat16))
+        res["ms"] = _time_ms(torch, lambda: gather_pyramid_aligned(vol, x_main, TAPS, levels, bf16))
+        res["ms_path"] = _time_ms(torch, lambda: gather_pyramid_aligned(vol, x_path, TAPS, levels, bf16))
+        res["floor_ms"] = _time_ms(torch, lambda: gather_pyramid_aligned(
+            vol[:1], x_main[:1], TAPS, levels, bf16))
         res["plain_ms"] = _time_ms(torch, lambda: gather_pyramid_aligned_ref(
-            vol, x_main, TAPS, levels, torch.bfloat16), reps=5)
+            vol, x_main, TAPS, levels, bf16), reps=5)
+        if PARENT:
+            for key, pos in (("ms", x_main), ("ms_path", x_path)):
+                _beside_parent(torch, res, key, lambda: gather_pyramid_aligned(vol, pos, TAPS, levels, bf16),
+                               lambda: _parent_lookup(torch, vol, pos, levels, bf16))
         nbytes, flops = _lookup_cost(torch, x_main, length, 2, levels)
         res["bytes"], res["flops"] = nbytes, flops
         res["bound_ms"], res["bound_by"] = _bound(nbytes, flops)
+        res["bytes_path"] = _lookup_cost(torch, x_path, length, 2, levels)[0]
+        res["bound_ms_path"] = _bound(res["bytes_path"], flops)[0]
+        # a yardstick for what the bound assumes: a PyTorch copy that reads
+        # and writes as many bytes in all, timed the same way (L2 left full of
+        # the flush's dirty lines)
+        src = torch.empty(nbytes // 8, device=DEVICE)
+        dst = torch.empty_like(src)
+        res["copy_ms"] = _time_ms(torch, lambda: dst.copy_(src))
+        del src, dst
+        parent = "" if not PARENT else (
+            f"; parent {res['parent_ms']} / this tree {res['ms_beside_parent']} ms in turns, path-shaped "
+            f"parent {res['parent_ms_path']} / this tree {res['ms_path_beside_parent']} ms; equal to "
+            f"the parent's output bit for bit")
         _log(f"[kernels] gather_pyramid_aligned {call} R={rows} L={length} levels={levels}: "
-             f"max|diff| fp32 {res['max_abs_err_fp32']:.3g} bf16 {res['max_abs_err_bf16']:.3g}; "
-             f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
-             f"bound {res['bound_ms']:.4f} ms ({nbytes} B)")
-        del vol, x, x_main
+             f"max|diff| fp32 {res['max_abs_err_fp32']:.3g} bf16 {res['max_abs_err_bf16']:.3g} (path-shaped "
+             f"{res['max_abs_err_path_fp32']:.3g}, {res['max_abs_err_path_bf16']:.3g}); kernel "
+             f"{res['ms']:.4f} ms, path-shaped {res['ms_path']:.4f} ms (bound "
+             f"{res['bound_ms_path']:.4f}), floor {res['floor_ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
+             f"bound {res['bound_ms']:.4f} ms ({nbytes} B; a copy of as many bytes {res['copy_ms']:.4f} "
+             f"ms){parent}")
+        del vol, x, x_main, x_path
         calls.append(res)
     # the record's times are one IGEV eval GRU iteration's pair of calls (GEV
     # then corr), bf16 out; the other calls stand in `per_call`.  No single
@@ -291,6 +424,7 @@ def _record(name, source, replaces, calls, main, paths, library=False):
         "bound_by": "bytes" if all(c["bound_by"] == "bytes" for c in picked) else "operations",
         "max_abs_err": max(c["max_abs_err"] for c in calls),
         "library_ms": sum(c["library_ms"] for c in picked) if library else None,
+        **({"floor_ms": sum(c["floor_ms"] for c in picked)} if all("floor_ms" in c for c in picked) else {}),
         "per_call": calls,
     }
 
@@ -486,6 +620,7 @@ def _kernels_gather(torch):
         gather_rows_ref,
         scatter_rows_add,
         scatter_rows_add_ref,
+        scatter_vec,
     )
 
     batch, q = 2, TRAIN_H * TRAIN_W
@@ -523,8 +658,17 @@ def _kernels_gather(torch):
         diff = (got - want).abs()
         if not bool((diff <= SCATTER_RTOL * (1.0 + row_abs)).all()):
             raise AssertionError(f"scatter_rows_add {shape}: max |kernel - plain| {float(diff.max())}")
-        res = dict(shape, max_abs_err=float(diff.max()))
+        res = dict(shape, max_abs_err=float(diff.max()), vec=scatter_vec(c, dtype, g.data_ptr()))
+        if PARENT:
+            pdiff = (_parent_scatter(torch, idx, g, n) - want).abs()
+            if not bool((pdiff <= SCATTER_RTOL * (1.0 + row_abs)).all()):
+                raise AssertionError(f"the parent's scatter_rows_add {shape}: max |diff| {float(pdiff.max())}")
+            _beside_parent(torch, res, "ms", lambda: scatter_rows_add(idx, g, n),
+                           lambda: _parent_scatter(torch, idx, g, n))
         res["ms"] = _time_ms(torch, lambda: scatter_rows_add(idx, g, n))
+        # one query a sample, the same table: the launch and the zero-fill
+        idx1, g1 = idx[:, :1].contiguous(), g[:, :1].contiguous()
+        res["floor_ms"] = _time_ms(torch, lambda: scatter_rows_add(idx1, g1, n))
         res["plain_ms"] = _time_ms(torch, lambda: scatter_rows_add_ref(idx, g, n))
         # the library call: one fp32 index_add_ over the flattened batch (its
         # fp32 source and int64 index are prepared outside the timing)
@@ -537,11 +681,15 @@ def _kernels_gather(torch):
             raise AssertionError(f"index_add_ {shape} disagrees with the plain version")
         res["bytes"], res["flops"] = idx.numel() * 4 + g.numel() * es + got.numel() * 4, g.numel()
         res["bound_ms"], res["bound_by"] = _bound(res["bytes"], res["flops"])
+        parent = "" if not PARENT else (
+            f"; parent {res['parent_ms']} / this tree {res['ms_beside_parent']} ms in turns")
         _log(f"[kernels] scatter_rows_add {shape}: max|diff| {res['max_abs_err']:.3g}; kernel "
-             f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, index_add_ "
-             f"{res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms ({res['bytes']} B)")
+             f"{res['ms']:.4f} ms ({res['vec']} channels a lane), floor "
+             f"{res['floor_ms']:.4f} ms, plain "
+             f"{res['plain_ms']:.4f} ms, index_add_ {res['library_ms']:.4f} ms, bound "
+             f"{res['bound_ms']:.4f} ms ({res['bytes']} B){parent}")
         bwd.append(res)
-        del table, idx, g, got, want, out, g32
+        del table, idx, g, got, want, out, g32, idx1, g1
     src = "anystereo_tpu_torch/csrc/gather_rows.cu"
     # per decode all three tables go through the gather forward and the
     # scatter backward
@@ -1270,11 +1418,17 @@ def phase_profile(torch, model):
     totals = {}
     for name, s, e in stages:
         totals[name] = totals.get(name, 0.0) + s.elapsed_time(e)
-    prof_wall, kernel_ms, kernel_n, table = _profiled(
-        torch, lambda: model(left, right, iters=ITERS))
+    def forward():
+        return model(left, right, iters=ITERS)
+
+    prof_wall, kernel_ms, kernel_n, table, named = _profiled(torch, forward)
     summary = {"stages_ms": totals, "stages_wall_ms": wall, "forward_wall_ms": prof_wall,
                "kernel_ms": kernel_ms, "kernel_launches": kernel_n,
-               "busy_share": kernel_ms / prof_wall}
+               "busy_share": kernel_ms / prof_wall,
+               "b1_fwd_ms": _named_ms(named, "pyr_aligned_fwd")}
+    if PARENT:
+        summary["b1_fwd_ms_in_turns"] = _b1_in_path(torch, forward)
+    IN_PATH["eval forward"] = {k: summary[k] for k in ("b1_fwd_ms", "b1_fwd_ms_in_turns") if k in summary}
     os.makedirs(OUT_DIR, exist_ok=True)
     path = os.path.join(OUT_DIR, "profile_forward.txt")
     with open(path, "w") as f:
@@ -1285,7 +1439,7 @@ def phase_profile(torch, model):
 
 def _profiled(torch, fn):
     """Run `fn` under torch.profiler: (wall ms, summed kernel ms, kernel
-    launches, the table of kernels by device time)."""
+    launches, the table of kernels by device time, {kernel name: ms})."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1293,13 +1447,61 @@ def _profiled(torch, fn):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     averages = prof.key_averages()
-    kernel_us, kernel_n = 0.0, 0
+    kernel_us, kernel_n, named = 0.0, 0, {}
     for ev in averages:
         us = getattr(ev, "self_device_time_total", None)
         us = ev.self_cuda_time_total if us is None else us
         if us > 0:
             kernel_us, kernel_n = kernel_us + us, kernel_n + ev.count
-    return wall, kernel_us / 1e3, kernel_n, averages.table(sort_by="cuda_time_total", row_limit=40)
+            named[ev.key] = named.get(ev.key, 0.0) + us / 1e3
+    return wall, kernel_us / 1e3, kernel_n, averages.table(sort_by="cuda_time_total", row_limit=40), named
+
+
+def _named_ms(named, part):
+    """Device ms of the kernels whose name holds `part`."""
+    return sum(ms for key, ms in named.items() if part in key)
+
+
+def _b1_in_path(torch, fn):
+    """B1's forward summed over one run of `fn` under torch.profiler (ms), in
+    turns this tree, parent, parent, this tree, with the parent's kernel
+    swapped into the wrapper: each kernel inside the path, with L2 as the
+    path's other kernels leave it."""
+    from anystereo_tpu_torch.ops.kernels import lookup
+
+    own = lookup._kernel
+    turns = {"this": [], "parent": []}
+    for who in ("this", "parent", "parent", "this"):
+        if who == "parent":
+            lookup._kernel = lambda backward=False: own(True) if backward else PARENT["lookup_aligned"]
+        try:
+            turns[who].append(_named_ms(_profiled(torch, fn)[4], "pyr_aligned_fwd"))
+        finally:
+            lookup._kernel = own
+    return turns
+
+
+def _beside_parent_line(records):
+    """One short line of the times (ms) that --parent and --profile add, so
+    that they stay in a log that keeps only the end of the output."""
+    def r(v):
+        return [round(t, 5) for t in v] if isinstance(v, list) else round(v, 5)
+
+    out = {}
+    for rec in records:
+        if rec["name"] == "gather_pyramid_aligned":
+            for c in rec["per_call"]:
+                out[f"B1 {c['call']}"] = {k: r(c[k]) for k in (
+                    "ms", "ms_beside_parent", "parent_ms", "ms_path", "ms_path_beside_parent", "parent_ms_path",
+                    "floor_ms", "plain_ms", "copy_ms", "bound_ms", "bound_ms_path")}
+        elif rec["name"] == "scatter_rows_add":
+            for c in rec["per_call"]:
+                out[f"B2 C={c['table'][2]}"] = {k: r(c[k]) for k in (
+                    "ms", "ms_beside_parent", "parent_ms", "floor_ms", "plain_ms", "library_ms", "bound_ms")}
+    for path, times in IN_PATH.items():
+        out[f"B1 in the {path}"] = {k: ({w: r(t) for w, t in v.items()} if isinstance(v, dict) else r(v))
+                                    for k, v in times.items()}
+    return "[beside parent] " + json.dumps(out, separators=(",", ":"))
 
 
 def phase_profile_train(torch, model, tcfg, state, step, batch):
@@ -1327,10 +1529,15 @@ def phase_profile_train(torch, model, tcfg, state, step, batch):
         wall = (time.perf_counter() - t0) * 1e3
     stages = {"forward": e0.elapsed_time(e1), "backward": e1.elapsed_time(e2),
               "optimizer": e2.elapsed_time(e3)}
-    prof_wall, kernel_ms, kernel_n, table = _profiled(torch, lambda: step(state, batch))
+    prof_wall, kernel_ms, kernel_n, table, named = _profiled(torch, lambda: step(state, batch))
     summary = {"stages_ms": stages, "stages_wall_ms": wall, "step_wall_ms": prof_wall,
                "kernel_ms": kernel_ms, "kernel_launches": kernel_n,
-               "busy_share": kernel_ms / prof_wall}
+               "busy_share": kernel_ms / prof_wall,
+               "b1_fwd_ms": _named_ms(named, "pyr_aligned_fwd"),
+               "b1_bwd_ms": _named_ms(named, "pyr_aligned_bwd")}
+    if PARENT:
+        summary["b1_fwd_ms_in_turns"] = _b1_in_path(torch, lambda: step(state, batch))
+    IN_PATH["training step"] = {k: summary[k] for k in ("b1_fwd_ms", "b1_fwd_ms_in_turns") if k in summary}
     os.makedirs(OUT_DIR, exist_ok=True)
     path = os.path.join(OUT_DIR, "profile_train.txt")
     with open(path, "w") as f:
@@ -1360,10 +1567,11 @@ def main(argv) -> int:
                tl.gather_rows_linear_bwd, tw.gather_pyramid_window_t, tw.gather_pyramid_window_t_bwd,
                tw.gather_pyramid_window, tw.gather_pyramid_window_bwd]
     profile = "--profile" in argv
+    parent = argv[argv.index("--parent") + 1] if "--parent" in argv else None
     card = _card()
     _log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
          f"CUDA {torch.version.cuda}; nvidia-smi: {card}")
-    phase_build()
+    phase_build(parent)
     records = phase_kernels(torch)
     by_path = {}
     by_path["eval_igev"], model = phase_model(torch, kernels, "igev", "aligned", keep=profile)
@@ -1415,6 +1623,8 @@ def main(argv) -> int:
         if record["launches"] == 0:
             raise AssertionError(f"{name} was never launched: {record['launches_by_path']}")
     print(json.dumps({"kernels": records}))
+    if PARENT:
+        _log(_beside_parent_line(records))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

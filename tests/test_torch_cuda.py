@@ -24,6 +24,7 @@ from anystereo_tpu_torch.ops.kernels.gather import (
     gather_rows_ref,
     scatter_rows_add,
     scatter_rows_add_ref,
+    scatter_vec,
 )
 from anystereo_tpu_torch.ops.kernels.lookup import (
     gather_pyramid_aligned,
@@ -67,6 +68,36 @@ def test_lookup_kernel_matches_plain_version(card, levels, out_dtype):
         assert gather_pyramid_aligned.launches == before + 1
         assert got.dtype == out_dtype and got.shape == (rows, levels * 9)
         torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=1e-5)
+
+
+# rows off the forward's tile of 32 / 16 / 8 rows, lengths whose rows are
+# not 16-byte aligned (5, 45) or are (48, 80, 312)
+_TILE_CASES = [(33, 5), (777, 45), (239616 + 5, 48), (1000, 80), (777, 312), (33, 312)]
+
+
+@pytest.mark.parametrize("levels", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_lookup_kernel_tile_edges(card, levels, out_dtype):
+    """The edges of the tiled forward: partial last tiles, any length, an
+    offset view of `vol` whose address is only 4-byte aligned, runs of 8
+    rows that share x (the GEV volume's groups), far positions, the models'
+    9 taps (unrolled) and 7 (the general walk); within 1e-5 of the plain
+    version, one launch a call."""
+    g = torch.Generator(device=card).manual_seed(4)
+    for (rows, length), taps in [(case, 9) for case in _TILE_CASES] + [((777, 45), 7), ((1000, 80), 7)]:
+        buf = torch.randn(rows * length + 1, device=card, generator=g)
+        x = torch.rand(rows, device=card, generator=g) * (length + 80) - 40
+        x[:4] = torch.tensor([-1e6, 1e6, -3e4, 2.5e3], device=card)
+        shared = rows // 16 * 8  # the second half of the rows in runs of 8
+        x[rows - shared:] = x[rows - shared:: 8].repeat_interleave(8)
+        for vol in (buf[:-1].view(rows, length), buf[1:].view(rows, length)):
+            want = gather_pyramid_aligned_ref(vol, x, taps, levels, out_dtype)
+            before = gather_pyramid_aligned.launches
+            got = gather_pyramid_aligned(vol, x, taps, levels, out_dtype)
+            torch.cuda.synchronize()
+            assert gather_pyramid_aligned.launches == before + 1
+            assert got.dtype == out_dtype and got.shape == (rows, levels * taps)
+            torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=1e-5)
 
 
 def test_eval_forward_through_kernel(card, monkeypatch):
@@ -159,6 +190,34 @@ def test_scatter_kernel_sums_duplicates(card, b, n, c, dtype):
     assert scatter_rows_add.launches == before + 1
     assert got.dtype == torch.float32 and got.shape == (b, n, c)
     assert bool(((got - want).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("c", [1, 4, 7, 8, 9, 33, 40, 184])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_kernel_vector_widths(card, c, dtype):
+    """Every vector width the wrapper picks (4, 2, 1 channels a lane),
+    with g's address aligned and offset by one value (which narrows the
+    width), B 1 and 3, Q off the rows a warp takes, indices out of range
+    (dropped), and every query on one table row (the worst contention):
+    |kernel - plain| <= 1e-5 * (1 + sum of |g| landing on the element)."""
+    gen = torch.Generator(device=card).manual_seed(5)
+    n, q = 300, 5003
+    for b in (1, 3):
+        idx = torch.randint(0, n, (b, q), device=card, generator=gen, dtype=torch.int32)
+        idx[:, :4] = torch.tensor([-1, n, n + 7, -(2 ** 31)], device=card, dtype=torch.int32)
+        one_row = torch.full_like(idx, 7)
+        buf = torch.randn(b * q * c + 1, device=card, generator=gen).to(dtype)
+        for g in (buf[:-1].view(b, q, c), buf[1:].view(b, q, c)):
+            for ix in (idx, one_row):
+                valid = ((ix >= 0) & (ix < n))[..., None]
+                want = scatter_rows_add_ref(ix.clamp(0, n - 1), g * valid, n)
+                bound = 1e-5 * (1.0 + scatter_rows_add_ref(ix.clamp(0, n - 1), g.abs() * valid, n))
+                before = scatter_rows_add.launches
+                got = scatter_rows_add(ix, g, n)
+                torch.cuda.synchronize()
+                assert scatter_rows_add.launches == before + 1
+                assert got.dtype == torch.float32 and got.shape == (b, n, c)
+                assert bool(((got - want).abs() <= bound).all()), (b, scatter_vec(c, dtype, g.data_ptr()))
 
 
 @pytest.mark.parametrize("fn,fwd_launches", [(gather_rows, 1), (gather_rows_hybrid, 0)])
