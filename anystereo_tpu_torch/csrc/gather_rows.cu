@@ -13,12 +13,23 @@
 // scattered access to its memory.  The card has: the forward is a copy with
 // computed source addresses, the backward an fp32 `atomicAdd` per element.
 //
-// What bounds them: bytes.  Forward: neighbouring threads copy neighbouring
-// units of one row, so reads of a row and writes of the output coalesce;
-// the unit is 16, 4 or 2 bytes, the widest that divides a row's bytes and
-// the pointers' alignment (the wrapper chooses), so any channel count works
-// (9 fp32 channels take the 4-byte path, 40 and 184 bf16 channels the
-// 16-byte path).
+// What bounds them: bytes.  Forward: the table (at most 5 MB) stays in L2,
+// where each row is read about Q/N = 4 to 16 times, so the least traffic is
+// the indices and the table read once and the output written once (most of
+// it: 37.7 MB at 184 bf16 channels).  A query row is owned by a
+// group of lanes sized to the row: lane i copies the i-th unit of 16, 4 or 2
+// bytes, the widest that divides a row's bytes and the pointers' alignment
+// (the wrapper chooses; 23 lanes of 16 bytes at 184 bf16 channels, 5 at 40,
+// 9 lanes of 4 bytes at 9 fp32 channels), with several queries side by side
+// in a warp for narrow rows, so that reads of a row and writes of the output
+// coalesce.  Each group reads the indices of 4 queries (one load a query,
+// its lanes on one address), then loads their table rows, then stores them,
+// so that many loads are in flight; index arithmetic is 32-bit, with the
+// sample as the grid's y.  The index loads and the output's stores are
+// streaming (evict first): though the decoder reads the output right
+// after, measured inside the training step (`chip_smoke.py --profile`,
+// against the same source with plain stores) they take 5% off the kernel's
+// summed time (`PERF.md` §6); the table's loads carry no hint.
 //
 // Backward: g is read once (it is most of the bytes: 37.7 MB of bf16 at
 // 2 x 51,200 queries of 184 channels) and the table, zeroed by the wrapper,
@@ -58,22 +69,58 @@ namespace {
 
 constexpr int kThreads = 256;
 
+constexpr int kQueriesInFlight = 4;  // query rows a lane group loads before it stores (adds)
+
+// The lane groups of both kernels: a query row of `units` units is owned by
+// `lanes` = min(units, 32) lanes of a warp, which takes per_warp = 32 / lanes
+// rows side by side, and a chunk of per_warp * kQueriesInFlight consecutive
+// queries at a time.
+struct LaneGroup {
+  int lanes, per_warp, slot, unit;
+  bool active;
+  __device__ __forceinline__ explicit LaneGroup(int units) {
+    lanes = units < 32 ? units : 32;
+    per_warp = 32 / lanes;
+    const int lane = threadIdx.x & 31;
+    slot = lane / lanes;
+    unit = lane - slot * lanes;
+    active = slot < per_warp;
+  }
+};
+
 // table [B, n, upr] units, idx [B, q], out [B, q, upr] units; upr = units
-// per row.  One thread per output unit.
+// per row; blockIdx.y is the sample.  Out-of-range indices give zero rows.
 template <typename Unit>
 __global__ void __launch_bounds__(kThreads)
 gather_rows_fwd(const Unit* __restrict__ table, const int32_t* __restrict__ idx,
-                Unit* __restrict__ out, int64_t total, int64_t q, int64_t n,
-                int upr) {
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= total) return;
-  const int64_t row = t / upr;  // b * q + query
-  const int u = (int)(t - row * upr);
-  const int64_t b = row / q;
-  const int32_t p = __ldg(idx + row);
-  Unit v = Unit();
-  if (p >= 0 && p < n) v = table[(b * n + p) * upr + u];
-  out[t] = v;
+                Unit* __restrict__ out, int q, int n, int upr) {
+  constexpr int UNR = kQueriesInFlight;
+  const LaneGroup lg(upr);
+  const int chunk = lg.per_warp * UNR;
+  const int b = blockIdx.y;
+  const int32_t* ib = idx + (int64_t)b * q;
+  const Unit* tb = table + (int64_t)b * n * upr;
+  Unit* ob = out + (int64_t)b * q * upr;
+  const int64_t warp = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  const int64_t warps = gridDim.x * (kThreads / 32);
+  for (int64_t q0 = warp * chunk; q0 < q; q0 += warps * chunk) {
+    int qs[UNR], p[UNR];
+#pragma unroll
+    for (int u = 0; u < UNR; ++u) {
+      qs[u] = (int)q0 + u * lg.per_warp + lg.slot;
+      const int32_t pv = (lg.active && qs[u] < q) ? __ldcs(ib + qs[u]) : -1;
+      p[u] = (pv >= 0 && pv < n) ? pv : -1;
+    }
+    for (int k = lg.unit; lg.active && k < upr; k += lg.lanes) {
+      Unit v[UNR];
+#pragma unroll
+      for (int u = 0; u < UNR; ++u) v[u] = p[u] >= 0 ? tb[p[u] * upr + k] : Unit();
+#pragma unroll
+      for (int u = 0; u < UNR; ++u) {
+        if (qs[u] < q) __stcs(ob + qs[u] * upr + k, v[u]);
+      }
+    }
+  }
 }
 
 // bf16 pair -> two fp32, exactly (the bits go to the high half)
@@ -123,29 +170,21 @@ __device__ __forceinline__ void add_vec(float* p, const float* v) {
   }
 }
 
-constexpr int kQueriesInFlight = 4;  // query rows a lane group loads before it adds
-
 // idx [B, q], g [B, q, c], dtbl [B, n, c] fp32 (zeroed); c % VEC == 0.  A
-// query row is owned by `lanes` = min(c / VEC, 32) lanes of a warp, which
-// takes per_warp = 32 / lanes rows side by side; blockIdx.y is the sample.
-// A warp takes a chunk of per_warp * kQueriesInFlight consecutive queries;
-// each lane group loads the indices of its kQueriesInFlight queries (one
-// request a row, its lanes reading one address) and then their rows of g
-// before it adds any, so that many loads are in flight where one query's
+// query row of c / VEC units is owned by a `LaneGroup`; blockIdx.y is the
+// sample.  Each lane group loads the indices of its kQueriesInFlight queries
+// (one request a row, its lanes reading one address) and then their rows of
+// g before it adds any, so that many loads are in flight where one query's
 // loads and adds would wait on each other.
 template <typename GT, int VEC>
 __global__ void __launch_bounds__(kThreads)
 scatter_rows_add(const int32_t* __restrict__ idx, const GT* __restrict__ g,
                  float* __restrict__ dtbl, int q, int n, int c) {
   constexpr int UNR = kQueriesInFlight;
-  const int units = c / VEC;
-  const int lanes = units < 32 ? units : 32;
-  const int per_warp = 32 / lanes;
+  const LaneGroup lg(c / VEC);
+  const int lanes = lg.lanes, per_warp = lg.per_warp, slot = lg.slot, unit = lg.unit;
+  const bool active = lg.active;
   const int chunk = per_warp * UNR;
-  const int lane = threadIdx.x & 31;
-  const int slot = lane / lanes;
-  const int unit = lane - slot * lanes;
-  const bool active = slot < per_warp;
   const int b = blockIdx.y;
   const int32_t* ib = idx + (int64_t)b * q;
   const GT* gb = g + (int64_t)b * q * c;
@@ -174,18 +213,26 @@ scatter_rows_add(const int32_t* __restrict__ idx, const GT* __restrict__ g,
   }
 }
 
+// The grid of both kernels: enough blocks for every chunk of queries, at
+// most 8192 (the kernels loop), times the batch
+dim3 grid_for(int64_t batch, int64_t q, int units) {
+  const int lanes = units < 32 ? units : 32;
+  const int64_t per_block = (int64_t)(kThreads / 32) * (32 / lanes) * kQueriesInFlight;
+  const int64_t need = (q + per_block - 1) / per_block;
+  return dim3((unsigned)(need < 8192 ? need : 8192), (unsigned)batch);
+}
+
+template <typename Unit>
+void launch_gather(const void* table, const int32_t* idx, void* out, int64_t batch, int n,
+                   int q, int upr, cudaStream_t s) {
+  gather_rows_fwd<Unit><<<grid_for(batch, q, upr), kThreads, 0, s>>>(
+      (const Unit*)table, idx, (Unit*)out, q, n, upr);
+}
+
 template <typename GT, int VEC>
 void launch_scatter(const int32_t* idx, const GT* g, float* dtbl, int batch, int n,
                     int q, int c, cudaStream_t s) {
-  const int lanes = c / VEC < 32 ? c / VEC : 32;
-  const int64_t per_block = (int64_t)(kThreads / 32) * (32 / lanes) * kQueriesInFlight;
-  const int64_t need = (q + per_block - 1) / per_block;
-  const dim3 grid((unsigned)(need < 8192 ? need : 8192), (unsigned)batch);
-  scatter_rows_add<GT, VEC><<<grid, kThreads, 0, s>>>(idx, g, dtbl, q, n, c);
-}
-
-unsigned blocks_for(int64_t total) {
-  return (unsigned)((total + kThreads - 1) / kThreads);
+  scatter_rows_add<GT, VEC><<<grid_for(batch, q, c / VEC), kThreads, 0, s>>>(idx, g, dtbl, q, n, c);
 }
 
 }  // namespace
@@ -193,26 +240,25 @@ unsigned blocks_for(int64_t total) {
 // table [batch, n, row_bytes], idx [batch, q] int32, out [batch, q,
 // row_bytes]; `unit` is 16, 4 or 2 and divides row_bytes, and both pointers
 // are aligned to it.  Launches on `stream`; returns cudaGetLastError(), or
-// cudaErrorInvalidValue for another unit.
+// cudaErrorInvalidValue for another unit, a batch beyond the grid's y or
+// n or q units beyond 32 bits.
 extern "C" int anystereo_gather_rows(const void* table, const void* idx, void* out,
                                      long long batch, long long n, long long q,
                                      int row_bytes, int unit, void* stream) {
   if (unit != 16 && unit != 4 && unit != 2) return (int)cudaErrorInvalidValue;
   if (row_bytes % unit != 0) return (int)cudaErrorInvalidValue;
-  const int upr = row_bytes / unit;
-  const int64_t total = (int64_t)batch * q * upr;
-  if (total == 0) return (int)cudaGetLastError();
+  const long long upr = row_bytes / unit;
+  if (batch > 65535 || n * upr > INT32_MAX || q * upr > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  if (batch == 0 || q == 0 || upr == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
   const int32_t* ix = (const int32_t*)idx;
   if (unit == 16) {
-    gather_rows_fwd<uint4><<<blocks_for(total), kThreads, 0, s>>>(
-        (const uint4*)table, ix, (uint4*)out, total, q, n, upr);
+    launch_gather<uint4>(table, ix, out, batch, (int)n, (int)q, (int)upr, s);
   } else if (unit == 4) {
-    gather_rows_fwd<uint32_t><<<blocks_for(total), kThreads, 0, s>>>(
-        (const uint32_t*)table, ix, (uint32_t*)out, total, q, n, upr);
+    launch_gather<uint32_t>(table, ix, out, batch, (int)n, (int)q, (int)upr, s);
   } else {
-    gather_rows_fwd<uint16_t><<<blocks_for(total), kThreads, 0, s>>>(
-        (const uint16_t*)table, ix, (uint16_t*)out, total, q, n, upr);
+    launch_gather<uint16_t>(table, ix, out, batch, (int)n, (int)q, (int)upr, s);
   }
   return (int)cudaGetLastError();
 }

@@ -54,21 +54,36 @@
 // Backward (`anystereo_gather_pyramid_aligned_bwd`, replaces
 // `_pyr_align_bwd_kernel` of the same file): the transpose of the above in
 // `vol`.  Row r of `dvol [R, L]` depends on that row's g[r, :] and x[r]
-// only, so there is no race and no atomic: one warp owns a row and its
-// lanes stride over the L entries, which makes the writes coalesced.  For
-// entry j and level lvl (only while j < (L >> lvl) << lvl: the odd tail is
-// never pooled and gets zero) the pooled cell is c = j >> lvl; every tap k
-// whose lower cell floor(base + k) is c adds g*(1 - w_k), every tap whose
-// upper cell is c adds g*w_k, and the level's sum is scaled by 2^-lvl (the
-// gradient of the mean of means).  A cell index that equals c is inside
-// [0, (L >> lvl) - 1] by construction, which is the forward's validity
-// test.  Every entry of dvol is written, zeros included, so the wrapper
-// hands in uninitialised memory.  `g` arrives in the forward's output type
-// (bf16 on the training path) and is widened to fp32 at the load.  Bound:
-// bytes (g and x read, the whole of dvol written once).  The tap positions,
-// weights and the order of the sums (taps ascending, lower cell before
-// upper, levels ascending) repeat `gather_pyramid_aligned_bwd_ref`, so the
-// two agree exactly.
+// only, so there is no race and no atomic.  Per level the taps scatter
+// g*(1 - w_k) into their lower pooled cell floor(base + k) and g*w_k into
+// the upper one, taps ascending; the cell gradient then spreads over the
+// cell's 2^lvl entries, scaled by 2^-lvl, and the levels add up in
+// ascending order.  Cells outside [0, (L >> lvl) - 1] are dropped (the
+// forward's validity test), so the odd tail past (L >> lvl) << lvl gets
+// nothing from that level.  Every entry of dvol is written, zeros included,
+// so the wrapper hands in uninitialised memory.  `g` arrives in the
+// forward's output type (bf16 on the training path) and is widened to fp32.
+//
+// What bounds it: bytes (g and x read once, the whole of dvol written
+// once); each entry costs a few operations a level.  The design is the
+// forward's tile turned around (`BwdGeometry`: 64 rows a block at 2 and 3
+// levels, 32 at 4 and 5):
+//
+// - Loads: the tile's g [rows, levels*taps] and x lie contiguous in memory
+//   and are copied once into shared memory as 16-byte vectors.
+// - Cells: one thread a (row, level) pair walks the taps in ascending order
+//   and adds into `taps + 2` cells from floor(base) on, in registers for
+//   the models' 9 taps; the extra cell takes a tap that fp32 rounding of
+//   base + k moved one cell up.  The cells and their first index go to
+//   shared memory.
+// - Stores: the tile's dvol block [rows, L] is contiguous; each thread
+//   computes four neighbouring entries from the cells of each level and
+//   writes them as one 16-byte vector.  No L2 hint: autograd adds each
+//   iteration's dvol into the volume's gradient right after.
+//
+// The tap positions, weights and the order of every sum (taps ascending,
+// lower cell before upper, levels ascending) repeat
+// `gather_pyramid_aligned_bwd_ref`, so the two agree exactly.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -91,6 +106,13 @@ struct FwdGeometry {
   static constexpr int kRowsPerGroup = 4;
   static constexpr int kRows = kGroups * kRowsPerGroup;  // rows a block owns
   static constexpr int kWidth = 1 << (LEVELS - 1);
+};
+
+// rows a block of the backward owns: the forward's tile, at most 64 rows,
+// so that the training correlation's 6,400 rows make 100 blocks, not 50
+template <int LEVELS>
+struct BwdGeometry {
+  static constexpr int kRows = FwdGeometry<LEVELS>::kRows < 64 ? FwdGeometry<LEVELS>::kRows : 64;
 };
 
 // Mean of `width` consecutive values at p by pairwise means of means, the
@@ -305,45 +327,175 @@ int launch_fwd_levels(const float* vol, const float* x, OutT* out, int64_t rows,
   }
 }
 
-__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// n values of T from device to shared memory (`dst` 16-byte aligned), as
+// 16-byte vectors where `src` is aligned to them, by all the block's threads
+template <typename T>
+__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, int n) {
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int n16 = (int)((n * sizeof(T)) >> 4);
+    for (int i = threadIdx.x; i < n16; i += kThreads)
+      reinterpret_cast<uint4*>(dst)[i] = __ldg(reinterpret_cast<const uint4*>(src) + i);
+    done = (int)((n16 << 4) / sizeof(T));
+  }
+  for (int i = done + threadIdx.x; i < n; i += kThreads) dst[i] = src[i];
 }
 
-template <typename GT>
+// The cell gradients of one (row, level) pair: cells[c] for pooled cell
+// floor(base) + c, c < taps + 2, the taps added in ascending order, lower
+// cell before upper.  Tap k's lower cell is floor(base) + k, or + k + 1 where
+// fp32 rounding of base + k reached the next integer.  TAPS > 0 (a count
+// known at compile time) adds in registers; TAPS == 0 adds in `cells`.
+template <int TAPS, typename GT>
+__device__ __forceinline__ void level_cells(const GT* gl, float base, int c0, int taps,
+                                            float* cells) {
+  if constexpr (TAPS > 0) {
+    float acc[TAPS + 2];
+#pragma unroll
+    for (int c = 0; c < TAPS + 2; ++c) acc[c] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < TAPS; ++k) {
+      const float pos = __fadd_rn(base, (float)k);
+      const float f0 = floorf(pos);
+      const float w1 = __fsub_rn(pos, f0);
+      const float gk = to_f32(gl[k]);
+      const float lower = __fmul_rn(gk, __fsub_rn(1.0f, w1));
+      const float upper = __fmul_rn(gk, w1);
+      if ((int)f0 == c0 + k) {
+        acc[k] = __fadd_rn(acc[k], lower);
+        acc[k + 1] = __fadd_rn(acc[k + 1], upper);
+      } else {
+        acc[k + 1] = __fadd_rn(acc[k + 1], lower);
+        acc[k + 2] = __fadd_rn(acc[k + 2], upper);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < TAPS + 2; ++c) cells[c] = acc[c];
+  } else {
+    for (int c = 0; c < taps + 2; ++c) cells[c] = 0.0f;
+    for (int k = 0; k < taps; ++k) {
+      const float pos = __fadd_rn(base, (float)k);
+      const float f0 = floorf(pos);
+      const float w1 = __fsub_rn(pos, f0);
+      const float gk = to_f32(gl[k]);
+      const int i = (int)f0 - c0;  // k or k + 1
+      cells[i] = __fadd_rn(cells[i], __fmul_rn(gk, __fsub_rn(1.0f, w1)));
+      cells[i + 1] = __fadd_rn(cells[i + 1], __fmul_rn(gk, w1));
+    }
+  }
+}
+
+// Shared memory of the backward: the cells [rows*levels][taps+2] fp32, their
+// first indices [rows*levels], x [rows], then g [rows][levels*taps] from a
+// 16-byte boundary.
+__host__ __device__ __forceinline__ int bwd_g_offset(int rows, int levels, int taps) {
+  return (rows * levels * (taps + 3) * 4 + rows * 4 + 15) & ~15;
+}
+
+// dvol[r, j] of tile row lr from the cells: the levels in ascending order,
+// each adding its cell's gradient scaled by 2^-lvl where that cell is in
+// [0, L >> lvl) and inside the pair's `ncell` cells.
+template <int LEVELS>
+__device__ __forceinline__ float entry(const float* cells, const int* firsts, int lr, int j,
+                                       int length, int ncell) {
+  float acc = 0.0f;
+#pragma unroll
+  for (int lvl = 0; lvl < LEVELS; ++lvl) {
+    const int c = j >> lvl;
+    const int pair = lr * LEVELS + lvl;
+    const int i = c - firsts[pair];
+    if (c < (length >> lvl) && i >= 0 && i < ncell)
+      acc = __fadd_rn(acc, __fmul_rn(cells[pair * ncell + i], 1.0f / (float)(1 << lvl)));
+  }
+  return acc;
+}
+
+template <typename GT, int LEVELS, int TAPS>
 __global__ void __launch_bounds__(kThreads)
 pyr_aligned_bwd(const float* __restrict__ x, const GT* __restrict__ g,
                 float* __restrict__ dvol, int64_t rows, int length, int taps,
-                int levels, float lo, float hi) {
-  const int lane = threadIdx.x & 31;
-  const int64_t r = (int64_t)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
-  if (r >= rows) return;
+                float lo, float hi) {
+  using G = BwdGeometry<LEVELS>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ncell = taps + 2;
+  const int lt = LEVELS * taps;
+  float* cells = reinterpret_cast<float*>(smem);
+  int* firsts = reinterpret_cast<int*>(cells + G::kRows * LEVELS * ncell);
+  float* xs = reinterpret_cast<float*>(firsts + G::kRows * LEVELS);
+  GT* gs = reinterpret_cast<GT*>(smem + bwd_g_offset(G::kRows, LEVELS, taps));
+  const int64_t row0 = (int64_t)blockIdx.x * G::kRows;
+  const int64_t left = rows - row0;
+  const int nrows = left < G::kRows ? (int)left : G::kRows;
+  load_tile(gs, g + row0 * lt, nrows * lt);
+  load_tile(xs, x + row0, nrows);
+  __syncthreads();
   const int radius = (taps - 1) / 2;
-  const float xc = fminf(fmaxf(__ldg(x + r), lo), hi);
-  const GT* grow = g + r * (int64_t)(levels * taps);
-  float* drow = dvol + r * length;
-  for (int j = lane; j < length; j += 32) {
-    float acc = 0.0f;
-    for (int lvl = 0; lvl < levels; ++lvl) {
-      const int n_lvl = length >> lvl;
-      if (j >= (n_lvl << lvl)) continue;
-      const int c = j >> lvl;
-      const float inv = 1.0f / (float)(1 << lvl);
-      const float base = __fsub_rn(__fmul_rn(xc, inv), (float)radius);
-      float s = 0.0f;
-      for (int k = 0; k < taps; ++k) {
-        const float pos = __fadd_rn(base, (float)k);
-        const float f0 = floorf(pos);
-        const int i0 = (int)f0;
-        if (i0 != c && i0 + 1 != c) continue;
-        const float w1 = __fsub_rn(pos, f0);
-        const float gk = load_f32(grow + lvl * taps + k);
-        if (i0 == c) s = __fadd_rn(s, __fmul_rn(gk, __fsub_rn(1.0f, w1)));
-        if (i0 + 1 == c) s = __fadd_rn(s, __fmul_rn(gk, w1));
-      }
-      acc = __fadd_rn(acc, __fmul_rn(s, inv));
+  for (int pair = threadIdx.x; pair < nrows * LEVELS; pair += kThreads) {
+    const int lr = pair / LEVELS;
+    const int lvl = pair - lr * LEVELS;
+    const float xc = fminf(fmaxf(xs[lr], lo), hi);
+    // the scale is a power of two, so the product is exact
+    const float base = __fsub_rn(__fmul_rn(xc, 1.0f / (float)(1 << lvl)), (float)radius);
+    const int c0 = (int)floorf(base);
+    level_cells<TAPS>(gs + lr * lt + lvl * taps, base, c0, taps, cells + pair * ncell);
+    firsts[pair] = c0;
+  }
+  __syncthreads();
+  // the tile's dvol block is contiguous and starts on a 16-byte boundary
+  // (dvol does, and a tile is a multiple of 4 rows): 16-byte vectors of four
+  // neighbouring entries, then the tail
+  const int n = nrows * length;
+  float* dst = dvol + row0 * length;
+  const int nvec = n / 4;
+  for (int v = threadIdx.x; v < nvec; v += kThreads) {
+    const int i = 4 * v;
+    int lr = i / length;
+    int j = i - lr * length;
+    float e[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      e[m] = entry<LEVELS>(cells, firsts, lr, j, length, ncell);
+      if (++j == length) j = 0, ++lr;
     }
-    drow[j] = acc;
+    reinterpret_cast<float4*>(dst + i)[0] = make_float4(e[0], e[1], e[2], e[3]);
+  }
+  for (int i = 4 * nvec + threadIdx.x; i < n; i += kThreads) {
+    const int lr = i / length;
+    dst[i] = entry<LEVELS>(cells, firsts, lr, i - lr * length, length, ncell);
+  }
+}
+
+template <typename GT, int LEVELS>
+int launch_bwd(const float* x, const GT* g, float* dvol, int64_t rows, int length,
+               int taps, float lo, float hi, cudaStream_t s) {
+  using G = BwdGeometry<LEVELS>;
+  const int shared = bwd_g_offset(G::kRows, LEVELS, taps) + G::kRows * LEVELS * taps * (int)sizeof(GT);
+  if (shared > kMaxShared) return (int)cudaErrorInvalidValue;
+  // the models' 9 taps (radius 4) add in registers
+  auto kernel = taps == 9 ? pyr_aligned_bwd<GT, LEVELS, 9> : pyr_aligned_bwd<GT, LEVELS, 0>;
+  if (shared > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const unsigned blocks = (unsigned)((rows + G::kRows - 1) / G::kRows);
+  kernel<<<blocks, kThreads, shared, s>>>(x, g, dvol, rows, length, taps, lo, hi);
+  return (int)cudaGetLastError();
+}
+
+template <typename GT>
+int launch_bwd_levels(const float* x, const GT* g, float* dvol, int64_t rows, int length,
+                      int taps, int levels, float lo, float hi, cudaStream_t s) {
+  switch (levels) {
+    case 1: return launch_bwd<GT, 1>(x, g, dvol, rows, length, taps, lo, hi, s);
+    case 2: return launch_bwd<GT, 2>(x, g, dvol, rows, length, taps, lo, hi, s);
+    case 3: return launch_bwd<GT, 3>(x, g, dvol, rows, length, taps, lo, hi, s);
+    case 4: return launch_bwd<GT, 4>(x, g, dvol, rows, length, taps, lo, hi, s);
+    case 5: return launch_bwd<GT, 5>(x, g, dvol, rows, length, taps, lo, hi, s);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -373,8 +525,10 @@ extern "C" int anystereo_gather_pyramid_aligned(const void* vol, const void* x,
 }
 
 // x [rows] fp32, g [rows, levels*taps] fp32 (g_bf16 == 0) or bf16, dvol
-// [rows, length] fp32, every entry written.  One warp per row.  Launches on
-// `stream`; returns cudaGetLastError().
+// [rows, length] fp32 on a 16-byte boundary, every entry written.  Launches
+// on `stream`; returns cudaGetLastError(), or cudaErrorInvalidValue for a
+// misaligned dvol, levels outside [1, 5] or a tile that does not fit in
+// 227 KB of shared memory.
 extern "C" int anystereo_gather_pyramid_aligned_bwd(const void* x, const void* g,
                                                     void* dvol, long long rows,
                                                     int length, int taps,
@@ -384,18 +538,14 @@ extern "C" int anystereo_gather_pyramid_aligned_bwd(const void* x, const void* g
   const float slack = (float)((radius + 2) * (1 << levels));
   const float lo = -slack;
   const float hi = (float)length + slack;
+  if ((reinterpret_cast<uintptr_t>(dvol) & 15) != 0) return (int)cudaErrorInvalidValue;
   if (rows == 0 || length == 0) return (int)cudaGetLastError();
-  const int rows_per_block = kThreads / 32;
-  const unsigned blocks = (unsigned)((rows + rows_per_block - 1) / rows_per_block);
   cudaStream_t s = (cudaStream_t)stream;
   if (g_bf16) {
-    pyr_aligned_bwd<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
-        (const float*)x, (const __nv_bfloat16*)g, (float*)dvol, rows, length,
-        taps, levels, lo, hi);
-  } else {
-    pyr_aligned_bwd<float><<<blocks, kThreads, 0, s>>>(
-        (const float*)x, (const float*)g, (float*)dvol, rows, length, taps,
-        levels, lo, hi);
+    return launch_bwd_levels<__nv_bfloat16>((const float*)x, (const __nv_bfloat16*)g,
+                                            (float*)dvol, rows, length, taps, levels, lo,
+                                            hi, s);
   }
-  return (int)cudaGetLastError();
+  return launch_bwd_levels<float>((const float*)x, (const float*)g, (float*)dvol, rows,
+                                  length, taps, levels, lo, hi, s);
 }

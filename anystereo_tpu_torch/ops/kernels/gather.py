@@ -60,6 +60,17 @@ def gather_rows_ref(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return table[b, idx.long()]
 
 
+def gather_unit(row_bytes: int, *ptrs: int) -> tuple:
+    """(unit, lanes) of the gather kernel: the copy unit, the widest of 16, 4
+    and 2 bytes that divides a row and every pointer's address, and the
+    lanes of a warp that share one query row, one unit each (the kernel
+    takes min(row_bytes / unit, 32) and loops over the rest): 23 lanes of
+    16 bytes at 184 bf16 channels, 5 at 40, 9 lanes of 4 bytes at 9 fp32
+    channels."""
+    unit = next(u for u in (16, 4, 2) if row_bytes % u == 0 and all(p % u == 0 for p in ptrs))
+    return unit, min(row_bytes // unit, 32)
+
+
 def _gather_rows_forward(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if table.dim() != 3:
         raise ValueError(f"expected table [B, N, C], got {tuple(table.shape)}")
@@ -74,9 +85,7 @@ def _gather_rows_forward(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor
     q = idx.shape[1]
     out = torch.empty((batch, q, c), dtype=table.dtype, device=table.device)
     row_bytes = c * table.element_size()
-    # the widest copy unit that divides a row and both pointers' alignment
-    unit = next(u for u in (16, 4, 2)
-                if row_bytes % u == 0 and table.data_ptr() % u == 0 and out.data_ptr() % u == 0)
+    unit, _ = gather_unit(row_bytes, table.data_ptr(), out.data_ptr())
     fn = _entry("anystereo_gather_rows",
                 [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2
                 + [ctypes.c_void_p])

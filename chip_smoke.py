@@ -6,16 +6,19 @@
                                       # forward and one training step,
                                       # written to chiprun_out/, with the
                                       # aligned lookup's forward summed
-                                      # inside them
+                                      # inside both, and its backward, the
+                                      # scatter-add and the row gather
+                                      # inside the step
     python3 chip_smoke.py --spread    # and the run-to-run spread of the fp32
                                       # gradients with and without cuDNN's
                                       # deterministic algorithms
     python3 chip_smoke.py --parent DIR
                                       # and, in the kernels phase, the aligned
-                                      # lookup's forward and the scatter-add
-                                      # as the checkout at DIR builds them
-                                      # (an earlier commit): held to this
-                                      # tree's (the lookup bit for bit) and
+                                      # lookup's forward and backward, the
+                                      # row gather and the scatter-add as the
+                                      # checkout at DIR builds them (an
+                                      # earlier commit): held to this tree's
+                                      # (all but the scatter bit for bit) and
                                       # timed beside them, in turns (with
                                       # --profile also inside the paths)
 
@@ -41,9 +44,11 @@ Phases (any failure raises, and the exit code is not 0):
            (375 rows of 1242 positions) and at 300 x 312 x 9.  The aligned
            lookup's forward is held and timed at uniformly random positions
            and at path-shaped ones (a smooth disparity field), beside a
-           PyTorch copy of as many bytes as its bound counts; it and the
-           scatter-add carry `floor_ms`, the same wrapper's time on one row or
-           one query;
+           PyTorch copy of as many bytes as its bound counts; it, its
+           backward, the gather and the scatter-add carry `floor_ms`, the
+           same wrapper's time on one row or one query; the backward and the
+           gather are timed once more with the flush a read (L2 left clean),
+           beside a one-element `zero_()` timed both ways (the launch);
 3. model   the eval forward at full width, 1x384x1248, 32 GRU iterations,
            bf16, weights from a seeded generator, one warm-up and three timed
            requests each: the IGEV model (`ModelConfig()`), the RAFT model
@@ -73,8 +78,9 @@ Phases (any failure raises, and the exit code is not 0):
            `quarter_nearest="both"` and with `local_ensemble=True`.
 
 It prints a `kernels` JSON line, with `--parent` a short line of the
-aligned lookup's and the scatter-add's times beside the parent's, the
-card's name and power limit as nvidia-smi reports them, and last
+aligned lookup's, the gather's and the scatter-add's times beside the
+parent's (and, with `--profile`, their sums inside the paths), the card's
+name and power limit as nvidia-smi reports them, and last
 `{"ok": true, "device": {...}}`.  It
 exits with code 2 and prints no result when no CUDA card is visible.
 """
@@ -82,6 +88,7 @@ exits with code 2 and prints no result when no CUDA card is visible.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import os
 import subprocess
@@ -105,9 +112,10 @@ SCATTER_RTOL = 1e-5  # |kernel - plain| <= rtol * (1 + sum_q |g[q, c]| of that e
 GRAD_CHECK_RTOL, GRAD_CHECK_ATOL, LOSS_CHECK_RTOL = 1e-3, 1e-7, 1e-5
 OUT_DIR = "chiprun_out"
 DEVICE = "cuda"
-PARENT = {}  # --parent: C entry points built from an earlier checkout's sources
+PARENT = {}  # --parent: source name -> library built from an earlier checkout's source
 PAIR_MS = {}  # (core, flavor) -> mean ms per pair of the timed eval requests
-IN_PATH = {}  # --profile: B1's forward summed inside the profiled forward and step
+IN_PATH = {}  # --profile: B1-B3 summed inside the profiled forward and step
+YARDSTICK = {}  # the kernels phase: one launch between the event pair (`_yardstick`)
 
 
 def _log(*a):
@@ -143,52 +151,39 @@ def phase_build(parent=None):
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for the parent's {name}.cu:\n{log}")
-        PARENT[name] = _parent_entry(out, name)
+        PARENT[name] = ctypes.CDLL(str(out))
     for name, log in build.BUILD_LOGS.items():
         _log(f"[build] {name}.cu ptxas:\n{log.strip()}")
     _log(f"[build] {sorted(seconds)} built in {time.perf_counter() - t0:.2f} s "
          f"(per source: {json.dumps({k: round(v, 2) for k, v in seconds.items()})})")
 
 
-def _parent_entry(path, name):
-    """The parent's C entry point: the lookup's forward has this tree's
-    signature, the scatter the one it had before it took `vec`."""
-    import ctypes
+@contextlib.contextmanager
+def _parent_kernels():
+    """This tree's wrappers with the parent's libraries swapped in: the
+    aligned lookup forward and backward, the row gather and the scatter-add
+    (launches counted as this tree's)."""
+    from anystereo_tpu_torch.ops.kernels import build
 
-    lib = ctypes.CDLL(str(path))
-    if name == "lookup_aligned":
-        fn = lib.anystereo_gather_pyramid_aligned
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    else:
-        fn = lib.anystereo_scatter_rows_add
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _parent_lookup(torch, vol, x, levels, out_dtype):
-    out = torch.empty((vol.shape[0], levels * TAPS), dtype=out_dtype, device=DEVICE)
-    err = PARENT["lookup_aligned"](vol.data_ptr(), x.data_ptr(), out.data_ptr(), vol.shape[0], vol.shape[1],
-                                   TAPS, levels, int(out_dtype == torch.bfloat16),
-                                   torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"the parent's lookup kernel failed: CUDA error {err}")
-    return out
+    own = build.load_library
+    build.load_library = lambda name: PARENT[name] if name in PARENT else own(name)
+    try:
+        yield
+    finally:
+        build.load_library = own
 
 
-def _parent_scatter(torch, idx, g, n):
-    batch, q, c = g.shape
-    dtbl = torch.zeros((batch, n, c), dtype=torch.float32, device=DEVICE)
-    err = PARENT["gather_rows"](idx.data_ptr(), g.data_ptr(), dtbl.data_ptr(), batch, n, q, c,
-                                int(g.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"the parent's scatter kernel failed: CUDA error {err}")
-    return dtbl
+def _as_parent(fn):
+    def run():
+        with _parent_kernels():
+            return fn()
+    return run
 
 
-def _beside_parent(torch, res, key, fn, parent_fn):
+def _beside_parent(torch, res, key, fn):
     """Times in turns, parent, this tree, this tree, parent: `parent_<key>`
     and `<key>_beside_parent`, two each."""
+    parent_fn = _as_parent(fn)
     p1, n1, n2, p2 = (_time_ms(torch, f) for f in (parent_fn, fn, fn, parent_fn))
     res[f"parent_{key}"], res[f"{key}_beside_parent"] = [p1, p2], [n1, n2]
 
@@ -196,27 +191,40 @@ def _beside_parent(torch, res, key, fn, parent_fn):
 # ----------------------------------------------------------------- phase 2
 
 
-def _time_ms(torch, fn, reps=20, warmup=3):
+def _time_ms(torch, fn, reps=20, warmup=3, read_flush=False):
     """Median device time of `fn` by CUDA events, with a 256 MB write before
     each launch so the volumes are not left in the 50 MB L2 (in the GRU loop
     the update block runs between two lookups).  64 such writes (~5 ms) are
     queued first, so the host runs ahead of the card and the events enclose
-    the kernel, not the host's time in the wrapper."""
+    the kernel, not the host's time in the wrapper.  `read_flush`: the flush
+    is a read of the 256 MB (`sum`), which leaves L2 as full but of clean
+    lines, so the timed launch evicts without writing back."""
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=DEVICE)
+    flush_once = flush.sum if read_flush else flush.zero_
     for _ in range(warmup):
         fn()
     ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
           for _ in range(reps)]
     for _ in range(64):
-        flush.zero_()
+        flush_once()
     for s, e in ev:
-        flush.zero_()
+        flush_once()
         s.record()
         fn()
         e.record()
     torch.cuda.synchronize()
     times = sorted(s.elapsed_time(e) for s, e in ev)
     return times[len(times) // 2]
+
+
+def _yardstick(torch):
+    """What a timed launch costs before the kernel's own work: one launch of
+    a one-element `zero_()` between the event pair, after either flush."""
+    one = torch.empty(1, device=DEVICE)
+    YARDSTICK["launch_ms"] = _time_ms(torch, one.zero_)
+    YARDSTICK["launch_ms_clean"] = _time_ms(torch, one.zero_, read_flush=True)
+    _log(f"[kernels] launch yardstick: a one-element zero_() {YARDSTICK['launch_ms']:.4f} ms after the "
+         f"write flush, {YARDSTICK['launch_ms_clean']:.4f} ms after the read flush")
 
 
 def _window_need(torch, starts, length, levels):
@@ -339,7 +347,8 @@ def _check_lookup(torch, res, tag, vol, x, levels):
         res[f"max_abs_err_{tag}{name}"] = err
         res["max_abs_err"] = max(res.get("max_abs_err", 0.0), err if name == "fp32" else 0.0)
         if PARENT:
-            if not torch.equal(got, _parent_lookup(torch, vol, x, levels, out_dtype)):
+            parent = _as_parent(lambda: gather_pyramid_aligned(vol, x, TAPS, levels, out_dtype))()
+            if not torch.equal(got, parent):
                 raise AssertionError(f"{call} {tag} {name}: differs from the parent's kernel")
             res["equal_to_parent"] = True
 
@@ -369,8 +378,7 @@ def _kernels_lookup_fwd(torch):
             vol, x_main, TAPS, levels, bf16), reps=5)
         if PARENT:
             for key, pos in (("ms", x_main), ("ms_path", x_path)):
-                _beside_parent(torch, res, key, lambda: gather_pyramid_aligned(vol, pos, TAPS, levels, bf16),
-                               lambda: _parent_lookup(torch, vol, pos, levels, bf16))
+                _beside_parent(torch, res, key, lambda: gather_pyramid_aligned(vol, pos, TAPS, levels, bf16))
         nbytes, flops = _lookup_cost(torch, x_main, length, 2, levels)
         res["bytes"], res["flops"] = nbytes, flops
         res["bound_ms"], res["bound_by"] = _bound(nbytes, flops)
@@ -457,18 +465,37 @@ def _kernels_lookup_bwd(torch):
                 raise AssertionError(f"lookup backward {call} {g.dtype}: max |kernel - plain| "
                                      f"{err}, want 0 (and zero rows for far positions)")
             res["max_abs_err"] = max(res.get("max_abs_err", 0.0), err)
+            if PARENT:
+                if not torch.equal(got, _as_parent(lambda: gather_pyramid_aligned_bwd(x, g, length, TAPS, levels))()):
+                    raise AssertionError(f"lookup backward {call} {g.dtype}: differs from the parent's kernel")
+                res["equal_to_parent"] = True
         g = g32.bfloat16()  # the main path's cotangent is bf16
-        res["ms"] = _time_ms(torch, lambda: gather_pyramid_aligned_bwd(x_main, g, length, TAPS, levels))
+        fn = (lambda: gather_pyramid_aligned_bwd(x_main, g, length, TAPS, levels))
+        one = (lambda: gather_pyramid_aligned_bwd(x_main[:1], g[:1], length, TAPS, levels))
+        res["ms"], res["floor_ms"] = _time_ms(torch, fn), _time_ms(torch, one)
+        res["ms_clean"], res["floor_ms_clean"] = (_time_ms(torch, f, read_flush=True) for f in (fn, one))
+        if PARENT:
+            _beside_parent(torch, res, "ms", fn)
         res["plain_ms"] = _time_ms(torch, lambda: gather_pyramid_aligned_bwd_ref(
             x_main, g, length, TAPS, levels), reps=5)
+        # what autograd does with each iteration's dvol after the kernel: add
+        # it into the volume's gradient (15 such adds a volume and step)
+        dvol, acc = fn(), torch.zeros(rows, length, device=DEVICE)
+        res["accumulate_ms"] = _time_ms(torch, lambda: acc.add_(dvol))
+        del dvol, acc
         # g and x read once, the whole of dvol written once; per row a
         # product and a sum per tap side, a scale and a sum per entry and level
         res["bytes"] = rows * (levels * TAPS * 2 + 4 + length * 4)
         res["flops"] = rows * levels * (4 * TAPS + 2 * length)
         res["bound_ms"], res["bound_by"] = _bound(res["bytes"], res["flops"])
+        parent = "" if not PARENT else (
+            f"; parent {res['parent_ms']} / this tree {res['ms_beside_parent']} ms in turns; equal to the "
+            f"parent's output bit for bit")
         _log(f"[kernels] gather_pyramid_aligned_bwd {call} R={rows} L={length} levels={levels}: "
-             f"max|diff| {res['max_abs_err']:.3g}; kernel {res['ms']:.4f} ms, plain "
-             f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms ({res['bytes']} B)")
+             f"max|diff| {res['max_abs_err']:.3g}; kernel {res['ms']:.4f} ms (read flush "
+             f"{res['ms_clean']:.4f}), floor {res['floor_ms']:.4f} ms ({res['floor_ms_clean']:.4f}), plain "
+             f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms ({res['bytes']} B); adding dvol into "
+             f"a gradient {res['accumulate_ms']:.4f} ms{parent}")
         calls.append(res)
     return _record("gather_pyramid_aligned_bwd", "anystereo_tpu_torch/csrc/lookup_aligned.cu",
                    "anystereo_tpu/ops/pallas/lookup_kernel.py:965", calls, main=(0, 1),
@@ -637,19 +664,35 @@ def _kernels_gather(torch):
         shape = {"table": [batch, n, c], "dtype": str(dtype).split(".")[-1], "queries": q}
 
         with torch.no_grad():
+            # a few indices out of [0, n): the kernel writes zero rows for them
+            bad = idx.clone()
+            bad[:, :4] = torch.tensor([-1, n, -(2 ** 31), 2 ** 31 - 1], dtype=torch.int32, device=DEVICE)
             got, want = gather_rows(table, idx), gather_rows_ref(table, idx)
+            got_bad = gather_rows(table, bad)
             torch.cuda.synchronize()
-            if not torch.equal(got, want):
+            if not torch.equal(got, want) or bool(got_bad[:, :4].any()) \
+                    or not torch.equal(got_bad[:, 4:], want[:, 4:]):
                 raise AssertionError(f"gather_rows {shape}: the kernel's rows differ from the table's")
             res = dict(shape, max_abs_err=0.0)
-            res["ms"] = _time_ms(torch, lambda: gather_rows(table, idx))
+            if PARENT:
+                if not torch.equal(_as_parent(lambda: gather_rows(table, idx))(), got):
+                    raise AssertionError(f"gather_rows {shape}: differs from the parent's kernel")
+                _beside_parent(torch, res, "ms", lambda: gather_rows(table, idx))
+            fn = (lambda: gather_rows(table, idx))
+            idx1 = idx[:, :1].contiguous()  # one query a sample, the same table
+            one = (lambda: gather_rows(table, idx1))
+            res["ms"], res["floor_ms"] = _time_ms(torch, fn), _time_ms(torch, one)
+            res["ms_clean"], res["floor_ms_clean"] = (_time_ms(torch, f, read_flush=True) for f in (fn, one))
             res["plain_ms"] = _time_ms(torch, lambda: gather_rows_ref(table, idx))
             res["library_ms"] = _time_ms(torch, lambda: table[b_col, idx_long])
         res["bytes"], res["flops"] = idx.numel() * 4 + table.numel() * es + got.numel() * es, 0
         res["bound_ms"], res["bound_by"] = _bound(res["bytes"], 0)
-        _log(f"[kernels] gather_rows {shape}: exact; kernel {res['ms']:.4f} ms, plain "
+        parent = "" if not PARENT else (
+            f"; parent {res['parent_ms']} / this tree {res['ms_beside_parent']} ms in turns, equal")
+        _log(f"[kernels] gather_rows {shape}: exact; kernel {res['ms']:.4f} ms (read flush "
+             f"{res['ms_clean']:.4f}), floor {res['floor_ms']:.4f} ms ({res['floor_ms_clean']:.4f}), plain "
              f"{res['plain_ms']:.4f} ms, indexing {res['library_ms']:.4f} ms, bound "
-             f"{res['bound_ms']:.4f} ms ({res['bytes']} B)")
+             f"{res['bound_ms']:.4f} ms ({res['bytes']} B){parent}")
         fwd.append(res)
 
         got, want = scatter_rows_add(idx, g, n), scatter_rows_add_ref(idx, g, n)
@@ -660,11 +703,10 @@ def _kernels_gather(torch):
             raise AssertionError(f"scatter_rows_add {shape}: max |kernel - plain| {float(diff.max())}")
         res = dict(shape, max_abs_err=float(diff.max()), vec=scatter_vec(c, dtype, g.data_ptr()))
         if PARENT:
-            pdiff = (_parent_scatter(torch, idx, g, n) - want).abs()
+            pdiff = (_as_parent(lambda: scatter_rows_add(idx, g, n))() - want).abs()
             if not bool((pdiff <= SCATTER_RTOL * (1.0 + row_abs)).all()):
                 raise AssertionError(f"the parent's scatter_rows_add {shape}: max |diff| {float(pdiff.max())}")
-            _beside_parent(torch, res, "ms", lambda: scatter_rows_add(idx, g, n),
-                           lambda: _parent_scatter(torch, idx, g, n))
+            _beside_parent(torch, res, "ms", lambda: scatter_rows_add(idx, g, n))
         res["ms"] = _time_ms(torch, lambda: scatter_rows_add(idx, g, n))
         # one query a sample, the same table: the launch and the zero-fill
         idx1, g1 = idx[:, :1].contiguous(), g[:, :1].contiguous()
@@ -689,7 +731,7 @@ def _kernels_gather(torch):
              f"{res['plain_ms']:.4f} ms, index_add_ {res['library_ms']:.4f} ms, bound "
              f"{res['bound_ms']:.4f} ms ({res['bytes']} B){parent}")
         bwd.append(res)
-        del table, idx, g, got, want, out, g32, idx1, g1
+        del table, idx, bad, g, got, got_bad, want, out, g32, idx1, g1
     src = "anystereo_tpu_torch/csrc/gather_rows.cu"
     # per decode all three tables go through the gather forward and the
     # scatter backward
@@ -854,6 +896,7 @@ def phase_kernels(torch):
                                       tl.gather_rows_linear_bwd)}
     for f in op_fns.values():
         f.launches = 0
+    _yardstick(torch)
     records = [_kernels_lookup_fwd(torch), _kernels_lookup_bwd(torch), *_kernels_window(torch),
                *_kernels_gather(torch), _kernels_hybrid(torch), *_kernels_linear(torch)]
     for record in records:
@@ -1422,13 +1465,14 @@ def phase_profile(torch, model):
         return model(left, right, iters=ITERS)
 
     prof_wall, kernel_ms, kernel_n, table, named = _profiled(torch, forward)
+    parts = {"b1_fwd_ms": "pyr_aligned_fwd"}
     summary = {"stages_ms": totals, "stages_wall_ms": wall, "forward_wall_ms": prof_wall,
                "kernel_ms": kernel_ms, "kernel_launches": kernel_n,
                "busy_share": kernel_ms / prof_wall,
-               "b1_fwd_ms": _named_ms(named, "pyr_aligned_fwd")}
+               **{key: _named_ms(named, part) for key, part in parts.items()}}
     if PARENT:
-        summary["b1_fwd_ms_in_turns"] = _b1_in_path(torch, forward)
-    IN_PATH["eval forward"] = {k: summary[k] for k in ("b1_fwd_ms", "b1_fwd_ms_in_turns") if k in summary}
+        summary["in_turns"] = _in_turns(torch, forward, parts)
+    IN_PATH["eval forward"] = {k: summary[k] for k in (*parts, "in_turns") if k in summary}
     os.makedirs(OUT_DIR, exist_ok=True)
     path = os.path.join(OUT_DIR, "profile_forward.txt")
     with open(path, "w") as f:
@@ -1462,22 +1506,17 @@ def _named_ms(named, part):
     return sum(ms for key, ms in named.items() if part in key)
 
 
-def _b1_in_path(torch, fn):
-    """B1's forward summed over one run of `fn` under torch.profiler (ms), in
-    turns this tree, parent, parent, this tree, with the parent's kernel
-    swapped into the wrapper: each kernel inside the path, with L2 as the
-    path's other kernels leave it."""
-    from anystereo_tpu_torch.ops.kernels import lookup
-
-    own = lookup._kernel
-    turns = {"this": [], "parent": []}
+def _in_turns(torch, fn, parts):
+    """{key: {"this": [ms, ms], "parent": [ms, ms]}}: the kernels whose names
+    hold `parts[key]`, summed over one run of `fn` under torch.profiler, in
+    turns this tree, parent, parent, this tree, with the parent's C entry
+    points swapped into the wrappers: each kernel inside the path, with L2 as
+    the path's other kernels leave it."""
+    turns = {key: {"this": [], "parent": []} for key in parts}
     for who in ("this", "parent", "parent", "this"):
-        if who == "parent":
-            lookup._kernel = lambda backward=False: own(True) if backward else PARENT["lookup_aligned"]
-        try:
-            turns[who].append(_named_ms(_profiled(torch, fn)[4], "pyr_aligned_fwd"))
-        finally:
-            lookup._kernel = own
+        named = _profiled(torch, _as_parent(fn) if who == "parent" else fn)[4]
+        for key, part in parts.items():
+            turns[key][who].append(_named_ms(named, part))
     return turns
 
 
@@ -1485,22 +1524,25 @@ def _beside_parent_line(records):
     """One short line of the times (ms) that --parent and --profile add, so
     that they stay in a log that keeps only the end of the output."""
     def r(v):
+        if isinstance(v, dict):
+            return {k: r(t) for k, t in v.items()}
         return [round(t, 5) for t in v] if isinstance(v, list) else round(v, 5)
 
-    out = {}
+    common = ("ms", "ms_beside_parent", "parent_ms", "floor_ms", "plain_ms", "bound_ms")
+    clean = ("ms_clean", "floor_ms_clean")
+    keys = {"gather_pyramid_aligned": ("B1", lambda c: c["call"], common + (
+                "ms_path", "ms_path_beside_parent", "parent_ms_path", "copy_ms", "bound_ms_path")),
+            "gather_pyramid_aligned_bwd": ("B1 bwd", lambda c: c["call"], common + clean + ("accumulate_ms",)),
+            "scatter_rows_add": ("B2", lambda c: f"C={c['table'][2]}", common + ("library_ms",)),
+            "gather_rows": ("B3", lambda c: f"C={c['table'][2]}", common + clean + ("library_ms",))}
+    out = {"launch": r(YARDSTICK)}
     for rec in records:
-        if rec["name"] == "gather_pyramid_aligned":
+        if rec["name"] in keys:
+            tag, call, wanted = keys[rec["name"]]
             for c in rec["per_call"]:
-                out[f"B1 {c['call']}"] = {k: r(c[k]) for k in (
-                    "ms", "ms_beside_parent", "parent_ms", "ms_path", "ms_path_beside_parent", "parent_ms_path",
-                    "floor_ms", "plain_ms", "copy_ms", "bound_ms", "bound_ms_path")}
-        elif rec["name"] == "scatter_rows_add":
-            for c in rec["per_call"]:
-                out[f"B2 C={c['table'][2]}"] = {k: r(c[k]) for k in (
-                    "ms", "ms_beside_parent", "parent_ms", "floor_ms", "plain_ms", "library_ms", "bound_ms")}
+                out[f"{tag} {call(c)}"] = {k: r(c[k]) for k in wanted if k in c}
     for path, times in IN_PATH.items():
-        out[f"B1 in the {path}"] = {k: ({w: r(t) for w, t in v.items()} if isinstance(v, dict) else r(v))
-                                    for k, v in times.items()}
+        out[f"in the {path}"] = r(times)
     return "[beside parent] " + json.dumps(out, separators=(",", ":"))
 
 
@@ -1530,14 +1572,16 @@ def phase_profile_train(torch, model, tcfg, state, step, batch):
     stages = {"forward": e0.elapsed_time(e1), "backward": e1.elapsed_time(e2),
               "optimizer": e2.elapsed_time(e3)}
     prof_wall, kernel_ms, kernel_n, table, named = _profiled(torch, lambda: step(state, batch))
+    # B1 forward (32 launches a step) and backward (32), B2 (48), B3 (48)
+    parts = {"b1_fwd_ms": "pyr_aligned_fwd", "b1_bwd_ms": "pyr_aligned_bwd",
+             "b2_ms": "scatter_rows_add", "b3_ms": "gather_rows_fwd"}
     summary = {"stages_ms": stages, "stages_wall_ms": wall, "step_wall_ms": prof_wall,
                "kernel_ms": kernel_ms, "kernel_launches": kernel_n,
                "busy_share": kernel_ms / prof_wall,
-               "b1_fwd_ms": _named_ms(named, "pyr_aligned_fwd"),
-               "b1_bwd_ms": _named_ms(named, "pyr_aligned_bwd")}
+               **{key: _named_ms(named, part) for key, part in parts.items()}}
     if PARENT:
-        summary["b1_fwd_ms_in_turns"] = _b1_in_path(torch, lambda: step(state, batch))
-    IN_PATH["training step"] = {k: summary[k] for k in ("b1_fwd_ms", "b1_fwd_ms_in_turns") if k in summary}
+        summary["in_turns"] = _in_turns(torch, lambda: step(state, batch), parts)
+    IN_PATH["training step"] = {k: summary[k] for k in (*parts, "in_turns") if k in summary}
     os.makedirs(OUT_DIR, exist_ok=True)
     path = os.path.join(OUT_DIR, "profile_train.txt")
     with open(path, "w") as f:

@@ -138,6 +138,32 @@ def test_lookup_backward_kernel_matches_plain_version(card, levels, g_dtype):
         assert not got[:4].any()
 
 
+@pytest.mark.parametrize("levels", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+def test_lookup_backward_kernel_tile_edges(card, levels, g_dtype):
+    """The edges of the tiled backward (tiles of 64 / 64 / 32 rows as the
+    levels deepen): partial last tiles, tiles whose entries are not a
+    multiple of 4 (the scalar tail; lengths 5, 45), an offset view of g that
+    is only 2- or 4-byte aligned, runs of 8 rows that share x, far positions, the models' 9 taps
+    (registers) and 7 (the general walk); equal to the plain version, one
+    launch a call."""
+    g = torch.Generator(device=card).manual_seed(5)
+    for (rows, length), taps in [(case, 9) for case in _TILE_CASES] + [((777, 45), 7), ((1000, 80), 7)]:
+        x = torch.rand(rows, device=card, generator=g) * (length + 80) - 40
+        x[:4] = torch.tensor([-1e6, 1e6, -3e4, 2.5e3], device=card)
+        shared = rows // 16 * 8
+        x[rows - shared:] = x[rows - shared:: 8].repeat_interleave(8)
+        buf = torch.randn(rows * levels * taps + 1, device=card, generator=g).to(g_dtype)
+        for cot in (buf[:-1].view(rows, -1), buf[1:].view(rows, -1)):
+            want = gather_pyramid_aligned_bwd_ref(x, cot, length, taps, levels)
+            before = gather_pyramid_aligned_bwd.launches
+            got = gather_pyramid_aligned_bwd(x, cot, length, taps, levels)
+            torch.cuda.synchronize()
+            assert gather_pyramid_aligned_bwd.launches == before + 1
+            assert got.shape == (rows, length) and torch.equal(got, want)
+            assert not got[:4].any()
+
+
 def test_lookup_is_differentiable_through_the_kernels(card):
     g = torch.Generator(device=card).manual_seed(1)
     vol = torch.randn(2048, 48, device=card, generator=g, requires_grad=True)
@@ -171,6 +197,28 @@ def test_gather_kernel_copies_rows_exactly(card, b, n, c, dtype):
     if c > 1:  # a strided view is refused, not copied silently
         with pytest.raises(ValueError):
             gather_rows(table[:, :, : c - 1], idx)
+
+
+@pytest.mark.parametrize("c,dtype", [(9, torch.float32), (40, torch.bfloat16), (184, torch.bfloat16),
+                                     (512, torch.float32), (3, torch.bfloat16)])
+def test_gather_kernel_lane_groups(card, c, dtype):
+    """The lane groups of the gather: rows of 9 units (3 queries a warp), 5
+    (6), 23, 128 (32 lanes looping over the row) and 3 bf16 values; a table
+    view off its 16-byte alignment (a narrower unit, more lanes); query
+    counts off the 4-query chunks; indices outside [0, n) give zero rows."""
+    g = torch.Generator(device=card).manual_seed(6)
+    b, n = 3, 257
+    buf = torch.randn(b * n * c + 1, device=card, generator=g).to(dtype)
+    for table in (buf[:-1].view(b, n, c), buf[1:].view(b, n, c)):
+        for q in (1, 5, 4099):
+            idx = torch.randint(0, n, (b, q), device=card, generator=g, dtype=torch.int32)
+            idx[:, 0] = torch.tensor([-1, n, 2 ** 31 - 1][:b], dtype=torch.int32, device=card)
+            before = gather_rows.launches
+            got = gather_rows(table, idx)
+            torch.cuda.synchronize()
+            assert gather_rows.launches == before + 1
+            assert not got[:, 0].any()
+            assert torch.equal(got[:, 1:], gather_rows_ref(table, idx[:, 1:].contiguous()))
 
 
 @pytest.mark.parametrize("b,n,c,dtype", _TABLES)
