@@ -22,12 +22,36 @@
 //
 // What bounds them: memory.  A tap is two loads, three products and sums.  The
 // TPU bodies form every tap as a masked sum over all 128-padded lanes of the
-// row, in tiles of 256 rows, because a lane cannot index; here a thread
-// loads the two entries it needs.
-//   - forwards: a thread per output element, k fastest, so the loads of pos
-//     and the stores coalesce; the window's loads coalesce too (consecutive
-//     taps read consecutive entries), the rows' loads stay inside one row
-//     (a few KB, served by L1/L2);
+// row, in tiles of 256 rows, because a lane cannot index; here only the
+// entries some tap needs are read.
+//   - rows forward: a thread per output element, k fastest, so the loads of
+//     pos and the stores coalesce; the rows' loads stay inside one row (a
+//     few KB, served by L1/L2);
+//   - window forward (B7, the "levels" flavor's lookup): a thread per
+//     output element, as the rows forward, paid a 64-bit division, a reload
+//     of base[r] and its floor for each of a row's taps, and loaded each
+//     window entry twice: at the GEV volume (R 239,616, L 48) its own work
+//     took 3.4x its bound of bytes on the H100, bound by its instructions.
+//     So each warp owns a tile of consecutive rows and works alone, with no
+//     barrier across the block, so that the warps of an SM overlap one
+//     tile's loads with another's stores; a tile is 32 rows, or 16 where
+//     that leaves too few warps to fill the card (`window_tile`).  A lane a
+//     row forms i0 and f once; the tile's windows, taps+1 entries a row,
+//     are copied once into the warp's shared memory by cp.async,
+//     neighbouring lanes on neighbouring entries of a row (zeros outside
+//     [0, L)), all of a lane's copies in flight at once and with an
+//     evict-first L2 hint, as B4's (the GRU loop's pooled levels are larger
+//     than L2); then the tile's taps, tile*taps floats that lie contiguous
+//     in `out`, are formed four at a time from shared memory and written as
+//     16-byte vectors.  Index arithmetic inside the tile is 32-bit, with the
+//     divisor a constant for the models' 9 taps.  Windows too wide for the
+//     staging (taps + 1 > kWinStaged) are read from device memory instead.
+//     The GEV call is then bound by bytes (a 40-byte window touches two or
+//     three 32-byte sectors of its row).  With fewer rows than 16-row tiles
+//     need to fill the card (the correlation calls, 29,952 rows and fewer)
+//     the launch and two dependent loads bound the call, and a thread a tap
+//     (`window_linear_fwd_taps`, 32-bit indices) keeps each thread's path the
+//     shortest: on the H100 the staged tiles were a little slower there;
 //   - window backward: a thread per entry of dvol; its slot j = l - i0 names
 //     its one coefficient; no atomics, every entry written;
 //   - rows backward: taps collide inside a row (many k land on one l), and
@@ -48,10 +72,39 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <climits>
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kTapChunk = 1024;  // taps of a row staged at a time (12 KB)
+constexpr int kWinWarps = 4;        // warps a block of the window forward holds
+constexpr int kWinWarpsPerSM = 16;  // warps a tile height must give each SM
+constexpr int kWinStaged = 94;      // the widest window (taps + 1) it stages: 48 KB a block
+
+// 4-byte words of shared memory a warp of the window forward takes: f and
+// i0 of its `tile` rows, then their windows of `span` entries (0: not
+// staged).
+__host__ __device__ constexpr int win_words(int tile, int span) { return tile * (2 + span); }
+
+// An L2 policy that makes the lines it touches the first to be evicted.
+__device__ __forceinline__ uint64_t evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+
+// An asynchronous 4-byte copy from device to shared memory, and the wait
+// for all of a thread's copies.
+__device__ __forceinline__ void copy_async4(float* dst, const float* src, uint64_t policy) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global.L2::cache_hint [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "l"(policy)
+               : "memory");
+}
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
 
 __device__ __forceinline__ float entry_or_zero(const float* __restrict__ row, int i,
                                                int length) {
@@ -124,20 +177,106 @@ __device__ __forceinline__ void window_start(float base, int length, int taps, i
   i0 = (int)fminf(fmaxf(f0, -(float)(taps + 1)), (float)length);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Each warp owns a tile of `tile` consecutive rows (32 or 16) and works
+// alone (no block barrier, so the warps of an SM overlap their loads and
+// stores): TAPS > 0 is the count known at compile time, 0 takes `taps_rt`;
+// STAGED puts the windows in the warp's shared memory [tile][taps + 1],
+// else each tap reads its two entries from device memory.
+template <int TAPS, bool STAGED>
+__global__ void __launch_bounds__(32 * kWinWarps)
 window_linear_fwd(const float* __restrict__ vol, const float* __restrict__ base,
-                  float* __restrict__ out, int64_t rows, int length, int taps) {
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= rows * taps) return;
-  const int64_t r = t / taps;
-  const int k = (int)(t - r * taps);
+                  float* __restrict__ out, int64_t rows, int length, int taps_rt, int tile) {
+  extern __shared__ __align__(16) float smem[];
+  const int taps = TAPS > 0 ? TAPS : taps_rt;
+  const int span = taps + 1;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* fs = smem + warp * win_words(tile, STAGED ? span : 0);  // [tile]
+  int* starts = reinterpret_cast<int*>(fs + tile);                // [tile]
+  float* win = fs + 2 * tile;                                     // [tile][span]
+  const int64_t r0 = ((int64_t)blockIdx.x * kWinWarps + warp) * tile;
+  if (r0 >= rows) return;
+  const int nrows = rows - r0 < tile ? (int)(rows - r0) : tile;
+  const float* vol0 = vol + r0 * length;  // the tile's rows: 32 * length < 2^31
+  if (lane < nrows) {
+    int i0;
+    float f;
+    window_start(__ldg(base + r0 + lane), length, taps, i0, f);
+    starts[lane] = i0;
+    fs[lane] = f;
+  }
+  __syncwarp();
+  if constexpr (STAGED) {
+    // asynchronous copies: no load waits on the store of the one before
+    const uint64_t policy = evict_first();
+    for (int i = lane; i < nrows * span; i += 32) {
+      const int row = i / span;
+      const int j = starts[row] + (i - row * span);
+      if (j >= 0 && j < length)
+        copy_async4(win + i, vol0 + row * length + j, policy);
+      else
+        win[i] = 0.0f;
+    }
+    copy_async_wait();
+    __syncwarp();
+  }
+  // tap e of the tile: (1 - f)*s_k + f*s_{k+1} of row e / taps, k = e % taps
+  auto tap = [&](int e) {
+    const int row = e / taps;
+    const int k = e - row * taps;
+    const float f = fs[row];
+    float s0, s1;
+    if constexpr (STAGED) {
+      s0 = win[row * span + k];
+      s1 = win[row * span + k + 1];
+    } else {
+      const int j = starts[row] + k;
+      s0 = entry_or_zero(vol0 + row * length, j, length);
+      s1 = entry_or_zero(vol0 + row * length, j + 1, length);
+    }
+    return __fadd_rn(__fmul_rn(__fsub_rn(1.0f, f), s0), __fmul_rn(f, s1));
+  };
+  // the tile's taps are contiguous in `out` (and start on a 16-byte boundary
+  // where `out` does: r0 is a multiple of 16)
+  const int total = nrows * taps;
+  float* dst = out + r0 * taps;
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    for (int i = lane; i < total / 4; i += 32)
+      reinterpret_cast<float4*>(dst)[i] = make_float4(tap(4 * i), tap(4 * i + 1), tap(4 * i + 2),
+                                                      tap(4 * i + 3));
+    done = total & ~3;
+  }
+  for (int e = done + lane; e < total; e += 32) dst[e] = tap(e);
+}
+
+// Few rows (a few thousand): a thread a tap, 32-bit indices (rows * taps
+// below 2^31 - kThreads).  There the launch and two dependent loads bound
+// the call, and a thread's path is shortest when each forms one tap.  (Its
+// name holds `window_linear_fwd`: a profiler sum of B7 by name takes both.)
+template <int TAPS>
+__global__ void __launch_bounds__(kThreads)
+window_linear_fwd_taps(const float* __restrict__ vol, const float* __restrict__ base,
+                   float* __restrict__ out, int rows, int length, int taps_rt) {
+  const int taps = TAPS > 0 ? TAPS : taps_rt;
+  const int e = blockIdx.x * kThreads + threadIdx.x;
+  if (e >= rows * taps) return;
+  const int r = e / taps;
+  const int k = e - r * taps;
   int i0;
   float f;
   window_start(__ldg(base + r), length, taps, i0, f);
-  const float* row = vol + r * length;
-  // (1 - f)*s_k + f*s_{k+1}
-  out[t] = __fadd_rn(__fmul_rn(__fsub_rn(1.0f, f), entry_or_zero(row, i0 + k, length)),
+  const float* row = vol + (int64_t)r * length;
+  out[e] = __fadd_rn(__fmul_rn(__fsub_rn(1.0f, f), entry_or_zero(row, i0 + k, length)),
                      __fmul_rn(f, entry_or_zero(row, i0 + k + 1, length)));
+}
+
+// Rows of a warp's tile in the window forward: 32, or 16 where 32 leaves
+// the card's `sms` SMs fewer than kWinWarpsPerSM warps each; 0 where 16
+// does too (a thread a tap then, `window_linear_fwd_taps`).
+inline int window_tile(int64_t rows, int sms) {
+  for (int tile = 32; tile >= 16; tile /= 2)
+    if ((rows + tile - 1) / tile >= (int64_t)kWinWarpsPerSM * sms) return tile;
+  return 0;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -195,10 +334,31 @@ extern "C" int anystereo_gather_rows_linear_bwd(const void* pos, const void* g, 
 extern "C" int anystereo_gather_window_linear(const void* vol, const void* base, void* out,
                                               long long rows, int length, int taps,
                                               void* stream) {
-  if (length < 1 || taps < 1 || rows < 0) return (int)cudaErrorInvalidValue;
+  // a tile's rows are indexed in 32 bits
+  if (length < 1 || taps < 1 || rows < 0 || length > INT_MAX / 32 || taps > INT_MAX / 32 - 1)
+    return (int)cudaErrorInvalidValue;
   if (rows == 0) return (int)cudaGetLastError();
-  window_linear_fwd<<<blocks_for((int64_t)rows * taps), kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)vol, (const float*)base, (float*)out, rows, length, taps);
+  int device, sms;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  int tile = window_tile(rows, sms);
+  if (tile == 0 && rows * taps <= INT_MAX - kThreads) {
+    const unsigned blocks = (unsigned)((rows * taps + kThreads - 1) / kThreads);
+    auto kernel = taps == 9 ? window_linear_fwd_taps<9> : window_linear_fwd_taps<0>;
+    kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)vol, (const float*)base, (float*)out, (int)rows, length, taps);
+    return (int)cudaGetLastError();
+  }
+  tile = tile == 0 ? 16 : tile;
+  const bool staged = taps + 1 <= kWinStaged;
+  const size_t shared = sizeof(float) * kWinWarps * win_words(tile, staged ? taps + 1 : 0);
+  const int64_t rows_per_block = (int64_t)kWinWarps * tile;
+  const unsigned blocks = (unsigned)((rows + rows_per_block - 1) / rows_per_block);
+  auto kernel = staged ? (taps == 9 ? window_linear_fwd<9, true> : window_linear_fwd<0, true>)
+                       : window_linear_fwd<0, false>;
+  kernel<<<blocks, 32 * kWinWarps, shared, (cudaStream_t)stream>>>(
+      (const float*)vol, (const float*)base, (float*)out, rows, length, taps, tile);
   return (int)cudaGetLastError();
 }
 

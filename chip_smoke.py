@@ -8,14 +8,21 @@
                                       # aligned lookup's forward summed
                                       # inside both, and its backward, the
                                       # scatter-add and the row gather
-                                      # inside the step
+                                      # inside the step; the window-pyramid
+                                      # lookup's forward summed inside the
+                                      # IGEV and RAFT eval forwards under
+                                      # "classify", the window linear
+                                      # lookup's inside the IGEV one under
+                                      # "levels"
     python3 chip_smoke.py --spread    # and the run-to-run spread of the fp32
                                       # gradients with and without cuDNN's
                                       # deterministic algorithms
     python3 chip_smoke.py --parent DIR
                                       # and, in the kernels phase, the aligned
                                       # lookup's forward and backward, the
-                                      # row gather and the scatter-add as the
+                                      # row gather, the scatter-add and the
+                                      # forwards of the window-pyramid and
+                                      # window linear lookups as the
                                       # checkout at DIR builds them (an
                                       # earlier commit): held to this tree's
                                       # (all but the scatter bit for bit) and
@@ -34,14 +41,20 @@ Phases (any failure raises, and the exit code is not 0):
            pyramid lookup's forward and backward (IGEV shapes at 2 levels,
            RAFT shapes at 4), the window-pyramid lookups in their three
            layouts, forward and backward, held to their plain versions bit
-           for bit and to each other, the query row gather and its
+           for bit and to each other (the pixel-major forward, the
+           "classify" flavor's, also at path-shaped positions, with
+           `floor_ms` and the read-flush time), the query row gather and its
            scatter-add transpose (the 9-tap disparity table and both latent
            tables, 51,200 queries a sample), `gather_rows_hybrid`, and the
            single-level linear lookups, forward and backward, bit for bit:
            `gather_window_linear` at the eight level shapes of the "levels"
            flavor's eval forwards and the four of its training step,
            `gather_rows_linear` at the evaluator's occlusion shape
-           (375 rows of 1242 positions) and at 300 x 312 x 9.  The aligned
+           (375 rows of 1242 positions) and at 300 x 312 x 9, each beside
+           `grid_sample` (forward) and `grid_sampler_2d_backward`, the one
+           PyTorch call that computes the same lerp (the window forward also
+           at path-shaped starts, with `floor_ms` and the read-flush time).
+           The aligned
            lookup's forward is held and timed at uniformly random positions
            and at path-shaped ones (a smooth disparity field), beside a
            PyTorch copy of as many bytes as its bound counts; it, its
@@ -77,8 +90,8 @@ Phases (any failure raises, and the exit code is not 0):
            under "levels", RAFT under "classify"; one forward each with
            `quarter_nearest="both"` and with `local_ensemble=True`.
 
-It prints a `kernels` JSON line, with `--parent` a short line of the
-aligned lookup's, the gather's and the scatter-add's times beside the
+It prints a `kernels` JSON line (also written to kernels.json in OUT_DIR),
+with `--parent` a short line of the redesigned kernels' times beside the
 parent's (and, with `--profile`, their sums inside the paths), the card's
 name and power limit as nvidia-smi reports them, and last
 `{"ok": true, "device": {...}}`.  It
@@ -104,6 +117,7 @@ REQUESTS = 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 FP32_ATOL = 1e-5
+LIBRARY_ATOL = 1e-3  # grid_sample against the linear lookups, unit-normal volumes (`_library_atol`)
 MODEL_CHECK_ATOL = 1e-3  # px, fp32 forward, kernel vs plain lookup
 TRAIN_BATCH, TRAIN_H, TRAIN_W, TRAIN_SHIFT = 2, 160, 320, 6  # TrainConfig(): batch, inp_size; px of disparity
 TRAIN_STEPS = 3
@@ -132,14 +146,17 @@ def _card() -> str:
 # ----------------------------------------------------------------- phase 1
 
 
+PARENT_SOURCES = ("lookup_aligned", "gather_rows", "lookup_window", "lookup_linear")
+
+
 def phase_build(parent=None):
     """Every source of this tree, and with `parent` (a checkout's root) that
-    checkout's aligned lookup and row gather sources, all at once."""
+    checkout's sources of the redesigned kernels, all at once."""
     from anystereo_tpu_torch.ops.kernels import build
 
     t0 = time.perf_counter()
     procs = []
-    for name in ("lookup_aligned", "gather_rows") if parent else ():
+    for name in PARENT_SOURCES if parent else ():
         out = build.BUILD_DIR / f"libparent_{name}.so"
         build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         src = os.path.join(parent, "anystereo_tpu_torch", "csrc", f"{name}.cu")
@@ -160,9 +177,9 @@ def phase_build(parent=None):
 
 @contextlib.contextmanager
 def _parent_kernels():
-    """This tree's wrappers with the parent's libraries swapped in: the
-    aligned lookup forward and backward, the row gather and the scatter-add
-    (launches counted as this tree's)."""
+    """This tree's wrappers with the parent's libraries (`PARENT_SOURCES`)
+    swapped in, launches counted as this tree's.  The C entry points of
+    those sources keep their signatures across the redesigns."""
     from anystereo_tpu_torch.ops.kernels import build
 
     own = build.load_library
@@ -571,7 +588,19 @@ def _kernels_window(torch):
             if not (torch.equal(o, base_out) and torch.equal(d, base_grad)):
                 raise AssertionError(f"{name} {call}: differs from gather_pyramid_window_pm on the "
                                      "same operands in its layout")
-        del vol, cot, results
+        # B4, the "classify" flavor's lookup: path-shaped starts, the read
+        # flush, one row, the parent
+        vol_t = vol.t().contiguous()
+        bases_path = _path_positions(torch, call, rows)[:, None] * scales - radius
+        starts = {k: b.t().contiguous() for k, b in
+                  (("check", bases), ("main", bases_main), ("path", bases_path))}
+        v1, b1 = vol_t[:, :1].contiguous(), starts["main"][:, :1].contiguous()
+        _window_beside(torch, calls["gather_pyramid_window_pm"][-1], "gather_pyramid_window_pm",
+                       lambda b: tw.gather_pyramid_window_pm(vol_t, b, TAPS),
+                       lambda b: tw.gather_pyramid_window_pm_ref(vol_t, b, TAPS), starts,
+                       lambda: tw.gather_pyramid_window_pm(v1, b1, TAPS),
+                       _window_cost(torch, bases_path, length, True)[0])
+        del vol, vol_t, cot, results
     order = [c[0] for c in _lookup_shapes()]
     records = []
     for name, _, _, line_fwd, line_bwd, vol_t, out_t in layouts:
@@ -583,6 +612,42 @@ def _kernels_window(torch):
                 name + tag, src, f"anystereo_tpu/ops/pallas/lookup_kernel.py:{line}", calls[name + tag],
                 main=(order.index(main_call),), paths=paths if system else ("op",)))
     return records
+
+
+def _window_beside(torch, res, what, fwd, ref, starts, one, bytes_path):
+    """A redesigned window forward (B4 or B7) beyond the common timing.
+    `fwd(b)` launches the kernel on the window starts b, `ref(b)` its plain
+    version; `starts` holds the check's, the timing's and the path-shaped
+    starts (`check`, `main`, `path`), `one` launches it on one row.  Held to
+    the plain version at the path's starts and, with --parent, to the
+    parent's kernel at the check's and the path's; timed at the path's
+    starts, after the read flush and on one row; with --parent in turns with
+    the parent's kernel at the timing's and the path's starts."""
+    check, main, path = starts["check"], starts["main"], starts["path"]
+    got = fwd(path)
+    torch.cuda.synchronize()
+    if not torch.equal(got, ref(path)):
+        raise AssertionError(f"{what} {res['call']}: differs from its plain version at path-shaped starts")
+    if PARENT:
+        for b in (check, path):
+            if not torch.equal(fwd(b), _as_parent(lambda: fwd(b))()):
+                raise AssertionError(f"{what} {res['call']}: differs from the parent's kernel")
+        res["equal_to_parent"] = True
+    res["ms_path"] = _time_ms(torch, lambda: fwd(path))
+    res["ms_clean"] = _time_ms(torch, lambda: fwd(main), read_flush=True)
+    res["floor_ms"] = _time_ms(torch, one)
+    if PARENT:
+        _beside_parent(torch, res, "ms", lambda: fwd(main))
+        _beside_parent(torch, res, "ms_path", lambda: fwd(path))
+    res["bytes_path"] = bytes_path
+    res["bound_ms_path"] = _bound(bytes_path, res["flops"])[0]
+    parent = "" if not PARENT else (
+        f"; parent {res['parent_ms']} / this tree {res['ms_beside_parent']} ms in turns, path-shaped "
+        f"parent {res['parent_ms_path']} / this tree {res['ms_path_beside_parent']} ms; equal to "
+        f"the parent's output bit for bit")
+    _log(f"[kernels] {what} {res['call']}: path-shaped {res['ms_path']:.4f} ms (bound "
+         f"{res['bound_ms_path']:.4f}), read flush {res['ms_clean']:.4f} ms, floor {res['floor_ms']:.4f} "
+         f"ms{parent}")
 
 
 def _kernels_hybrid(torch):
@@ -775,27 +840,81 @@ def _old_gather_1d_linear(torch, vol, pos):
     return v0 * valid0 * (1.0 - w1) + v1 * valid1 * w1
 
 
+def _library_linear(torch, vol, pos, g):
+    """(forward, backward) closures of the one PyTorch call that computes
+    the single-level lerp with zeros outside [0, L): `grid_sample`
+    (bilinear, zero padding, align_corners=True) on the volume viewed as
+    [R, 1, 1, L], and its backward in the volume alone
+    (`grid_sampler_2d_backward`, output_mask [True, False]), for positions
+    pos [R, K] and the cotangent g [R, K].  The grid is made outside the
+    timing."""
+    import torch.nn.functional as F
+
+    rows, length = vol.shape
+    x = pos * (2.0 / (length - 1)) - 1.0  # align_corners=True; y = 0, the one row
+    grid = torch.stack([x, torch.zeros_like(x)], -1)[:, None]  # [R, 1, K, 2]
+    vol4, g4 = vol.reshape(rows, 1, 1, length), g.reshape(rows, 1, 1, -1)
+
+    def fwd():
+        return F.grid_sample(vol4, grid, mode="bilinear", padding_mode="zeros",
+                             align_corners=True).reshape(rows, -1)
+
+    def bwd():
+        return torch.ops.aten.grid_sampler_2d_backward(g4, vol4, grid, 0, 0, True,
+                                                       [True, False])[0].reshape(rows, length)
+
+    return fwd, bwd
+
+
+def _library_atol(length):
+    """Tolerance of `grid_sample` against the kernels on unit-normal volumes.
+    Its trip through normalised coordinates, x = 2p/(L-1) - 1 and back,
+    rounds a position by a few units of L*2^-24, and a lerp moves by that
+    times the step between two entries (up to ~7 on unit normals): 1e-3 up
+    to L = 312, growing with L beyond."""
+    return LIBRARY_ATOL * max(1.0, length / 312)
+
+
+def _check_library(torch, res, what, vol, pos, g, got, dgot):
+    """`grid_sample` and its backward against the kernels' outputs `got`
+    and `dgot` (on these unit-normal inputs), within `_library_atol`."""
+    fwd, bwd = _library_linear(torch, vol, pos, g)
+    tol = _library_atol(vol.shape[1])
+    res["library_err"] = float((fwd() - got).abs().max())
+    res["library_bwd_err"] = float((bwd() - dgot).abs().max())
+    if not (res["library_err"] <= tol and res["library_bwd_err"] <= tol):
+        raise AssertionError(f"{what} {res['call']}: grid_sample and its backward differ from the "
+                             f"kernels by {res['library_err']}, {res['library_bwd_err']} (tolerance {tol})")
+
+
 def _kernels_linear(torch):
     """The single-level linear lookups, forward and backward, fp32.  Kernel
     and plain version do the same operations in the same order (explicit
     round-to-nearest intrinsics, no FMA; the rows backward adds a row's taps
     in ascending k, no atomics), so they must agree exactly; far positions
-    (+-1e6, +-3e9) must give zero taps and written zero gradients."""
+    (+-1e6, +-3e9) must give zero taps and written zero gradients.  The
+    library column is `grid_sample` and its backward (`_library_linear`),
+    held to the kernels within `_library_atol`."""
     from anystereo_tpu_torch.ops.kernels import lookup_linear as tl
 
     src, jax_file = "anystereo_tpu_torch/csrc/lookup_linear.cu", "anystereo_tpu/ops/pallas/lookup_kernel.py"
     gen = torch.Generator(device=DEVICE).manual_seed(8)
     far = torch.tensor([-3e9, 3e9, -1e6, 1e6], device=DEVICE)
+    radius = (TAPS - 1) // 2
 
-    def timed(res, what, fn, plain, nbytes, flops, library=None):
+    def timed(res, what, fn, plain, nbytes, flops, library, gather_body=None):
         res.update(max_abs_err=0.0, bytes=nbytes, flops=flops)
         res["ms"] = _time_ms(torch, fn)
         res["plain_ms"] = _time_ms(torch, plain, reps=5)
-        res["library_ms"] = None if library is None else _time_ms(torch, library)
+        res["library_ms"] = _time_ms(torch, library)
+        if gather_body is not None:
+            res["gather_body_ms"] = _time_ms(torch, gather_body)
         res["bound_ms"], res["bound_by"] = _bound(nbytes, flops)
-        lib = "" if library is None else f", torch.gather body {res['library_ms']:.4f} ms"
+        body = "" if gather_body is None else f", torch.gather body {res['gather_body_ms']:.4f} ms"
         _log(f"[kernels] {what} {res['call']} R={res['rows']} L={res['length']} K={res['taps']}: "
-             f"exact; kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms{lib}, bound "
+             f"exact; kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, grid_sample "
+             f"{'backward ' if what.endswith('_bwd') else ''}{res['library_ms']:.4f} ms (max |diff| "
+             f"{res['library_err']:.3g}, {res['library_bwd_err']:.3g} backward){body}, bound "
              f"{res['bound_ms']:.4f} ms ({nbytes} B)")
         return res
 
@@ -803,8 +922,8 @@ def _kernels_linear(torch):
     win_fwd, win_bwd = [], []
     for call, rows, length in _level_shapes():
         vol = torch.randn(rows, length, device=DEVICE, generator=gen)
-        base_main = torch.rand(rows, device=DEVICE, generator=gen) * length - (TAPS - 1) // 2
-        base = torch.rand(rows, device=DEVICE, generator=gen) * (length + 40) - 20 - (TAPS - 1) // 2
+        base_main = torch.rand(rows, device=DEVICE, generator=gen) * length - radius
+        base = torch.rand(rows, device=DEVICE, generator=gen) * (length + 40) - 20 - radius
         base[:4] = far
         cot = torch.randn(rows, TAPS, device=DEVICE, generator=gen)
         got, want = tl.gather_window_linear(vol, base, TAPS), tl.gather_window_linear_ref(vol, base, TAPS)
@@ -817,18 +936,35 @@ def _kernels_linear(torch):
                                  f"{float((got - want).abs().max())}, backward "
                                  f"{float((dgot - dwant).abs().max())}, want 0 (and zeros for far starts)")
         shape = {"call": call, "rows": rows, "length": length, "taps": TAPS}
+        steps = torch.arange(TAPS, device=DEVICE)
+        res_f, res_b = dict(shape), dict(shape)
+        _check_library(torch, res_f, "gather_window_linear", vol[4:], base[4:, None] + steps, cot[4:],
+                       got[4:], dgot[4:])  # the far starts left out
+        res_b.update(library_err=res_f["library_err"], library_bwd_err=res_f["library_bwd_err"])
+        lib_fwd, lib_bwd = _library_linear(torch, vol, base_main[:, None] + steps, cot)
         i0 = torch.floor(base_main).long()
         live = (i0 + TAPS + 1).clamp(0, length) - i0.clamp(0, length)  # entries inside the window
         win_fwd.append(timed(
-            dict(shape), "gather_window_linear", lambda: tl.gather_window_linear(vol, base_main, TAPS),
+            res_f, "gather_window_linear", lambda: tl.gather_window_linear(vol, base_main, TAPS),
             lambda: tl.gather_window_linear_ref(vol, base_main, TAPS),
-            4 * int(live.sum()) + 4 * rows + 4 * rows * TAPS, 4 * rows * TAPS))
+            4 * int(live.sum()) + 4 * rows + 4 * rows * TAPS, 4 * rows * TAPS, lib_fwd))
+        # B7, the "levels" flavor's lookup: level i of the smooth field of
+        # `_path_positions`, x / 2^i - radius
+        volume, level = call.rsplit("_l", 1)
+        base_path = (_path_positions(torch, volume, rows) * 2.0 ** -int(level) - radius).contiguous()
+        i0 = torch.floor(base_path).long()
+        live = (i0 + TAPS + 1).clamp(0, length) - i0.clamp(0, length)
+        _window_beside(torch, res_f, "gather_window_linear", lambda b: tl.gather_window_linear(vol, b, TAPS),
+                       lambda b: tl.gather_window_linear_ref(vol, b, TAPS),
+                       {"check": base, "main": base_main, "path": base_path},
+                       lambda: tl.gather_window_linear(vol[:1], base_main[:1], TAPS),
+                       4 * int(live.sum()) + 4 * rows + 4 * rows * TAPS)
         win_bwd.append(timed(
-            dict(shape), "gather_window_linear_bwd",
+            res_b, "gather_window_linear_bwd",
             lambda: tl.gather_window_linear_bwd(base_main, cot, length, TAPS),
             lambda: tl.gather_window_linear_bwd_ref(base_main, cot, length, TAPS),
-            4 * rows * (1 + TAPS + length), 4 * rows * (TAPS + 1)))
-        del vol, cot
+            4 * rows * (1 + TAPS + length), 4 * rows * (TAPS + 1), lib_bwd))
+        del vol, cot, lib_fwd, lib_bwd
 
     # arbitrary positions: the evaluator's occlusion warp, and the small op shape
     rows_fwd, rows_bwd = [], []
@@ -854,20 +990,26 @@ def _kernels_linear(torch):
                               tl.gather_rows_linear(vol, pos_main), rtol=0, atol=FP32_ATOL):
             raise AssertionError(f"gather_rows_linear {call} disagrees with the torch.gather body")
         shape = {"call": call, "rows": rows, "length": length, "taps": taps}
+        res_f, res_b = dict(shape), dict(shape)
+        unit = torch.randn(rows, length, device=DEVICE, generator=gen)  # the library check's volume
+        _check_library(torch, res_f, "gather_rows_linear", unit, pos_main, cot,
+                       tl.gather_rows_linear(unit, pos_main), tl.gather_rows_linear_bwd(pos_main, cot, length))
+        res_b.update(library_err=res_f["library_err"], library_bwd_err=res_f["library_bwd_err"])
+        lib_fwd, lib_bwd = _library_linear(torch, vol, pos_main, cot)
         i0 = torch.floor(pos_main).clamp(-2, length).long()
         touched = torch.zeros(rows, length + 4, dtype=torch.bool, device=DEVICE)
         touched.scatter_(1, i0 + 2, True)
         touched.scatter_(1, i0 + 3, True)
         vol_bytes = 4 * int(touched[:, 2:length + 2].sum())  # each entry some tap reads, once
         rows_fwd.append(timed(
-            dict(shape), "gather_rows_linear", lambda: tl.gather_rows_linear(vol, pos_main),
+            res_f, "gather_rows_linear", lambda: tl.gather_rows_linear(vol, pos_main),
             lambda: tl.gather_rows_linear_ref(vol, pos_main), vol_bytes + 8 * rows * taps,
-            4 * rows * taps, library=lambda: _old_gather_1d_linear(torch, vol, pos_main)))
+            4 * rows * taps, lib_fwd, gather_body=lambda: _old_gather_1d_linear(torch, vol, pos_main)))
         rows_bwd.append(timed(
-            dict(shape), "gather_rows_linear_bwd", lambda: tl.gather_rows_linear_bwd(pos_main, cot, length),
+            res_b, "gather_rows_linear_bwd", lambda: tl.gather_rows_linear_bwd(pos_main, cot, length),
             lambda: tl.gather_rows_linear_bwd_ref(pos_main, cot, length),
-            4 * rows * (2 * taps + length), 5 * rows * taps))
-        del vol, cot
+            4 * rows * (2 * taps + length), 5 * rows * taps, lib_bwd))
+        del vol, cot, unit, lib_fwd, lib_bwd
     # one IGEV iteration's four launches: the forward's at the eval shapes, the
     # backward's at the training shapes (the one path that runs it)
     calls = [c["call"] for c in win_fwd]
@@ -876,12 +1018,13 @@ def _kernels_linear(torch):
                             for i in range(IGEV_LEVELS))
     return [
         _record("gather_window_linear", src, f"{jax_file}:215", win_fwd, main=eval_iteration,
-                paths=("eval_levels", "train_levels")),
+                paths=("eval_levels", "train_levels"), library=True),
         _record("gather_window_linear_bwd", src, f"{jax_file}:155", win_bwd, main=train_iteration,
-                paths=("train_levels",)),
+                paths=("train_levels",), library=True),
         _record("gather_rows_linear", src, f"{jax_file}:1137", rows_fwd, main=(0,),
                 paths=("validate",), library=True),
-        _record("gather_rows_linear_bwd", src, f"{jax_file}:63", rows_bwd, main=(0,), paths=("op",)),
+        _record("gather_rows_linear_bwd", src, f"{jax_file}:63", rows_bwd, main=(0,), paths=("op",),
+                library=True),
     ]
 
 
@@ -1481,6 +1624,40 @@ def phase_profile(torch, model):
     _log(table)
 
 
+LOOKUP_PARTS = {"classify": ("b4_fwd_ms", "window_pm_fwd"), "levels": ("b7_fwd_ms", "window_linear_fwd")}
+
+
+def phase_profile_lookup(torch, kernels, model, core, flavor):
+    """--profile: one bf16 eval forward of `model` at full width under the
+    lookup flavor `flavor` through torch.profiler, after a warm-up, with its
+    launches checked; the flavor's lookup kernel (`LOOKUP_PARTS`) summed
+    inside it and, with --parent, in turns with the parent's kernel."""
+    key, part = LOOKUP_PARTS[flavor]
+    left, right = _images(torch, 1)
+    want = dict.fromkeys((k.__name__ for k in kernels), 0)
+    want.update(_lookup_counts(core, flavor, ITERS))
+
+    def forward():
+        return model(left, right, iters=ITERS)
+
+    with _flavor(flavor):
+        forward()
+        before = _counts(kernels)
+        wall, kernel_ms, kernel_n, table, named = _profiled(torch, forward)
+        _expect_launches(kernels, before, want, f"the profiled {core} eval forward ({flavor})")
+        summary = {"forward_wall_ms": wall, "kernel_ms": kernel_ms, "kernel_launches": kernel_n,
+                   "busy_share": kernel_ms / wall, key: _named_ms(named, part)}
+        if PARENT:
+            summary["in_turns"] = _in_turns(torch, forward, {key: part})
+    IN_PATH[f"{core.upper()} eval forward ({flavor})"] = {
+        k: summary[k] for k in (key, "in_turns") if k in summary}
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, f"profile_{core}_{flavor}.txt")
+    with open(path, "w") as f:
+        f.write(json.dumps(summary) + "\n" + table)
+    _log(f"[profile] {core.upper()} eval forward ({flavor}): {json.dumps(summary)}; kernel table in {path}")
+
+
 def _profiled(torch, fn):
     """Run `fn` under torch.profiler: (wall ms, summed kernel ms, kernel
     launches, the table of kernels by device time, {kernel name: ms})."""
@@ -1530,11 +1707,18 @@ def _beside_parent_line(records):
 
     common = ("ms", "ms_beside_parent", "parent_ms", "floor_ms", "plain_ms", "bound_ms")
     clean = ("ms_clean", "floor_ms_clean")
-    keys = {"gather_pyramid_aligned": ("B1", lambda c: c["call"], common + (
-                "ms_path", "ms_path_beside_parent", "parent_ms_path", "copy_ms", "bound_ms_path")),
+    path = ("ms_path", "ms_path_beside_parent", "parent_ms_path", "bound_ms_path")
+    library = ("ms", "library_ms", "library_err", "library_bwd_err", "gather_body_ms", "bound_ms")
+    keys = {"gather_pyramid_aligned": ("B1", lambda c: c["call"], common + path + ("copy_ms",)),
             "gather_pyramid_aligned_bwd": ("B1 bwd", lambda c: c["call"], common + clean + ("accumulate_ms",)),
             "scatter_rows_add": ("B2", lambda c: f"C={c['table'][2]}", common + ("library_ms",)),
-            "gather_rows": ("B3", lambda c: f"C={c['table'][2]}", common + clean + ("library_ms",))}
+            "gather_rows": ("B3", lambda c: f"C={c['table'][2]}", common + clean + ("library_ms",)),
+            "gather_pyramid_window_pm": ("B4", lambda c: c["call"], common + path + ("ms_clean",)),
+            "gather_window_linear": ("B7", lambda c: c["call"], common + path + (
+                "ms_clean", "library_ms", "library_err")),
+            "gather_window_linear_bwd": ("B7 bwd", lambda c: c["call"], library),
+            "gather_rows_linear": ("B8", lambda c: c["call"], library),
+            "gather_rows_linear_bwd": ("B8 bwd", lambda c: c["call"], library)}
     out = {"launch": r(YARDSTICK)}
     for rec in records:
         if rec["name"] in keys:
@@ -1625,10 +1809,21 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     by_path["eval_raft"], _ = phase_model(torch, kernels, "raft", "aligned")
     torch.cuda.empty_cache()
-    classify, _ = phase_model(torch, kernels, "raft", "classify")
+    classify, model = phase_model(torch, kernels, "raft", "classify", keep=profile)
     by_path["eval_raft"] = {k: v + classify[k] for k, v in by_path["eval_raft"].items()}
+    if profile:
+        phase_profile_lookup(torch, kernels, model, "raft", "classify")
+        del model
+        from anystereo_tpu_torch.nn.model import build_model
+
+        model = build_model(_config("igev"), device=DEVICE, seed=0)
+        phase_profile_lookup(torch, kernels, model, "igev", "classify")
+        del model
     torch.cuda.empty_cache()
-    by_path["eval_levels"], _ = phase_model(torch, kernels, "igev", "levels")
+    by_path["eval_levels"], model = phase_model(torch, kernels, "igev", "levels", keep=profile)
+    if profile:
+        phase_profile_lookup(torch, kernels, model, "igev", "levels")
+    del model
     torch.cuda.empty_cache()
     raft_levels, _ = phase_model(torch, kernels, "raft", "levels")
     by_path["eval_levels"] = {k: v + raft_levels[k] for k, v in by_path["eval_levels"].items()}
@@ -1666,7 +1861,11 @@ def main(argv) -> int:
         record["launches"] = sum(record["launches_by_path"].values())
         if record["launches"] == 0:
             raise AssertionError(f"{name} was never launched: {record['launches_by_path']}")
-    print(json.dumps({"kernels": records}))
+    line = json.dumps({"kernels": records})
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "kernels.json"), "w") as f:
+        f.write(line + "\n")
+    print(line)
     if PARENT:
         _log(_beside_parent_line(records))
     print(card)

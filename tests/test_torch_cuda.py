@@ -437,6 +437,161 @@ def test_window_lookup_is_differentiable_through_the_kernels(card, layout):
     torch.testing.assert_close(vol.grad, plain.grad, rtol=1e-6, atol=1e-6)
 
 
+def _smooth_positions(card, rows, length, groups):
+    """Positions shaped as the main path gives them: a smooth disparity
+    field d (4 to 40) over image rows of w cells; `groups` > 1 gives x = d
+    for each run of `groups` rows (the GEV volume, w = 80), 1 gives
+    x = column - d (the correlation, w = L).  `rows` need not be a whole
+    number of cells."""
+    w = 80 if groups > 1 else length
+    cells = -(-rows // groups)
+    col = torch.arange(cells, device=card, dtype=torch.float32) % w
+    row = torch.arange(cells, device=card, dtype=torch.float32) // w
+    d = 22 + 18 * torch.sin(6.283 * (1.5 * col / w + 0.05 * row)) * torch.cos(0.1 * row)
+    x = d.repeat_interleave(groups) if groups > 1 else col - d
+    return x[:rows].contiguous()
+
+
+def _pm_bases(card, x, levels, far=True):
+    """[levels, R] window starts x * 2^-lvl - 4, as the classify flavor
+    forms them; with `far`, the first rows at +-1e6 and +-3e9."""
+    scales = torch.tensor([2.0 ** -lvl for lvl in range(levels)], device=card)
+    bases = x[None, :] * scales[:, None] - 4
+    if far:
+        bases[:, : len(_FAR)] = torch.tensor(_FAR, device=card)[None, :]
+    return bases.contiguous()
+
+
+def _pm_all_layouts(vol_t, bases_t, taps):
+    """The pixel-major kernel's output, checked bit for bit against its plain
+    version and against the two other layouts' kernels on the same operands."""
+    got = tw.gather_pyramid_window_pm(vol_t, bases_t, taps)
+    want = tw.gather_pyramid_window_pm_ref(vol_t, bases_t, taps)
+    t_out = tw.gather_pyramid_window_t(vol_t, bases_t, taps)
+    rows_out = tw.gather_pyramid_window(vol_t.t().contiguous(), bases_t.t().contiguous(), taps)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.equal(got, want)
+    assert torch.equal(t_out.t(), got) and torch.equal(rows_out, got)
+    return got
+
+
+# (rows, length, levels): tiles of 32 rows with a ragged last one and R % 4
+# != 0 (scalar copies), R % 4 == 0 (16-byte copies), the eval GEV and corr
+# shapes and the RAFT one, and rows shorter than a cell at 3-5 levels
+_PM_CASES = [(205, 48, 2), (777, 312, 2), (4096, 80, 4), (239616 + 5, 48, 2), (239616, 48, 2),
+             (29952, 312, 2), (29952, 312, 4), (333, 5, 3), (333, 5, 4), (333, 5, 5), (257, 7, 5)]
+
+
+@pytest.mark.parametrize("rows,length,levels", _PM_CASES)
+@pytest.mark.parametrize("positions", ["random", "path", "apart", "gap"])
+def test_window_pm_forward_tiles_and_spans(card, rows, length, levels, positions):
+    """The redesigned pixel-major forward (tiles of 32 rows, the span staged
+    in chunks of up to 128 entries) equals its plain version and the other two
+    layouts bit for bit: random positions over the row and 20 past its ends
+    (a tile's span is the whole row, several chunks at L 312), path-shaped
+    ones (a span of about one window), each level its own start away from
+    the row's start (a span that starts at an odd entry, deeper cells at the
+    end of a chunk), half of each tile near the row's start and half far
+    along (a stretch no row needs, skipped), far bases, ragged tiles."""
+    g = torch.Generator(device=card).manual_seed(rows + length + levels)
+    vol_t = torch.randn(length, rows, device=card, generator=g)
+    if positions == "random":
+        x = torch.rand(rows, device=card, generator=g) * (length + 40) - 20
+    else:
+        x = _smooth_positions(card, rows, length, 8 if length == 48 else 1)
+    bases = _pm_bases(card, x, levels)
+    if positions == "apart":
+        for lvl in range(levels):
+            n = length >> lvl
+            bases[lvl, len(_FAR):] = torch.rand(rows - len(_FAR), device=card, generator=g) * max(n - 15, 1) + 3
+    if positions == "gap":  # half of each tile near the row's start, half far along: the
+        # walk skips the stretch between; at L 312 and 2 levels the far half needs
+        # [151, 161) and [278, 298), so a chunk from 151 would end inside the
+        # level-1 cell [278, 280): it starts at 150
+        low = (torch.arange(rows, device=card) % 32) < 16
+        far = [151.5, 139.25] if (length, levels) == (312, 2) else \
+            [0.45 * (length >> lvl) + 0.25 for lvl in range(levels)]
+        for lvl in range(levels):
+            bases[lvl, len(_FAR):] = torch.where(low, 1.25, far[lvl])[len(_FAR):]
+    before = tw.gather_pyramid_window_pm.launches
+    got = _pm_all_layouts(vol_t, bases, 9)
+    assert tw.gather_pyramid_window_pm.launches == before + 1
+    assert not got[: len(_FAR)].any()
+
+
+@pytest.mark.parametrize("taps,levels", [(1, 2), (5, 4), (17, 2), (80, 5), (346, 5)])
+def test_window_pm_forward_other_taps(card, taps, levels):
+    """Taps other than 9: the tap stage grows with levels*taps (past 48 KB
+    the launch asks for more shared memory; on rows of 80 entries 346 taps
+    at 5 levels is the most a block holds); 347 taps at 5 levels is
+    refused."""
+    g = torch.Generator(device=card).manual_seed(taps)
+    vol_t = torch.randn(80, 1001, device=card, generator=g)
+    x = torch.rand(1001, device=card, generator=g) * 120 - 20
+    _pm_all_layouts(vol_t, _pm_bases(card, x, levels), taps)
+    if taps == 346:
+        with pytest.raises(RuntimeError):
+            tw.gather_pyramid_window_pm(vol_t, _pm_bases(card, x, levels), taps + 1)
+
+
+def test_window_pm_forward_unaligned_volume(card):
+    """A volume that starts 4 bytes past a 16-byte boundary takes the 4-byte
+    copies even where R % 4 == 0."""
+    g = torch.Generator(device=card).manual_seed(5)
+    flat = torch.randn(1 + 312 * 1024, device=card, generator=g)
+    vol_t = flat[1:].view(312, 1024)
+    assert vol_t.is_contiguous() and vol_t.data_ptr() % 16 == 4
+    x = torch.rand(1024, device=card, generator=g) * 352 - 20
+    _pm_all_layouts(vol_t, _pm_bases(card, x, 4), 9)
+
+
+# (rows, length): the eval GEV shapes (tiles of 32 rows a warp), the
+# training GEV's (16 rows), the eval and training correlation's (a thread a
+# tap), ragged last tiles and blocks
+_WL_CASES = [(239616, 48), (239616 + 3, 24), (51200 + 17, 48), (29952, 312), (29952, 39),
+             (6400, 80), (6401, 40), (100, 5), (1, 1242)]
+
+
+@pytest.mark.parametrize("rows,length", _WL_CASES)
+@pytest.mark.parametrize("positions", ["random", "path"])
+def test_window_linear_forward_tiles(card, rows, length, positions):
+    """The redesigned window forward (one window a row staged once, taps
+    stored four at a time; a thread a tap at a few thousand rows) equals its
+    plain version bit for bit at random and path-shaped starts, far starts
+    included, whatever the tile height."""
+    g = torch.Generator(device=card).manual_seed(rows + length)
+    vol = torch.randn(rows, length, device=card, generator=g)
+    if positions == "random":
+        base = torch.rand(rows, device=card, generator=g) * (length + 18) - 9
+    else:
+        base = _smooth_positions(card, rows, length, 8 if length in (48, 24) else 1) - 4
+    base[: min(rows, 4)] = torch.tensor(_LINEAR_FAR, device=card)[: min(rows, 4)]
+    before = tl.gather_window_linear.launches
+    got, want = tl.gather_window_linear(vol, base, 9), tl.gather_window_linear_ref(vol, base, 9)
+    torch.cuda.synchronize()
+    assert tl.gather_window_linear.launches == before + 1
+    assert got.shape == (rows, 9) and torch.equal(got, want)
+    assert not got[: min(rows, 4)].any()
+
+
+@pytest.mark.parametrize("rows", [3001, 70001])
+@pytest.mark.parametrize("taps", [1, 2, 5, 17, 93, 94, 300])
+def test_window_linear_forward_other_taps(card, rows, taps):
+    """Taps other than 9 take the kernels with a runtime count: at 70,001
+    rows the warp tiles, with windows up to 94 entries (93 taps) through
+    shared memory and wider ones from device memory, at 3,001 a thread a
+    tap; all bit for bit the plain version, on a volume that starts off a
+    16-byte boundary."""
+    g = torch.Generator(device=card).manual_seed(taps)
+    flat = torch.randn(1 + rows * 130, device=card, generator=g)
+    vol = flat[1:].view(rows, 130)
+    base = torch.rand(rows, device=card, generator=g) * 160 - 20 - taps / 2
+    base[:4] = torch.tensor(_LINEAR_FAR, device=card)
+    got, want = tl.gather_window_linear(vol, base, taps), tl.gather_window_linear_ref(vol, base, taps)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and not got[:4].any()
+
+
 @pytest.mark.parametrize("core", sorted(_CORES))
 @pytest.mark.parametrize("flavor", lookup.LOOKUP_KERNELS)
 def test_eval_forward_counts_and_flavors_agree(card, monkeypatch, core, flavor):

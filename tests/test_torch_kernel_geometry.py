@@ -119,3 +119,304 @@ def test_plain_forward_on_rows_shorter_than_a_cell(levels):
     out = gather_pyramid_aligned_ref(vol, x, 9, levels)
     assert out.shape == (33, levels * 9) and not out[:, 27:].any()
     torch.testing.assert_close(out[:, :27], gather_pyramid_aligned_ref(vol, x, 9, 3)[:, :27], rtol=0, atol=0)
+
+
+# ------------------------------------------- the window-pyramid forward (B4)
+#
+# `csrc/lookup_window.cu:window_pm_fwd`: a block owns a tile of 32 rows, one
+# thread a (row, level) pair.  The pairs' live cells give each row the hull
+# of entries it needs and the tile its span [lo, hi), lo rounded down to the
+# deepest cell width; the span is staged in chunks (the row rounded up to 16
+# entries, at most 128), copying only the 4-row groups (16 bytes) that some
+# row needs, or single rows where R % 4 != 0 or the group is the tile's
+# ragged end; after a chunk the walk goes on at the first entry a row still
+# needs, rounded down.  The mirror below makes the same copies into an array
+# of NaNs and forms the taps from it in the kernel's order, so a cell read
+# from an entry the rule did not copy comes out NaN and differs from the
+# plain version.
+
+PM_ROWS, PM_SPAN, MAX_SHARED = 32, 128, 227 * 1024
+INT_MAX, INT_MIN = 2 ** 31 - 1, -(2 ** 31)
+
+
+def _pm_chunk(length):
+    return min(-(-length // 16) * 16, PM_SPAN)
+
+
+def _pm_starts(bases, n_lvl, taps):
+    """(i0, f) in fp32 as the kernel forms them: floor clamped in float to
+    [-(taps+1), n_lvl], then converted."""
+    f0 = np.floor(bases)
+    return np.clip(f0, np.float32(-(taps + 1)), np.float32(n_lvl)).astype(np.int64), bases - f0
+
+
+def _mirror_window_pm(vol_t, bases_t, taps):
+    """(out [R, levels*taps], chunks staged, entries copied) of the kernel's
+    rule, in numpy fp32."""
+    length, rows = vol_t.shape
+    levels = bases_t.shape[0]
+    out = np.full((rows, levels * taps), np.nan, np.float32)
+    vec = rows % 4 == 0
+    chunks = copied = 0
+    for r0 in range(0, rows, PM_ROWS):
+        nrows = min(PM_ROWS, rows - r0)
+        pairs = []  # (lvl, row, i0, f, width, n_lvl)
+        first = np.full(PM_ROWS, INT_MAX)
+        end = np.full(PM_ROWS, INT_MIN)
+        for lvl in range(levels):
+            width, n_lvl = 2 ** lvl, length >> lvl
+            i0, f = _pm_starts(bases_t[lvl, r0:r0 + nrows], n_lvl, taps)
+            for row in range(nrows):
+                c0, c1 = max(i0[row], 0), min(i0[row] + taps + 1, n_lvl)
+                if c0 < c1:
+                    first[row] = min(first[row], c0 * width)
+                    end[row] = max(end[row], c1 * width)
+                pairs.append([lvl, row, int(i0[row]), f[row], width, n_lvl, np.float32(0), 0])
+        live = first < INT_MAX
+        top = 2 ** (levels - 1)
+        lo = int(first[live].min()) & -top if live.any() else INT_MAX
+        hi = int(end[live].max()) if live.any() else INT_MIN
+        chunk = _pm_chunk(length)
+        stage = np.full((PM_ROWS, levels * taps), np.nan, np.float32)
+
+        def emit(p, s):
+            lvl, row, _, f, _, _, prev, m = p
+            if m > 0:
+                stage[row, lvl * taps + m - 1] = np.float32(np.float32(1) - f) * prev + f * s
+            p[6], p[7] = s, m + 1
+
+        j0 = lo
+        while j0 < hi:
+            n = min(chunk, hi - j0)
+            span = np.full((chunk, PM_ROWS), np.nan, np.float32)
+            chunks += 1
+            for jj in range(n):
+                j = j0 + jj
+                need = (first <= j) & (j < end)
+                for q in range(0, PM_ROWS, 4):
+                    rows_q = range(q, q + 4) if vec and q + 4 <= nrows and need[q:q + 4].any() \
+                        else [r for r in range(q, q + 4) if need[r]]
+                    for r in rows_q:
+                        span[jj, r] = vol_t[j, r0 + r]
+                        copied += 1
+            for p in pairs:
+                _, row, i0, _, width, n_lvl, _, _ = p
+                while p[7] <= taps:
+                    c = i0 + p[7]
+                    s = np.float32(0)
+                    if c >= 0:
+                        e = c * width - j0
+                        if c >= n_lvl or e + width > n:
+                            break
+                        s = span[e, row]
+                        for t in range(1, width):
+                            s = np.float32(s + span[e + t, row])
+                        s = np.float32(s * np.float32(1.0 / width))
+                    emit(p, s)
+            j1 = j0 + n
+            ahead = [max(first[r], j1) for r in range(PM_ROWS) if end[r] > j1]
+            j0 = min(ahead) & -top if ahead else hi
+        for p in pairs:
+            while p[7] <= taps:
+                emit(p, np.float32(0))
+        out[r0:r0 + nrows] = stage[:nrows]
+    return out, chunks, copied
+
+
+def _smooth_x(rows, length, groups):
+    """Path-shaped positions: a smooth disparity field d (4 to 40) over image
+    rows of w cells; x = d for each run of `groups` rows (the GEV volume,
+    w = 80), or x = column - d (the correlation, w = L)."""
+    w = 80 if groups > 1 else length
+    cells = -(-rows // groups)
+    col, row = np.arange(cells) % w, np.arange(cells) // w
+    d = 22 + 18 * np.sin(2 * np.pi * (1.5 * col / w + 0.05 * row)) * np.cos(0.1 * row)
+    x = np.repeat(d, groups) if groups > 1 else col - d
+    return x[:rows].astype(np.float32)
+
+
+@pytest.mark.parametrize("rows,length,levels,positions", [
+    (205, 48, 2, "random"), (205, 48, 2, "path"), (256, 48, 2, "path"),  # the eval GEV rows
+    (205, 312, 2, "random"), (256, 312, 2, "path"),   # the eval correlation: several chunks
+    (133, 312, 4, "random"), (256, 312, 4, "path"),   # the RAFT correlation
+    (130, 80, 2, "random"), (128, 80, 4, "path"),     # the training correlation
+    (70, 5, 3, "random"), (70, 5, 4, "random"), (70, 5, 5, "random"),  # L < 2^lvl
+    (192, 312, 2, "apart"), (192, 312, 4, "apart"),  # levels' windows apart: odd span starts
+    (128, 312, 2, "gap"),  # a stretch no row needs, then a chunk that starts at an odd entry
+])
+def test_window_pm_staging_rule_reads_only_what_it_copied(rows, length, levels, positions):
+    """The kernel's staging rule, mirrored in numpy fp32, equals the plain
+    version bit for bit (so every cell a tap reads was copied into the chunk
+    that forms it), with far bases (+-1e6, +-3e9) as zero rows; the random
+    correlation tiles take several chunks, the path-shaped ones at most two
+    (the tile that wraps to the next image row skips the stretch between
+    its two parts), the path-shaped GEV tiles one."""
+    from anystereo_tpu_torch.ops.kernels.lookup_window import gather_pyramid_window_pm_ref
+
+    rng = np.random.default_rng(rows * length + levels)
+    vol_t = rng.standard_normal((length, rows)).astype(np.float32)
+    if positions == "random":
+        x = rng.uniform(-20, length + 20, rows).astype(np.float32)
+    else:
+        x = _smooth_x(rows, length, 8 if length == 48 else 1)
+    scales = np.array([2.0 ** -lvl for lvl in range(levels)], np.float32)
+    bases = (x[None, :] * scales[:, None] - np.float32(4)).astype(np.float32)
+    if positions == "apart":  # each level its own start, none at the row's start: a tile's
+        # span may begin at an odd entry, and a deeper cell then meets the end of a chunk
+        bases = np.stack([rng.uniform(3, (length >> lvl) - 12, rows) for lvl in range(levels)])
+        bases = bases.astype(np.float32)
+    if positions == "gap":  # half a tile needs [2, 22), the other half [151, 161) and
+        # [278, 298): the walk skips to entry 151 (rounded down to 150), and a chunk
+        # from 151 would end inside the level-1 cell [278, 280)
+        low = (np.arange(rows) % PM_ROWS) < PM_ROWS // 2
+        bases = np.stack([np.where(low, 6.5, 151.5), np.where(low, 1.25, 139.25)]).astype(np.float32)
+    bases[:, :4] = np.array([-1e6, 1e6, -3e9, 3e9], np.float32)[None, :]
+    got, chunks, copied = _mirror_window_pm(vol_t, bases, 9)
+    want = gather_pyramid_window_pm_ref(torch.from_numpy(vol_t), torch.from_numpy(bases), 9).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert not got[:4].any()
+    tiles = -(-rows // PM_ROWS)
+    if length == 312 and positions in ("random", "apart", "gap"):
+        assert chunks > tiles
+    if length == 312 and positions == "path":
+        assert chunks <= 2 * tiles
+    if length == 48 and positions == "path":
+        assert chunks == tiles and copied < 0.75 * vol_t.size  # about the windows, not whole rows
+
+
+def _pm_shared_bytes(chunk, levels, taps):
+    """`pm_shared_bytes`: the chunk, the tile's taps, each row's hull, the
+    tile's span and the next chunk's start, 4-byte words."""
+    return 4 * (chunk * PM_ROWS + PM_ROWS * levels * taps + 2 * PM_ROWS + 4)
+
+
+@pytest.mark.parametrize("levels", [1, 2, 3, 4, 5])
+def test_window_pm_shared_memory(levels):
+    """At the models' 9 taps a block of the pixel-major forward stays under
+    48 KB (no opt-in) and leaves room for many blocks an SM, on rows of any
+    length; the launch takes taps up to what 227 KB holds (337 at 5 levels
+    on rows of 128 entries or more, 346 on the training correlation's 80)."""
+    assert [_pm_chunk(n) for n in (5, 48, 80, 312)] == [16, 48, 80, 128]
+    worst = _pm_shared_bytes(PM_SPAN, levels, 9)
+    assert worst < 24 * 1024 and 9 * worst < MAX_SHARED
+    for length, table in ((312, {1: 1685, 2: 842, 3: 561, 4: 421, 5: 337}),
+                          (80, {1: 1733, 2: 866, 3: 577, 4: 433, 5: 346})):
+        chunk = _pm_chunk(length)
+        most = max(t for t in range(1, 4000) if _pm_shared_bytes(chunk, levels, t) <= MAX_SHARED)
+        assert most == table[levels]
+
+
+# ------------------------------------------------ the window linear forward (B7)
+#
+# `csrc/lookup_linear.cu:window_linear_fwd`: each warp owns a tile of 32 or
+# 16 rows, the most that still gives each SM 16 warps; a row's window,
+# taps+1 entries from floor(base) (zeros outside [0, L)), is staged once in
+# the warp's shared memory and the tile's taps are formed from it in output
+# order.  A block holds 4 warps and at most 48 KB, so windows of up to 94
+# entries are staged.  Fewer rows than 16-row tiles need take a thread a
+# tap (`window_linear_fwd_taps`), the plain version's own order.
+
+WIN_WARPS, WIN_STAGED, H100_SMS = 4, 94, 132
+
+
+def _win_words(tile, span):
+    return tile * (2 + span)
+
+
+def _window_tile(rows, sms=H100_SMS):
+    for tile in (32, 16):
+        if -(-rows // tile) >= 16 * sms:
+            return tile
+    return 0
+
+
+def test_window_linear_staging_capacity():
+    """The widest staged window fills a block's 48 KB at 32-row tiles
+    without the opt-in; the models' 9 taps take 6 KB a block."""
+    assert WIN_WARPS * 4 * _win_words(32, WIN_STAGED) <= 48 * 1024 < WIN_WARPS * 4 * _win_words(32, WIN_STAGED + 1)
+    assert WIN_WARPS * 4 * _win_words(32, 10) == 6144
+
+
+@pytest.mark.parametrize("rows,tile", [
+    (239616, 32),              # the eval GEV rows: 7,488 warps
+    (51200, 16),               # the training GEV rows: 3,200 warps
+    (29952, 0), (6400, 0),     # the eval and training correlation rows: a thread a tap
+    (9, 0),                    # a handful
+    (67553, 32), (67552, 16), (33777, 16), (33776, 0),  # the edges at 132 SMs
+])
+def test_window_linear_tile_rows(rows, tile):
+    """A warp of the window forward takes 32 rows, or 16 where 32 leaves an
+    SM of an H100 fewer than 16 warps; where 16 does too, a thread takes a
+    tap."""
+    assert _window_tile(rows) == tile
+
+
+def _mirror_window_linear(vol, base, taps, tile):
+    """The kernel's staging and tap order in numpy fp32."""
+    rows, length = vol.shape
+    out = np.empty((rows, taps), np.float32)
+    f0 = np.floor(base)
+    starts = np.clip(f0, np.float32(-(taps + 1)), np.float32(length)).astype(np.int64)
+    fs = base - f0
+    for r0 in range(0, rows, tile):
+        nrows = min(tile, rows - r0)
+        win = np.zeros((nrows, taps + 1), np.float32)
+        for i in range(nrows * (taps + 1)):
+            row, m = divmod(i, taps + 1)
+            j = starts[r0 + row] + m
+            if 0 <= j < length:
+                win[row, m] = vol[r0 + row, j]
+        flat = out[r0:r0 + nrows].reshape(-1)
+        for e in range(nrows * taps):
+            row, k = divmod(e, taps)
+            f = fs[r0 + row]
+            flat[e] = np.float32(np.float32(1) - f) * win[row, k] + f * win[row, k + 1]
+    return out
+
+
+@pytest.mark.parametrize("rows,length,taps", [(300, 48, 9), (150, 312, 9), (70, 5, 9), (65, 80, 1),
+                                              (65, 80, 17), (40, 39, 93)])
+def test_window_linear_staging_matches_plain(rows, length, taps):
+    """The staged window and the output order, mirrored in numpy fp32 with
+    tiles of 16 and 32 rows, equal the plain version bit for bit, far
+    starts included."""
+    from anystereo_tpu_torch.ops.kernels.lookup_linear import gather_window_linear_ref
+
+    rng = np.random.default_rng(rows + length + taps)
+    vol = rng.standard_normal((rows, length)).astype(np.float32)
+    base = rng.uniform(-taps - 3, length + 3, rows).astype(np.float32)
+    base[:4] = np.array([-3e9, 3e9, -1e6, 1e6], np.float32)
+    want = gather_window_linear_ref(torch.from_numpy(vol), torch.from_numpy(base), taps).numpy()
+    for tile in (16, 32):
+        np.testing.assert_array_equal(_mirror_window_linear(vol, base, taps, tile), want)
+
+
+# --------------------------------------- the library column of B7 and B8
+
+@pytest.mark.parametrize("rows,length,taps,window", [(500, 48, 9, True), (300, 312, 9, True),
+                                                     (200, 39, 9, True), (40, 1242, 1242, False),
+                                                     (300, 312, 9, False)])
+def test_grid_sample_is_the_linear_lookups_library_call(rows, length, taps, window):
+    """`chip_smoke.py` times `grid_sample` on the volume viewed as
+    [R, 1, 1, L] (bilinear, zero padding, align_corners=True) and its
+    backward in the volume as the one PyTorch call beside B7 and B8: on the
+    CPU it agrees with their plain versions, forward and backward, within
+    the tolerance it is held to on the card."""
+    import chip_smoke
+    from anystereo_tpu_torch.ops.kernels import lookup_linear as tl
+
+    g = torch.Generator().manual_seed(rows + length)
+    vol = torch.randn(rows, length, generator=g)
+    cot = torch.randn(rows, taps, generator=g)
+    if window:
+        base = torch.rand(rows, generator=g) * (length + 18) - 13
+        pos = base[:, None] + torch.arange(taps)
+        want, dwant = tl.gather_window_linear_ref(vol, base, taps), \
+            tl.gather_window_linear_bwd_ref(base, cot, length, taps)
+    else:
+        pos = torch.rand(rows, taps, generator=g) * (length + 8) - 4
+        want, dwant = tl.gather_rows_linear_ref(vol, pos), tl.gather_rows_linear_bwd_ref(pos, cot, length)
+    fwd, bwd = chip_smoke._library_linear(torch, vol, pos, cot)
+    tol = chip_smoke._library_atol(length)
+    torch.testing.assert_close(fwd(), want, rtol=0, atol=tol)
+    torch.testing.assert_close(bwd(), dwant, rtol=0, atol=tol)
