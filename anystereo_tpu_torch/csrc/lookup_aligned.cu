@@ -91,6 +91,8 @@
 
 #include <climits>
 
+#include "async_copy.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -149,27 +151,6 @@ __device__ __forceinline__ float cell(const float* __restrict__ row,
 __device__ __forceinline__ void convert(float* p, float v) { *p = v; }
 __device__ __forceinline__ void convert(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
-}
-
-// An L2 policy that makes the lines it touches the first to be evicted, so
-// that the volume's lines make room for each other rather than push out the
-// lines of the GRU's other kernels.
-__device__ __forceinline__ uint64_t evict_first() {
-  uint64_t policy;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
-  return policy;
-}
-
-// Asynchronous copies from device to shared memory (no register staging, so
-// every load of a thread is in flight at once)
-__device__ __forceinline__ void copy_async4(float* dst, const float* src, uint64_t policy) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global.L2::cache_hint [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "l"(policy)
-               : "memory");
-}
-__device__ __forceinline__ void copy_async_wait() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // Shared memory of the forward: the spans [kRows][slot] fp32, each row's

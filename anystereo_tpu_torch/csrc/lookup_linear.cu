@@ -44,14 +44,14 @@
 //     than L2); then the tile's taps, tile*taps floats that lie contiguous
 //     in `out`, are formed four at a time from shared memory and written as
 //     16-byte vectors.  Index arithmetic inside the tile is 32-bit, with the
-//     divisor a constant for the models' 9 taps.  Windows too wide for the
-//     staging (taps + 1 > kWinStaged) are read from device memory instead.
-//     The GEV call is then bound by bytes (a 40-byte window touches two or
-//     three 32-byte sectors of its row).  With fewer rows than 16-row tiles
-//     need to fill the card (the correlation calls, 29,952 rows and fewer)
-//     the launch and two dependent loads bound the call, and a thread a tap
-//     (`window_linear_fwd_taps`, 32-bit indices) keeps each thread's path the
-//     shortest: on the H100 the staged tiles were a little slower there;
+//     divisor a constant for the models' 9 taps.  The GEV call is then bound
+//     by bytes (a 40-byte window touches two or three 32-byte sectors of its
+//     row).  With fewer rows than 16-row tiles need to fill the card (the
+//     correlation calls, 29,952 rows and fewer) the launch and two dependent
+//     loads bound the call, and a thread a tap (`window_linear_fwd_taps`,
+//     32-bit indices) keeps each thread's path the shortest: on the H100 the
+//     staged tiles were a little slower there.  Windows too wide to stage
+//     (taps + 1 > kWinStaged, wider than any model's) take it too;
 //   - window backward: a thread per entry of dvol; its slot j = l - i0 names
 //     its one coefficient; no atomics, every entry written;
 //   - rows backward: taps collide inside a row (many k land on one l), and
@@ -74,6 +74,8 @@
 
 #include <climits>
 
+#include "async_copy.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -83,28 +85,8 @@ constexpr int kWinWarpsPerSM = 16;  // warps a tile height must give each SM
 constexpr int kWinStaged = 94;      // the widest window (taps + 1) it stages: 48 KB a block
 
 // 4-byte words of shared memory a warp of the window forward takes: f and
-// i0 of its `tile` rows, then their windows of `span` entries (0: not
-// staged).
+// i0 of its `tile` rows, then their windows of `span` entries.
 __host__ __device__ constexpr int win_words(int tile, int span) { return tile * (2 + span); }
-
-// An L2 policy that makes the lines it touches the first to be evicted.
-__device__ __forceinline__ uint64_t evict_first() {
-  uint64_t policy;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
-  return policy;
-}
-
-// An asynchronous 4-byte copy from device to shared memory, and the wait
-// for all of a thread's copies.
-__device__ __forceinline__ void copy_async4(float* dst, const float* src, uint64_t policy) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global.L2::cache_hint [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "l"(policy)
-               : "memory");
-}
-__device__ __forceinline__ void copy_async_wait() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 __device__ __forceinline__ float entry_or_zero(const float* __restrict__ row, int i,
                                                int length) {
@@ -177,12 +159,11 @@ __device__ __forceinline__ void window_start(float base, int length, int taps, i
   i0 = (int)fminf(fmaxf(f0, -(float)(taps + 1)), (float)length);
 }
 
-// Each warp owns a tile of `tile` consecutive rows (32 or 16) and works
-// alone (no block barrier, so the warps of an SM overlap their loads and
-// stores): TAPS > 0 is the count known at compile time, 0 takes `taps_rt`;
-// STAGED puts the windows in the warp's shared memory [tile][taps + 1],
-// else each tap reads its two entries from device memory.
-template <int TAPS, bool STAGED>
+// Each warp owns a tile of `tile` consecutive rows (32 or 16), stages
+// their windows in its shared memory [tile][taps + 1] and works alone (no
+// block barrier, so the warps of an SM overlap their loads and stores):
+// TAPS > 0 is the count known at compile time, 0 takes `taps_rt`.
+template <int TAPS>
 __global__ void __launch_bounds__(32 * kWinWarps)
 window_linear_fwd(const float* __restrict__ vol, const float* __restrict__ base,
                   float* __restrict__ out, int64_t rows, int length, int taps_rt, int tile) {
@@ -190,9 +171,9 @@ window_linear_fwd(const float* __restrict__ vol, const float* __restrict__ base,
   const int taps = TAPS > 0 ? TAPS : taps_rt;
   const int span = taps + 1;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* fs = smem + warp * win_words(tile, STAGED ? span : 0);  // [tile]
-  int* starts = reinterpret_cast<int*>(fs + tile);                // [tile]
-  float* win = fs + 2 * tile;                                     // [tile][span]
+  float* fs = smem + warp * win_words(tile, span);  // [tile]
+  int* starts = reinterpret_cast<int*>(fs + tile);  // [tile]
+  float* win = fs + 2 * tile;                       // [tile][span]
   const int64_t r0 = ((int64_t)blockIdx.x * kWinWarps + warp) * tile;
   if (r0 >= rows) return;
   const int nrows = rows - r0 < tile ? (int)(rows - r0) : tile;
@@ -205,35 +186,25 @@ window_linear_fwd(const float* __restrict__ vol, const float* __restrict__ base,
     fs[lane] = f;
   }
   __syncwarp();
-  if constexpr (STAGED) {
-    // asynchronous copies: no load waits on the store of the one before
-    const uint64_t policy = evict_first();
-    for (int i = lane; i < nrows * span; i += 32) {
-      const int row = i / span;
-      const int j = starts[row] + (i - row * span);
-      if (j >= 0 && j < length)
-        copy_async4(win + i, vol0 + row * length + j, policy);
-      else
-        win[i] = 0.0f;
-    }
-    copy_async_wait();
-    __syncwarp();
+  // asynchronous copies: no load waits on the store of the one before
+  const uint64_t policy = evict_first();
+  for (int i = lane; i < nrows * span; i += 32) {
+    const int row = i / span;
+    const int j = starts[row] + (i - row * span);
+    if (j >= 0 && j < length)
+      copy_async4(win + i, vol0 + row * length + j, policy);
+    else
+      win[i] = 0.0f;
   }
+  copy_async_wait();
+  __syncwarp();
   // tap e of the tile: (1 - f)*s_k + f*s_{k+1} of row e / taps, k = e % taps
   auto tap = [&](int e) {
     const int row = e / taps;
     const int k = e - row * taps;
     const float f = fs[row];
-    float s0, s1;
-    if constexpr (STAGED) {
-      s0 = win[row * span + k];
-      s1 = win[row * span + k + 1];
-    } else {
-      const int j = starts[row] + k;
-      s0 = entry_or_zero(vol0 + row * length, j, length);
-      s1 = entry_or_zero(vol0 + row * length, j + 1, length);
-    }
-    return __fadd_rn(__fmul_rn(__fsub_rn(1.0f, f), s0), __fmul_rn(f, s1));
+    const float* s = win + row * span + k;
+    return __fadd_rn(__fmul_rn(__fsub_rn(1.0f, f), s[0]), __fmul_rn(f, s[1]));
   };
   // the tile's taps are contiguous in `out` (and start on a 16-byte boundary
   // where `out` does: r0 is a multiple of 16)
@@ -249,10 +220,11 @@ window_linear_fwd(const float* __restrict__ vol, const float* __restrict__ base,
   for (int e = done + lane; e < total; e += 32) dst[e] = tap(e);
 }
 
-// Few rows (a few thousand): a thread a tap, 32-bit indices (rows * taps
-// below 2^31 - kThreads).  There the launch and two dependent loads bound
-// the call, and a thread's path is shortest when each forms one tap.  (Its
-// name holds `window_linear_fwd`: a profiler sum of B7 by name takes both.)
+// Few rows (a few thousand), or windows too wide to stage: a thread a tap,
+// 32-bit indices (rows * taps below 2^31 - kThreads).  There the launch and
+// two dependent loads bound the call, and a thread's path is shortest when
+// each forms one tap.  (Its name holds `window_linear_fwd`: a profiler sum
+// of B7 by name takes both.)
 template <int TAPS>
 __global__ void __launch_bounds__(kThreads)
 window_linear_fwd_taps(const float* __restrict__ vol, const float* __restrict__ base,
@@ -272,8 +244,10 @@ window_linear_fwd_taps(const float* __restrict__ vol, const float* __restrict__ 
 
 // Rows of a warp's tile in the window forward: 32, or 16 where 32 leaves
 // the card's `sms` SMs fewer than kWinWarpsPerSM warps each; 0 where 16
-// does too (a thread a tap then, `window_linear_fwd_taps`).
-inline int window_tile(int64_t rows, int sms) {
+// does too, or where the window is too wide to stage (a thread a tap then,
+// `window_linear_fwd_taps`).
+inline int window_tile(int64_t rows, int taps, int sms) {
+  if (taps + 1 > kWinStaged) return 0;
   for (int tile = 32; tile >= 16; tile /= 2)
     if ((rows + tile - 1) / tile >= (int64_t)kWinWarpsPerSM * sms) return tile;
   return 0;
@@ -334,7 +308,7 @@ extern "C" int anystereo_gather_rows_linear_bwd(const void* pos, const void* g, 
 extern "C" int anystereo_gather_window_linear(const void* vol, const void* base, void* out,
                                               long long rows, int length, int taps,
                                               void* stream) {
-  // a tile's rows are indexed in 32 bits
+  // a tile's rows, and a thread a tap's taps, are indexed in 32 bits
   if (length < 1 || taps < 1 || rows < 0 || length > INT_MAX / 32 || taps > INT_MAX / 32 - 1)
     return (int)cudaErrorInvalidValue;
   if (rows == 0) return (int)cudaGetLastError();
@@ -342,21 +316,19 @@ extern "C" int anystereo_gather_window_linear(const void* vol, const void* base,
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
-  int tile = window_tile(rows, sms);
-  if (tile == 0 && rows * taps <= INT_MAX - kThreads) {
+  const int tile = window_tile(rows, taps, sms);
+  if (tile == 0) {
+    if (rows * taps > INT_MAX - kThreads) return (int)cudaErrorInvalidValue;
     const unsigned blocks = (unsigned)((rows * taps + kThreads - 1) / kThreads);
     auto kernel = taps == 9 ? window_linear_fwd_taps<9> : window_linear_fwd_taps<0>;
     kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
         (const float*)vol, (const float*)base, (float*)out, (int)rows, length, taps);
     return (int)cudaGetLastError();
   }
-  tile = tile == 0 ? 16 : tile;
-  const bool staged = taps + 1 <= kWinStaged;
-  const size_t shared = sizeof(float) * kWinWarps * win_words(tile, staged ? taps + 1 : 0);
+  const size_t shared = sizeof(float) * kWinWarps * win_words(tile, taps + 1);
   const int64_t rows_per_block = (int64_t)kWinWarps * tile;
   const unsigned blocks = (unsigned)((rows + rows_per_block - 1) / rows_per_block);
-  auto kernel = staged ? (taps == 9 ? window_linear_fwd<9, true> : window_linear_fwd<0, true>)
-                       : window_linear_fwd<0, false>;
+  auto kernel = taps == 9 ? window_linear_fwd<9> : window_linear_fwd<0>;
   kernel<<<blocks, 32 * kWinWarps, shared, (cudaStream_t)stream>>>(
       (const float*)vol, (const float*)base, (float*)out, rows, length, taps, tile);
   return (int)cudaGetLastError();

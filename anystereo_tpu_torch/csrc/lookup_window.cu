@@ -87,6 +87,8 @@
 
 #include <climits>
 
+#include "async_copy.cuh"
+
 namespace {
 
 constexpr int kMaxLevels = 5;  // a cell sums at most 2^4 entries
@@ -109,30 +111,6 @@ __host__ __device__ constexpr int pm_chunk(int length) {
 // start (two slots), all 4-byte words.
 __host__ __device__ constexpr int pm_shared_bytes(int chunk, int levels, int taps) {
   return 4 * (chunk * kPmRows + kPmRows * levels * taps + 2 * kPmRows + 4);
-}
-
-// An L2 policy that makes the lines it touches the first to be evicted.
-__device__ __forceinline__ uint64_t evict_first() {
-  uint64_t policy;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
-  return policy;
-}
-
-// Asynchronous copies from device to shared memory, 16 and 4 bytes.
-__device__ __forceinline__ void copy_async16(float* dst, const float* src, uint64_t policy) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "l"(policy)
-               : "memory");
-}
-__device__ __forceinline__ void copy_async4(float* dst, const float* src, uint64_t policy) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global.L2::cache_hint [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "l"(policy)
-               : "memory");
-}
-__device__ __forceinline__ void copy_async_wait() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // i0 (clamped, as an int) and the fractional weight of a level's window.

@@ -3,8 +3,8 @@
 Each `anystereo_tpu_torch/csrc/<name>.cu` is compiled by `nvcc` for Hopper
 (`sm_90a`) into a shared library with a plain C interface, which is loaded
 with `ctypes`.  Libraries go to `build/kernels/` beside the package, keyed
-by a digest of the source and the flags, so an edited source is rebuilt and
-an unchanged one is reused.  Nothing here runs at import time.
+by a digest of the source, the shared headers (`csrc/*.cuh`) and the flags,
+so an edited source or header is rebuilt and an unchanged one is reused.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -45,8 +45,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    text = (CSRC / f"{name}.cu").read_bytes()
+    text += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

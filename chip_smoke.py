@@ -1607,12 +1607,13 @@ def phase_profile(torch, model):
     def forward():
         return model(left, right, iters=ITERS)
 
-    prof_wall, kernel_ms, kernel_n, table, named = _profiled(torch, forward)
-    parts = {"b1_fwd_ms": "pyr_aligned_fwd"}
+    from anystereo_tpu_torch.ops.kernels.lookup import gather_pyramid_aligned
+
+    parts = {"b1_fwd_ms": ("pyr_aligned_fwd", gather_pyramid_aligned)}
+    prof_wall, kernel_ms, kernel_n, table, sums = _profiled(torch, forward, parts)
     summary = {"stages_ms": totals, "stages_wall_ms": wall, "forward_wall_ms": prof_wall,
                "kernel_ms": kernel_ms, "kernel_launches": kernel_n,
-               "busy_share": kernel_ms / prof_wall,
-               **{key: _named_ms(named, part) for key, part in parts.items()}}
+               "busy_share": kernel_ms / prof_wall, **sums}
     if PARENT:
         summary["in_turns"] = _in_turns(torch, forward, parts)
     IN_PATH["eval forward"] = {k: summary[k] for k in (*parts, "in_turns") if k in summary}
@@ -1624,7 +1625,9 @@ def phase_profile(torch, model):
     _log(table)
 
 
-LOOKUP_PARTS = {"classify": ("b4_fwd_ms", "window_pm_fwd"), "levels": ("b7_fwd_ms", "window_linear_fwd")}
+# flavor -> (key, a part of the kernel's name, the wrapper's name)
+LOOKUP_PARTS = {"classify": ("b4_fwd_ms", "window_pm_fwd", "gather_pyramid_window_pm"),
+                "levels": ("b7_fwd_ms", "window_linear_fwd", "gather_window_linear")}
 
 
 def phase_profile_lookup(torch, kernels, model, core, flavor):
@@ -1632,7 +1635,8 @@ def phase_profile_lookup(torch, kernels, model, core, flavor):
     lookup flavor `flavor` through torch.profiler, after a warm-up, with its
     launches checked; the flavor's lookup kernel (`LOOKUP_PARTS`) summed
     inside it and, with --parent, in turns with the parent's kernel."""
-    key, part = LOOKUP_PARTS[flavor]
+    key, part, name = LOOKUP_PARTS[flavor]
+    parts = {key: (part, next(k for k in kernels if k.__name__ == name))}
     left, right = _images(torch, 1)
     want = dict.fromkeys((k.__name__ for k in kernels), 0)
     want.update(_lookup_counts(core, flavor, ITERS))
@@ -1643,12 +1647,12 @@ def phase_profile_lookup(torch, kernels, model, core, flavor):
     with _flavor(flavor):
         forward()
         before = _counts(kernels)
-        wall, kernel_ms, kernel_n, table, named = _profiled(torch, forward)
+        wall, kernel_ms, kernel_n, table, sums = _profiled(torch, forward, parts)
         _expect_launches(kernels, before, want, f"the profiled {core} eval forward ({flavor})")
         summary = {"forward_wall_ms": wall, "kernel_ms": kernel_ms, "kernel_launches": kernel_n,
-                   "busy_share": kernel_ms / wall, key: _named_ms(named, part)}
+                   "busy_share": kernel_ms / wall, **sums}
         if PARENT:
-            summary["in_turns"] = _in_turns(torch, forward, {key: part})
+            summary["in_turns"] = _in_turns(torch, forward, parts)
     IN_PATH[f"{core.upper()} eval forward ({flavor})"] = {
         k: summary[k] for k in (key, "in_turns") if k in summary}
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -1658,9 +1662,15 @@ def phase_profile_lookup(torch, kernels, model, core, flavor):
     _log(f"[profile] {core.upper()} eval forward ({flavor}): {json.dumps(summary)}; kernel table in {path}")
 
 
-def _profiled(torch, fn):
+def _profiled(torch, fn, parts=None):
     """Run `fn` under torch.profiler: (wall ms, summed kernel ms, kernel
-    launches, the table of kernels by device time, {kernel name: ms})."""
+    launches, the table of kernels by device time, {key: ms}).  `parts` maps
+    a key to (a part of a kernel's name, the wrapper that launches it): the
+    key's ms sums the kernels whose names hold the part, and their count
+    must equal the wrapper's launches in the run, so that a renamed, missed
+    or added kernel fails the run instead of changing the sum."""
+    parts = parts or {}
+    before = {key: wrapper.launches for key, (_, wrapper) in parts.items()}
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1668,32 +1678,37 @@ def _profiled(torch, fn):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     averages = prof.key_averages()
-    kernel_us, kernel_n, named = 0.0, 0, {}
+    kernel_us, kernel_n, named = 0.0, 0, {}  # kernel name -> [ms, count]
     for ev in averages:
         us = getattr(ev, "self_device_time_total", None)
         us = ev.self_cuda_time_total if us is None else us
         if us > 0:
             kernel_us, kernel_n = kernel_us + us, kernel_n + ev.count
-            named[ev.key] = named.get(ev.key, 0.0) + us / 1e3
-    return wall, kernel_us / 1e3, kernel_n, averages.table(sort_by="cuda_time_total", row_limit=40), named
-
-
-def _named_ms(named, part):
-    """Device ms of the kernels whose name holds `part`."""
-    return sum(ms for key, ms in named.items() if part in key)
+            ms_n = named.setdefault(ev.key, [0.0, 0])
+            ms_n[0], ms_n[1] = ms_n[0] + us / 1e3, ms_n[1] + ev.count
+    sums = {}
+    for key, (part, wrapper) in parts.items():
+        hits = [ms_n for name, ms_n in named.items() if part in name]
+        found, launched = sum(n for _, n in hits), wrapper.launches - before[key]
+        if found != launched or launched == 0:
+            raise AssertionError(f"{key}: {found} profiled kernels hold {part!r}, but "
+                                 f"{wrapper.__name__} launched {launched}")
+        sums[key] = sum(ms for ms, _ in hits)
+    return wall, kernel_us / 1e3, kernel_n, averages.table(sort_by="cuda_time_total", row_limit=40), sums
 
 
 def _in_turns(torch, fn, parts):
-    """{key: {"this": [ms, ms], "parent": [ms, ms]}}: the kernels whose names
-    hold `parts[key]`, summed over one run of `fn` under torch.profiler, in
+    """{key: {"this": [ms, ms], "parent": [ms, ms]}}: the kernels of
+    `parts[key]` (as `_profiled` takes them, their count checked against the
+    wrapper's launches), summed over one run of `fn` under torch.profiler, in
     turns this tree, parent, parent, this tree, with the parent's C entry
-    points swapped into the wrappers: each kernel inside the path, with L2 as
-    the path's other kernels leave it."""
+    points swapped into the wrappers (whose counts go on): each kernel inside
+    the path, with L2 as the path's other kernels leave it."""
     turns = {key: {"this": [], "parent": []} for key in parts}
     for who in ("this", "parent", "parent", "this"):
-        named = _profiled(torch, _as_parent(fn) if who == "parent" else fn)[4]
-        for key, part in parts.items():
-            turns[key][who].append(_named_ms(named, part))
+        sums = _profiled(torch, _as_parent(fn) if who == "parent" else fn, parts)[4]
+        for key in parts:
+            turns[key][who].append(sums[key])
     return turns
 
 
@@ -1755,14 +1770,20 @@ def phase_profile_train(torch, model, tcfg, state, step, batch):
         wall = (time.perf_counter() - t0) * 1e3
     stages = {"forward": e0.elapsed_time(e1), "backward": e1.elapsed_time(e2),
               "optimizer": e2.elapsed_time(e3)}
-    prof_wall, kernel_ms, kernel_n, table, named = _profiled(torch, lambda: step(state, batch))
+    from anystereo_tpu_torch.ops.kernels.gather import gather_rows, scatter_rows_add
+    from anystereo_tpu_torch.ops.kernels.lookup import (
+        gather_pyramid_aligned,
+        gather_pyramid_aligned_bwd,
+    )
+
     # B1 forward (32 launches a step) and backward (32), B2 (48), B3 (48)
-    parts = {"b1_fwd_ms": "pyr_aligned_fwd", "b1_bwd_ms": "pyr_aligned_bwd",
-             "b2_ms": "scatter_rows_add", "b3_ms": "gather_rows_fwd"}
+    parts = {"b1_fwd_ms": ("pyr_aligned_fwd", gather_pyramid_aligned),
+             "b1_bwd_ms": ("pyr_aligned_bwd", gather_pyramid_aligned_bwd),
+             "b2_ms": ("scatter_rows_add", scatter_rows_add), "b3_ms": ("gather_rows_fwd", gather_rows)}
+    prof_wall, kernel_ms, kernel_n, table, sums = _profiled(torch, lambda: step(state, batch), parts)
     summary = {"stages_ms": stages, "stages_wall_ms": wall, "step_wall_ms": prof_wall,
                "kernel_ms": kernel_ms, "kernel_launches": kernel_n,
-               "busy_share": kernel_ms / prof_wall,
-               **{key: _named_ms(named, part) for key, part in parts.items()}}
+               "busy_share": kernel_ms / prof_wall, **sums}
     if PARENT:
         summary["in_turns"] = _in_turns(torch, lambda: step(state, batch), parts)
     IN_PATH["training step"] = {k: summary[k] for k in (*parts, "in_turns") if k in summary}

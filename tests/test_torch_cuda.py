@@ -547,9 +547,11 @@ def test_window_pm_forward_unaligned_volume(card):
 
 # (rows, length): the eval GEV shapes (tiles of 32 rows a warp), the
 # training GEV's (16 rows), the eval and training correlation's (a thread a
-# tap), ragged last tiles and blocks
+# tap), ragged last tiles and blocks, and the edges of the tile heights on a
+# card of 132 SMs (67,553 rows the fewest for 32-row tiles, 33,777 for 16)
 _WL_CASES = [(239616, 48), (239616 + 3, 24), (51200 + 17, 48), (29952, 312), (29952, 39),
-             (6400, 80), (6401, 40), (100, 5), (1, 1242)]
+             (6400, 80), (6401, 40), (100, 5), (1, 1242),
+             (67553, 48), (67552, 48), (33777, 24), (33776, 24)]
 
 
 @pytest.mark.parametrize("rows,length", _WL_CASES)
@@ -579,8 +581,8 @@ def test_window_linear_forward_tiles(card, rows, length, positions):
 def test_window_linear_forward_other_taps(card, rows, taps):
     """Taps other than 9 take the kernels with a runtime count: at 70,001
     rows the warp tiles, with windows up to 94 entries (93 taps) through
-    shared memory and wider ones from device memory, at 3,001 a thread a
-    tap; all bit for bit the plain version, on a volume that starts off a
+    shared memory, and a thread a tap for wider windows and at 3,001 rows;
+    all bit for bit the plain version, on a volume that starts off a
     16-byte boundary."""
     g = torch.Generator(device=card).manual_seed(taps)
     flat = torch.randn(1 + rows * 130, device=card, generator=g)

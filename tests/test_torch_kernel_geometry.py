@@ -135,7 +135,7 @@ def test_plain_forward_on_rows_shorter_than_a_cell(levels):
 # from an entry the rule did not copy comes out NaN and differs from the
 # plain version.
 
-PM_ROWS, PM_SPAN, MAX_SHARED = 32, 128, 227 * 1024
+PM_ROWS, PM_SPAN = 32, 128
 INT_MAX, INT_MIN = 2 ** 31 - 1, -(2 ** 31)
 
 
@@ -284,28 +284,6 @@ def test_window_pm_staging_rule_reads_only_what_it_copied(rows, length, levels, 
         assert chunks == tiles and copied < 0.75 * vol_t.size  # about the windows, not whole rows
 
 
-def _pm_shared_bytes(chunk, levels, taps):
-    """`pm_shared_bytes`: the chunk, the tile's taps, each row's hull, the
-    tile's span and the next chunk's start, 4-byte words."""
-    return 4 * (chunk * PM_ROWS + PM_ROWS * levels * taps + 2 * PM_ROWS + 4)
-
-
-@pytest.mark.parametrize("levels", [1, 2, 3, 4, 5])
-def test_window_pm_shared_memory(levels):
-    """At the models' 9 taps a block of the pixel-major forward stays under
-    48 KB (no opt-in) and leaves room for many blocks an SM, on rows of any
-    length; the launch takes taps up to what 227 KB holds (337 at 5 levels
-    on rows of 128 entries or more, 346 on the training correlation's 80)."""
-    assert [_pm_chunk(n) for n in (5, 48, 80, 312)] == [16, 48, 80, 128]
-    worst = _pm_shared_bytes(PM_SPAN, levels, 9)
-    assert worst < 24 * 1024 and 9 * worst < MAX_SHARED
-    for length, table in ((312, {1: 1685, 2: 842, 3: 561, 4: 421, 5: 337}),
-                          (80, {1: 1733, 2: 866, 3: 577, 4: 433, 5: 346})):
-        chunk = _pm_chunk(length)
-        most = max(t for t in range(1, 4000) if _pm_shared_bytes(chunk, levels, t) <= MAX_SHARED)
-        assert most == table[levels]
-
-
 # ------------------------------------------------ the window linear forward (B7)
 #
 # `csrc/lookup_linear.cu:window_linear_fwd`: each warp owns a tile of 32 or
@@ -313,43 +291,10 @@ def test_window_pm_shared_memory(levels):
 # taps+1 entries from floor(base) (zeros outside [0, L)), is staged once in
 # the warp's shared memory and the tile's taps are formed from it in output
 # order.  A block holds 4 warps and at most 48 KB, so windows of up to 94
-# entries are staged.  Fewer rows than 16-row tiles need take a thread a
-# tap (`window_linear_fwd_taps`), the plain version's own order.
-
-WIN_WARPS, WIN_STAGED, H100_SMS = 4, 94, 132
-
-
-def _win_words(tile, span):
-    return tile * (2 + span)
-
-
-def _window_tile(rows, sms=H100_SMS):
-    for tile in (32, 16):
-        if -(-rows // tile) >= 16 * sms:
-            return tile
-    return 0
-
-
-def test_window_linear_staging_capacity():
-    """The widest staged window fills a block's 48 KB at 32-row tiles
-    without the opt-in; the models' 9 taps take 6 KB a block."""
-    assert WIN_WARPS * 4 * _win_words(32, WIN_STAGED) <= 48 * 1024 < WIN_WARPS * 4 * _win_words(32, WIN_STAGED + 1)
-    assert WIN_WARPS * 4 * _win_words(32, 10) == 6144
-
-
-@pytest.mark.parametrize("rows,tile", [
-    (239616, 32),              # the eval GEV rows: 7,488 warps
-    (51200, 16),               # the training GEV rows: 3,200 warps
-    (29952, 0), (6400, 0),     # the eval and training correlation rows: a thread a tap
-    (9, 0),                    # a handful
-    (67553, 32), (67552, 16), (33777, 16), (33776, 0),  # the edges at 132 SMs
-])
-def test_window_linear_tile_rows(rows, tile):
-    """A warp of the window forward takes 32 rows, or 16 where 32 leaves an
-    SM of an H100 fewer than 16 warps; where 16 does too, a thread takes a
-    tap."""
-    assert _window_tile(rows) == tile
-
+# entries are staged.  Fewer rows than 16-row tiles need, and wider
+# windows, take a thread a tap (`window_linear_fwd_taps`), the plain
+# version's own order.  The card tests (`test_torch_cuda.py`) take the tile
+# heights' edges at 132 SMs and the widest staged window.
 
 def _mirror_window_linear(vol, base, taps, tile):
     """The kernel's staging and tap order in numpy fp32."""
