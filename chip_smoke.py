@@ -13,17 +13,20 @@
                                       # IGEV and RAFT eval forwards under
                                       # "classify", the window linear
                                       # lookup's inside the IGEV one under
-                                      # "levels"
+                                      # "levels", and its forward and
+                                      # backward inside the IGEV training
+                                      # step under "levels"
     python3 chip_smoke.py --spread    # and the run-to-run spread of the fp32
                                       # gradients with and without cuDNN's
                                       # deterministic algorithms
     python3 chip_smoke.py --parent DIR
                                       # and, in the kernels phase, the aligned
                                       # lookup's forward and backward, the
-                                      # row gather, the scatter-add and the
+                                      # row gather, the scatter-add, the
                                       # forwards of the window-pyramid and
-                                      # window linear lookups as the
-                                      # checkout at DIR builds them (an
+                                      # window linear lookups and the
+                                      # backwards of the linear lookups as
+                                      # the checkout at DIR builds them (an
                                       # earlier commit): held to this tree's
                                       # (all but the scatter bit for bit) and
                                       # timed beside them, in turns (with
@@ -53,7 +56,8 @@ Phases (any failure raises, and the exit code is not 0):
            (375 rows of 1242 positions) and at 300 x 312 x 9, each beside
            `grid_sample` (forward) and `grid_sampler_2d_backward`, the one
            PyTorch call that computes the same lerp (the window forward also
-           at path-shaped starts, with `floor_ms` and the read-flush time).
+           at path-shaped starts; it and both backwards with `floor_ms` and
+           the read-flush time).
            The aligned
            lookup's forward is held and timed at uniformly random positions
            and at path-shaped ones (a smooth disparity field), beside a
@@ -650,6 +654,27 @@ def _window_beside(torch, res, what, fwd, ref, starts, one, bytes_path):
          f"ms{parent}")
 
 
+def _backward_beside(torch, res, what, bwd, check, one):
+    """A redesigned backward (B7's or B8's) beyond the common timing: `bwd()`
+    launches it at the timing's inputs, `check()` at the check's (far
+    positions and collisions), `one()` on one row.  With --parent held to
+    the parent's kernel bit for bit at both and timed in turns with it;
+    timed after the read flush and on one row."""
+    if PARENT:
+        for fn in (check, bwd):
+            if not torch.equal(fn(), _as_parent(fn)()):
+                raise AssertionError(f"{what} {res['call']}: differs from the parent's kernel")
+        res["equal_to_parent"] = True
+        _beside_parent(torch, res, "ms", bwd)
+    res["ms_clean"] = _time_ms(torch, bwd, read_flush=True)
+    res["floor_ms"] = _time_ms(torch, one)
+    parent = "" if not PARENT else (
+        f"; parent {res['parent_ms']} / this tree {res['ms_beside_parent']} ms in turns, equal to "
+        f"the parent's output bit for bit")
+    _log(f"[kernels] {what} {res['call']}: read flush {res['ms_clean']:.4f} ms, floor "
+         f"{res['floor_ms']:.4f} ms{parent}")
+
+
 def _kernels_hybrid(torch):
     """`gather_rows_hybrid` (plain indexing forward, scatter-add kernel
     backward): nothing dispatches to it; it stays a public function, as in
@@ -964,6 +989,10 @@ def _kernels_linear(torch):
             lambda: tl.gather_window_linear_bwd(base_main, cot, length, TAPS),
             lambda: tl.gather_window_linear_bwd_ref(base_main, cot, length, TAPS),
             4 * rows * (1 + TAPS + length), 4 * rows * (TAPS + 1), lib_bwd))
+        _backward_beside(torch, res_b, "gather_window_linear_bwd",
+                         lambda: tl.gather_window_linear_bwd(base_main, cot, length, TAPS),
+                         lambda: tl.gather_window_linear_bwd(base, cot, length, TAPS),
+                         lambda: tl.gather_window_linear_bwd(base_main[:1], cot[:1], length, TAPS))
         del vol, cot, lib_fwd, lib_bwd
 
     # arbitrary positions: the evaluator's occlusion warp, and the small op shape
@@ -1009,6 +1038,10 @@ def _kernels_linear(torch):
             res_b, "gather_rows_linear_bwd", lambda: tl.gather_rows_linear_bwd(pos_main, cot, length),
             lambda: tl.gather_rows_linear_bwd_ref(pos_main, cot, length),
             4 * rows * (2 * taps + length), 5 * rows * taps, lib_bwd))
+        _backward_beside(torch, res_b, "gather_rows_linear_bwd",
+                         lambda: tl.gather_rows_linear_bwd(pos_main, cot, length),
+                         lambda: tl.gather_rows_linear_bwd(pos, cot, length),
+                         lambda: tl.gather_rows_linear_bwd(pos_main[:1], cot[:1], length))
         del vol, cot, unit, lib_fwd, lib_bwd
     # one IGEV iteration's four launches: the forward's at the eval shapes, the
     # backward's at the training shapes (the one path that runs it)
@@ -1731,9 +1764,9 @@ def _beside_parent_line(records):
             "gather_pyramid_window_pm": ("B4", lambda c: c["call"], common + path + ("ms_clean",)),
             "gather_window_linear": ("B7", lambda c: c["call"], common + path + (
                 "ms_clean", "library_ms", "library_err")),
-            "gather_window_linear_bwd": ("B7 bwd", lambda c: c["call"], library),
+            "gather_window_linear_bwd": ("B7 bwd", lambda c: c["call"], common + clean + library),
             "gather_rows_linear": ("B8", lambda c: c["call"], library),
-            "gather_rows_linear_bwd": ("B8 bwd", lambda c: c["call"], library)}
+            "gather_rows_linear_bwd": ("B8 bwd", lambda c: c["call"], common + clean + library)}
     out = {"launch": r(YARDSTICK)}
     for rec in records:
         if rec["name"] in keys:
@@ -1745,9 +1778,31 @@ def _beside_parent_line(records):
     return "[beside parent] " + json.dumps(out, separators=(",", ":"))
 
 
-def phase_profile_train(torch, model, tcfg, state, step, batch):
+def _train_parts(flavor):
+    """{key: (a part of a kernel's name, its wrapper)} of the kernels that
+    `phase_profile_train` sums inside a training step under `flavor`:
+    "aligned": B1 forward (32 launches a step) and backward (32), B2 (48),
+    B3 (48); "levels": B7 forward (64) and backward (64)."""
+    from anystereo_tpu_torch.ops.kernels import lookup_linear as tl
+    from anystereo_tpu_torch.ops.kernels.gather import gather_rows, scatter_rows_add
+    from anystereo_tpu_torch.ops.kernels.lookup import (
+        gather_pyramid_aligned,
+        gather_pyramid_aligned_bwd,
+    )
+
+    if flavor == "levels":
+        return {"b7_fwd_ms": ("window_linear_fwd", tl.gather_window_linear),
+                "b7_bwd_ms": ("window_linear_bwd", tl.gather_window_linear_bwd)}
+    return {"b1_fwd_ms": ("pyr_aligned_fwd", gather_pyramid_aligned),
+            "b1_bwd_ms": ("pyr_aligned_bwd", gather_pyramid_aligned_bwd),
+            "b2_ms": ("scatter_rows_add", scatter_rows_add), "b3_ms": ("gather_rows_fwd", gather_rows)}
+
+
+def phase_profile_train(torch, model, tcfg, state, step, batch, flavor="aligned"):
     """Stream time of the forward, the backward and the optimizer of one
-    training step (CUDA events), then the whole step under torch.profiler."""
+    training step (CUDA events) under the lookup flavor `flavor`, then the
+    whole step under torch.profiler with the kernels of `_train_parts`
+    summed inside it (with --parent in turns with the parent's)."""
     from anystereo_tpu_torch.train.step import loss_and_metrics
 
     def ev():
@@ -1755,43 +1810,38 @@ def phase_profile_train(torch, model, tcfg, state, step, batch):
         e.record()
         return e
 
-    for _ in range(2):  # the second pass is the one kept
-        state.optimizer.zero_grad()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        e0 = ev()
-        loss, _ = loss_and_metrics(model, tcfg, batch)
-        e1 = ev()
-        loss.backward()
-        e2 = ev()
-        state.optimizer.step()
-        e3 = ev()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+    parts = _train_parts(flavor)
+    with _flavor(flavor):
+        for _ in range(2):  # the second pass is the one kept
+            state.optimizer.zero_grad()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e0 = ev()
+            loss, _ = loss_and_metrics(model, tcfg, batch)
+            e1 = ev()
+            loss.backward()
+            e2 = ev()
+            state.optimizer.step()
+            e3 = ev()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        prof_wall, kernel_ms, kernel_n, table, sums = _profiled(torch, lambda: step(state, batch), parts)
+        turns = _in_turns(torch, lambda: step(state, batch), parts) if PARENT else None
     stages = {"forward": e0.elapsed_time(e1), "backward": e1.elapsed_time(e2),
               "optimizer": e2.elapsed_time(e3)}
-    from anystereo_tpu_torch.ops.kernels.gather import gather_rows, scatter_rows_add
-    from anystereo_tpu_torch.ops.kernels.lookup import (
-        gather_pyramid_aligned,
-        gather_pyramid_aligned_bwd,
-    )
-
-    # B1 forward (32 launches a step) and backward (32), B2 (48), B3 (48)
-    parts = {"b1_fwd_ms": ("pyr_aligned_fwd", gather_pyramid_aligned),
-             "b1_bwd_ms": ("pyr_aligned_bwd", gather_pyramid_aligned_bwd),
-             "b2_ms": ("scatter_rows_add", scatter_rows_add), "b3_ms": ("gather_rows_fwd", gather_rows)}
-    prof_wall, kernel_ms, kernel_n, table, sums = _profiled(torch, lambda: step(state, batch), parts)
     summary = {"stages_ms": stages, "stages_wall_ms": wall, "step_wall_ms": prof_wall,
                "kernel_ms": kernel_ms, "kernel_launches": kernel_n,
                "busy_share": kernel_ms / prof_wall, **sums}
-    if PARENT:
-        summary["in_turns"] = _in_turns(torch, lambda: step(state, batch), parts)
-    IN_PATH["training step"] = {k: summary[k] for k in (*parts, "in_turns") if k in summary}
+    if turns is not None:
+        summary["in_turns"] = turns
+    label = "training step" if flavor == "aligned" else f"training step ({flavor})"
+    IN_PATH[label] = {k: summary[k] for k in (*parts, "in_turns") if k in summary}
     os.makedirs(OUT_DIR, exist_ok=True)
-    path = os.path.join(OUT_DIR, "profile_train.txt")
+    name = "profile_train.txt" if flavor == "aligned" else f"profile_train_{flavor}.txt"
+    path = os.path.join(OUT_DIR, name)
     with open(path, "w") as f:
         f.write(json.dumps(summary) + "\n" + table)
-    _log(f"[profile] training step: {json.dumps(summary)}; kernel table in {path}")
+    _log(f"[profile] {label}: {json.dumps(summary)}; kernel table in {path}")
     _log(table)
 
 
@@ -1863,6 +1913,8 @@ def main(argv) -> int:
     del trained
     torch.cuda.empty_cache()
     by_path["train_levels"], trained = phase_train(torch, kernels, "igev", "levels", steps=1)
+    if profile:
+        phase_profile_train(torch, *trained, flavor="levels")
     del trained
     torch.cuda.empty_cache()
     phase_check(torch, kernels)

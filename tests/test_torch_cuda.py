@@ -677,6 +677,84 @@ def test_window_linear_kernels_match_plain_versions_exactly(card, rows, length):
                                rtol=1e-5, atol=1e-5)
 
 
+def _warp_positions(card, rows, length, taps, g):
+    """x - disparity over `taps` columns spread across the row, as the
+    occlusion warp forms it: not monotone where the disparity jumps."""
+    x = torch.arange(taps, device=card, dtype=torch.float32) * (length / taps)
+    return (x - torch.rand(rows, taps, device=card, generator=g) * 60).contiguous()
+
+
+@pytest.mark.parametrize("rows,length,taps,positions", [
+    (3, 5000, 700, "random"),     # a row longer than one block's range: 8 ranges of 625
+    (7, 5000, 9000, "warp"),      # and K over several chunks of 1,280
+    (40, 300, 4000, "random"),    # K over several chunks, K > L
+    (1, 1242, 1242, "warp"),      # a single row
+    (375, 1242, 1242, "warp"),    # the occlusion warp's shape
+    (300, 312, 9, "random"),      # a row of 32 taps or fewer is walked, not sorted
+    (50, 700, 33, "random"),      # two groups, each its own warp
+    (64, 1281, 1300, "random"),   # a chunk of 1,280, then one of 20
+    (5, 1, 40, "random"),
+])
+def test_rows_linear_backward_sort_edges(card, rows, length, taps, positions):
+    """The redesigned rows backward (a stable bucket sort of each row's taps
+    by entry, then a merge by k) equals its plain version bit for bit with
+    one launch, at ranges that split a row, chunks that carry the sum, a
+    single row and non-monotone warp positions; as the gradient of
+    `gather_rows_linear` too."""
+    g = torch.Generator(device=card).manual_seed(rows + length + taps)
+    if positions == "warp":
+        pos = _warp_positions(card, rows, length, taps, g)
+    else:
+        pos = torch.rand(rows, taps, device=card, generator=g) * (length + 8) - 4
+    pos[0, : min(taps, 4)] = torch.tensor(_LINEAR_FAR, device=card)[: min(taps, 4)]
+    if rows > 1:
+        pos[1] = 2.25  # every tap of the row on one entry
+    cot = torch.randn(rows, taps, device=card, generator=g)
+    before = tl.gather_rows_linear_bwd.launches
+    dgot = tl.gather_rows_linear_bwd(pos, cot, length)
+    dwant = tl.gather_rows_linear_bwd_ref(pos, cot, length)
+    torch.cuda.synchronize()
+    assert tl.gather_rows_linear_bwd.launches == before + 1
+    assert dgot.shape == (rows, length) and torch.equal(dgot, dwant)
+    vol = torch.randn(rows, length, device=card, generator=g, requires_grad=True)
+    tl.gather_rows_linear(vol, pos).backward(cot)
+    assert tl.gather_rows_linear_bwd.launches == before + 2 and torch.equal(vol.grad, dwant)
+
+
+# the window backward's tiles: 32 rows from 67,553 rows on a card of 132 SMs,
+# 16 from 33,777, 8 from 16,889, else 4; ragged last tiles and fewer rows
+# than one tile; L % 4 != 0
+_WLB_CASES = [(239616, 48, 9), (239616 + 3, 24, 9), (51200, 48, 9), (51200 + 17, 24, 9),
+              (29952, 312, 9), (29952 + 1, 156, 9), (29953, 39, 9), (6400, 80, 9), (6401, 40, 9),
+              (67553, 48, 9), (67552, 48, 9), (33777, 24, 9), (16889, 78, 9), (16888, 78, 9),
+              (3, 48, 9), (1, 1242, 9), (100, 5, 9), (70, 3, 9),
+              (3001, 130, 1), (70001, 130, 5), (3001, 130, 17), (70001, 39, 17), (3001, 130, 93),
+              (2000, 900, 766), (2000, 900, 767), (50, 300, 2000)]
+
+
+@pytest.mark.parametrize("rows,length,taps", _WLB_CASES)
+def test_window_linear_backward_tiles(card, rows, length, taps):
+    """The redesigned window backward (a warp a tile of rows, coefficients
+    formed once, dvol stored four entries at a time; a warp a row for windows
+    wider than 767 entries) equals its plain version bit for bit with one
+    launch, far starts included; as the gradient of `gather_window_linear`
+    too."""
+    g = torch.Generator(device=card).manual_seed(rows + length + taps)
+    base = torch.rand(rows, device=card, generator=g) * (length + taps + 9) - taps - 4
+    base[: min(rows, 4)] = torch.tensor(_LINEAR_FAR, device=card)[: min(rows, 4)]
+    cot = torch.randn(rows, taps, device=card, generator=g)
+    before = tl.gather_window_linear_bwd.launches
+    dgot = tl.gather_window_linear_bwd(base, cot, length, taps)
+    dwant = tl.gather_window_linear_bwd_ref(base, cot, length, taps)
+    torch.cuda.synchronize()
+    assert tl.gather_window_linear_bwd.launches == before + 1
+    assert dgot.shape == (rows, length) and torch.equal(dgot, dwant)
+    assert not dgot[: min(rows, 4)].any()
+    vol = torch.randn(rows, length, device=card, generator=g, requires_grad=True)
+    tl.gather_window_linear(vol, base, taps).backward(cot)
+    assert tl.gather_window_linear_bwd.launches == before + 2 and torch.equal(vol.grad, dwant)
+
+
 def test_linear_lookups_are_differentiable_through_the_kernels(card):
     g = torch.Generator(device=card).manual_seed(2)
     vol = torch.randn(2048, 80, device=card, generator=g, requires_grad=True)

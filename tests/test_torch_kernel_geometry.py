@@ -336,6 +336,216 @@ def test_window_linear_staging_matches_plain(rows, length, taps):
         np.testing.assert_array_equal(_mirror_window_linear(vol, base, taps, tile), want)
 
 
+# ------------------------------------------------ the window linear backward (B7)
+#
+# `csrc/lookup_linear.cu:window_linear_bwd`: each warp owns a tile of 32,
+# 16, 8 or 4 rows; its lanes form each row's taps + 1 coefficients once,
+# (1 - f)*g_j + f*g_{j-1} with the absent terms left out, then write the
+# tile's tile*L entries of dvol (contiguous) four at a time, each lane
+# stepping its (row, l) by 128 entries, and a scalar tail.  The mirror
+# writes into a NaN-filled dvol and counts each entry's writes, so an entry
+# missed or written twice shows.
+
+def _mirror_window_linear_bwd(base, g, length, taps, tile):
+    """(dvol [R, L], writes [R*L]) of the kernel's coefficient table and
+    store order, in numpy fp32."""
+    rows, span = base.shape[0], taps + 1
+    dvol = np.full(rows * length, np.nan, np.float32)
+    writes = np.zeros(rows * length, np.int64)
+    one = np.float32(1)
+    for r0 in range(0, rows, tile):
+        nrows = min(tile, rows - r0)
+        starts = np.zeros(nrows, np.int64)
+        coeff = np.full(nrows * span, np.nan, np.float32)
+        for i in range(nrows * span):
+            row, j = divmod(i, span)
+            b = base[r0 + row]
+            f0 = np.floor(b)
+            f = b - f0
+            i0 = int(np.clip(f0, np.float32(-(taps + 1)), np.float32(length)))
+            if j == 0:
+                starts[row] = i0
+            c = np.float32(0)
+            if j < taps:
+                c = (one - f) * g[r0 + row, j]
+            if j >= 1:
+                c = c + f * g[r0 + row, j - 1]
+            coeff[i] = c
+
+        def entry(row, l):
+            j = l - starts[row]
+            return coeff[row * span + j] if 0 <= j <= taps else np.float32(0)
+
+        total, dst = nrows * length, r0 * length
+        step_rows = 128 // length
+        step_l = 128 - step_rows * length
+        for lane in range(32):
+            row, l = divmod(4 * lane, length)
+            for v in range(lane, total // 4, 32):
+                rr, ll = row, l
+                for q in range(4):
+                    dvol[dst + 4 * v + q] = entry(rr, ll)
+                    writes[dst + 4 * v + q] += 1
+                    ll += 1
+                    if ll == length:
+                        ll, rr = 0, rr + 1
+                row, l = row + step_rows, l + step_l
+                if l >= length:
+                    l, row = l - length, row + 1
+        for e in range(total & ~3, total):
+            row = e // length
+            dvol[dst + e] = entry(row, e - row * length)
+            writes[dst + e] += 1
+    return dvol.reshape(rows, length), writes
+
+
+@pytest.mark.parametrize("rows,length,taps", [(70, 48, 9), (70, 39, 9), (45, 78, 9), (40, 312, 9),
+                                              (70, 48, 1), (70, 39, 17), (33, 78, 17), (70, 3, 9)])
+def test_window_linear_backward_tiles_match_plain(rows, length, taps):
+    """The coefficient table and the tiled, vectorised store order, mirrored
+    in numpy fp32 with tiles of 4, 16 and 32 rows (a ragged last tile at
+    every height), write every entry once and equal the plain version bit
+    for bit, far starts and windows that hang over either end included."""
+    from anystereo_tpu_torch.ops.kernels.lookup_linear import gather_window_linear_bwd_ref
+
+    rng = np.random.default_rng(rows * length + taps)
+    base = rng.uniform(-taps - 3, length + 3, rows).astype(np.float32)
+    base[:4] = np.array([-3e9, 3e9, -1e6, 1e6], np.float32)
+    base[4], base[5] = np.float32(-1.0), np.float32(length - taps)
+    g = rng.standard_normal((rows, taps)).astype(np.float32)
+    want = gather_window_linear_bwd_ref(torch.from_numpy(base), torch.from_numpy(g), length, taps).numpy()
+    for tile in (4, 16, 32):
+        got, writes = _mirror_window_linear_bwd(base, g, length, taps, tile)
+        assert (writes == 1).all()
+        np.testing.assert_array_equal(got, want)
+        assert not got[:4].any()
+
+
+# ------------------------------------------------ the rows linear backward (B8)
+#
+# `csrc/lookup_linear.cu:rows_linear_bwd`: a block takes a range of at most
+# ROWS_SPAN entries of one row (at most ROWS_THREADS where every chunk is
+# walked; longer rows split into equal ranges) and
+# the row's taps ROWS_CHUNK at a time.  A tap's bucket is b = i0 - e0 + 1
+# (none if neither half lands in the range).  Each chunk of a row of more
+# than ROWS_WALK taps is sorted: its groups of 32 taps are split into runs, one
+# for each of the block's first min(8, groups) warps; each warp counts its
+# taps by bucket; a scan over (bucket, warp) gives each warp its first slot
+# in each bucket; each warp places its taps, a tap's rank in its group the
+# number of lower lanes with its bucket (`__match_any_sync`); entry el
+# merges bucket el (upper halves) and bucket el + 1 (lower halves) by k
+# into its running sum, carried from chunk to chunk.  A row of at most
+# ROWS_WALK taps is walked by each entry in ascending k.
+
+ROWS_CHUNK, ROWS_SPAN, ROWS_WALK, ROWS_THREADS = 1280, 640, 32, 256
+ROWS_WARPS = ROWS_THREADS // 32
+
+
+def _mirror_rows_linear_bwd(pos, g, length, chunk=ROWS_CHUNK, max_span=ROWS_SPAN):
+    """The kernel's walk, sort and merge in numpy fp32: dvol [R, L] (NaN
+    where no range wrote)."""
+    rows, taps = pos.shape
+    widest = min(max_span, ROWS_THREADS) if taps <= ROWS_WALK else max_span  # walked: an entry a thread
+    ranges = -(-length // widest)
+    span = -(-length // ranges)
+    dvol = np.full((rows, length), np.nan, np.float32)
+    one = np.float32(1)
+    for r in range(rows):
+        for e0 in range(0, length, span):
+            entries = min(span, length - e0)
+            buckets = entries + 1
+            acc = np.zeros(entries, np.float32)
+            for k0 in range(0, taps, chunk):
+                n = min(chunk, taps - k0)
+                p, gv = pos[r, k0:k0 + n], g[r, k0:k0 + n]
+                f0 = np.floor(p)
+                w = p - f0
+                b = np.clip(f0, np.float32(-2), np.float32(length)).astype(np.int64) - e0 + 1
+                bucket = np.where((b >= 0) & (b <= entries), b, -1)
+                lower, upper = gv * (one - w), gv * w
+                if taps <= ROWS_WALK:  # one chunk
+                    for el in range(entries):
+                        for i in range(n):
+                            if bucket[i] == el + 1:
+                                acc[el] = acc[el] + lower[i]
+                            elif bucket[i] == el:
+                                acc[el] = acc[el] + upper[i]
+                    continue
+                groups = -(-n // 32)
+                sorters = min(ROWS_WARPS, groups)
+                per_warp = -(-groups // sorters)
+                runs = [range(min(groups, v * per_warp), min(groups, v * per_warp + per_warp))
+                        for v in range(sorters)]
+                slot = np.zeros((sorters, buckets), np.int64)
+                for v, run in enumerate(runs):
+                    for i in (i for grp in run for i in range(grp * 32, min(n, grp * 32 + 32))):
+                        if bucket[i] >= 0:
+                            slot[v, bucket[i]] += 1
+                start = np.zeros(buckets + 1, np.int64)
+                nxt = 0
+                for bk in range(buckets):
+                    start[bk] = nxt
+                    for v in range(sorters):
+                        slot[v, bk], nxt = nxt, nxt + slot[v, bk]
+                start[buckets] = nxt
+                order = np.full(n, -1, np.int64)
+                for v, run in enumerate(runs):
+                    for grp in run:
+                        lanes = [(lane, bucket[grp * 32 + lane]) for lane in range(32)
+                                 if grp * 32 + lane < n and bucket[grp * 32 + lane] >= 0]
+                        for lane, bk in lanes:
+                            rank = sum(1 for other, ob in lanes if ob == bk and other < lane)
+                            order[slot[v, bk] + rank] = grp * 32 + lane
+                        for bk in {bk for _, bk in lanes}:
+                            slot[v, bk] += sum(1 for _, ob in lanes if ob == bk)
+                live = np.flatnonzero(bucket >= 0)
+                # the placement is a permutation of the live taps, sorted by bucket
+                assert sorted(order[:nxt]) == list(live) and (order[nxt:] == -1).all()
+                assert (np.diff(bucket[order[:nxt]]) >= 0).all()
+                for el in range(entries):
+                    a, bi, mid, end = start[el], start[el + 1], start[el + 1], start[el + 2]
+                    while a < mid or bi < end:
+                        if bi == end or (a < mid and order[a] < order[bi]):
+                            acc[el] = acc[el] + upper[order[a]]
+                            a += 1
+                        else:
+                            acc[el] = acc[el] + lower[order[bi]]
+                            bi += 1
+            dvol[r, e0:e0 + entries] = acc
+    return dvol
+
+
+@pytest.mark.parametrize("rows,length,taps,chunk,max_span,positions", [
+    (4, 40, 150, 64, ROWS_SPAN, "random"),   # K > chunk and K > L: three chunks, the last of 22
+    (4, 40, 150, 64, 16, "random"),          # and ranges of 14 entries split each row
+    (3, 45, 9, ROWS_CHUNK, 16, "random"),    # a short row split in three, its 9 taps walked
+    (3, 600, 20, ROWS_CHUNK, ROWS_SPAN, "random"),  # walked: three ranges of 200, one entry a thread
+    (3, 78, 2500, ROWS_CHUNK, ROWS_SPAN, "random"),  # the card test's K > L, two chunks
+    (3, 1242, 1242, ROWS_CHUNK, ROWS_SPAN, "warp"),  # the occlusion warp's row: two ranges
+    (3, 300, 600, 100, 128, "warp"),         # x - disparity, not monotone, across chunks and ranges
+])
+def test_rows_linear_backward_sort_matches_plain(rows, length, taps, chunk, max_span, positions):
+    """The chunked stable bucket sort and the two-list merge, mirrored in
+    numpy fp32, place every live tap once and equal the plain version bit
+    for bit: a row with all its taps on one entry, i0 at -2, -1, L-1 and L,
+    far positions (+-1e6, +-3e9) and non-monotone warp positions included."""
+    from anystereo_tpu_torch.ops.kernels.lookup_linear import gather_rows_linear_bwd_ref
+
+    rng = np.random.default_rng(rows * length + taps + chunk)
+    if positions == "warp":  # x - disparity, as `warp_disparity` forms it
+        disp = rng.uniform(0, 60, (rows, taps)).astype(np.float32)
+        pos = (np.arange(taps, dtype=np.float32) * np.float32(length / taps) - disp).astype(np.float32)
+        assert (np.diff(pos, axis=1) < 0).any()
+    else:
+        pos = rng.uniform(-4, length + 4, (rows, taps)).astype(np.float32)
+    pos[0, :8] = np.array([-3e9, 3e9, -1e6, 1e6, -1.5, -0.5, length - 0.5, length + 0.25], np.float32)
+    pos[1] = np.float32(2.25)  # every tap of the row on one entry
+    g = rng.standard_normal((rows, taps)).astype(np.float32)
+    got = _mirror_rows_linear_bwd(pos, g, length, chunk, max_span)
+    want = gather_rows_linear_bwd_ref(torch.from_numpy(pos), torch.from_numpy(g), length).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
 # --------------------------------------- the library column of B7 and B8
 
 @pytest.mark.parametrize("rows,length,taps,window", [(500, 48, 9, True), (300, 312, 9, True),
