@@ -24,9 +24,27 @@
 // TPU bodies form every tap as a masked sum over all 128-padded lanes of the
 // row, in tiles of 256 rows, because a lane cannot index; here only the
 // entries some tap needs are read.
-//   - rows forward: a thread per output element, k fastest, so the loads of
-//     pos and the stores coalesce; the rows' loads stay inside one row (a
-//     few KB, served by L1/L2);
+//   - rows forward (B8, the evaluator's left-right occlusion warp, one
+//     launch a frame at 375 x 1242 x 1242): a thread an output element paid
+//     a 64-bit division, a load of its position and then, dependent on it,
+//     two scalar loads from the row: two round trips to device memory in a
+//     row, 8.6 us against a bound of 1.6 on the H100, ~5 of it the launch.
+//     So a block owns a row and a range of its taps (equal ranges of at most
+//     4*kThreads*kRowsFwdVecs, a multiple of 4; the occlusion row is one):
+//     it copies the row into shared memory by cp.async, 16 bytes a copy
+//     between a 4-byte head and tail (the row placed at the same offset
+//     within 16 bytes as in `vol`, so that both ends of each copy are
+//     aligned), and while the copies fly each thread loads its positions as
+//     float4s; one round trip, then the taps from shared memory with 32-bit
+//     indices and no division, and float4 stores.  Positions and output take
+//     16-byte vectors where they share their offset within 16 bytes, with a
+//     scalar head and tail, and scalars where not.  The occlusion call is
+//     then at the launch and its bytes (the time after a flush that leaves
+//     L2 clean is 1 us shorter), level with the old kernel.  Rows longer
+//     than kRowsStaged entries, and rows with fewer than a quarter as many
+//     taps as entries, keep a thread an element (`rows_linear_fwd_taps`):
+//     there the copy reads far more than the taps do, and staging lost on
+//     the H100 (4.5x at 30,000 x 48 x 9, 15% at 3,000 x 312 x 64);
 //   - window forward (B7, the "levels" flavor's lookup): a thread per
 //     output element, as the rows forward, paid a 64-bit division, a reload
 //     of base[r] and its floor for each of a row's taps, and loaded each
@@ -110,6 +128,8 @@ constexpr int kRowsChunk = 1280;  // taps of a row the rows backward sorts at a 
 constexpr int kRowsSpan = 640;    // entries of a row one block of it covers (28 KB in all)
 constexpr int kRowsWalk = 32;     // a row of at most this many taps is walked, not sorted
 constexpr int kRowsBlocksPerSM = 6;  // blocks of it an SM holds: 40 registers a thread at most
+constexpr int kRowsStaged = 8192;   // the longest row the rows forward stages (32 KB)
+constexpr int kRowsFwdVecs = 2;     // float4s of positions a thread of it holds
 constexpr int kWinWarps = 4;        // warps a block of the window forward / backward holds
 constexpr int kWinWarpsPerSM = 16;  // warps a tile height must give each SM
 constexpr int kWinStaged = 94;      // the widest window (taps + 1) it stages: 48 KB a block
@@ -138,9 +158,76 @@ __device__ __forceinline__ float lerp_rn(float lower, float upper, float w) {
 
 // ---- arbitrary positions ----
 
+// The tap at position p of a row staged in `row` (shared memory).
+__device__ __forceinline__ float staged_tap(const float* row, float p, int length) {
+  const float f0 = floorf(p);
+  const float w = __fsub_rn(p, f0);
+  const int i0 = (int)fminf(fmaxf(f0, -2.0f), (float)length);
+  const float lower = (i0 >= 0 && i0 < length) ? row[i0] : 0.0f;
+  const float upper = (i0 + 1 >= 0 && i0 + 1 < length) ? row[i0 + 1] : 0.0f;
+  return lerp_rn(lower, upper, w);
+}
+
+// grid (rows, ranges of `span` taps, span a multiple of 4 and at most
+// 4 * kThreads * kRowsFwdVecs): block -> taps [k0, k0 + span) of row
+// blockIdx.x.  `vec`: pos and out share their offset within 16 bytes
+// (float4 loads and stores).
 __global__ void __launch_bounds__(kThreads)
 rows_linear_fwd(const float* __restrict__ vol, const float* __restrict__ pos,
-                float* __restrict__ out, int64_t rows, int length, int taps) {
+                float* __restrict__ out, int length, int taps, int span, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  const int64_t r = blockIdx.x;
+  const float* src = vol + r * length;
+  // the row at the same offset within 16 bytes as in `vol`: a head of up to
+  // 3 entries, then 16-byte copies with both ends aligned, then a tail
+  const int shift = (int)((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
+  float* row = smem + shift;
+  const int head = min(length, (4 - shift) & 3);
+  const int vecs = (length - head) / 4;
+  const uint64_t policy = evict_first();
+  if ((int)threadIdx.x < head) copy_async4(row + threadIdx.x, src + threadIdx.x, policy);
+  for (int v = threadIdx.x; v < vecs; v += kThreads)
+    copy_async16(row + head + 4 * v, src + head + 4 * v, policy);
+  for (int i = head + 4 * vecs + threadIdx.x; i < length; i += kThreads)
+    copy_async4(row + i, src + i, policy);
+  // this block's taps: a scalar head up to the first 16-byte boundary, up
+  // to kRowsFwdVecs float4s a thread (loaded before the wait), a scalar
+  // tail; all scalars where `vec` is 0
+  const int k0 = blockIdx.y * span;
+  const int n = min(span, taps - k0);
+  const float* p = pos + r * taps + k0;
+  float* o = out + r * taps + k0;
+  const int phead = vec ? min(n, (int)(((16 - (reinterpret_cast<uintptr_t>(p) & 15)) & 15) / 4)) : n;
+  const int pvecs = vec ? (n - phead) / 4 : 0;
+  float4 pv[kRowsFwdVecs];
+#pragma unroll
+  for (int u = 0; u < kRowsFwdVecs; ++u) {
+    const int v = threadIdx.x + u * kThreads;
+    if (v < pvecs) pv[u] = __ldg(reinterpret_cast<const float4*>(p + phead) + v);
+  }
+  copy_async_wait();
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < kRowsFwdVecs; ++u) {
+    const int v = threadIdx.x + u * kThreads;
+    if (v < pvecs)
+      reinterpret_cast<float4*>(o + phead)[v] =
+          make_float4(staged_tap(row, pv[u].x, length), staged_tap(row, pv[u].y, length),
+                      staged_tap(row, pv[u].z, length), staged_tap(row, pv[u].w, length));
+  }
+  for (int i = threadIdx.x; i < phead; i += kThreads) o[i] = staged_tap(row, __ldg(p + i), length);
+  for (int i = phead + 4 * pvecs + threadIdx.x; i < n; i += kThreads)
+    o[i] = staged_tap(row, __ldg(p + i), length);
+}
+
+// Rows of more than kRowsStaged entries, or with fewer than a quarter as
+// many taps as entries: a thread an output element, k fastest, so the loads
+// of pos and the stores coalesce; the row's loads stay inside one row
+// (served by L1/L2).  (Its name holds `rows_linear_fwd`: a profiler sum by
+// name takes both.)
+__global__ void __launch_bounds__(kThreads)
+rows_linear_fwd_taps(const float* __restrict__ vol, const float* __restrict__ pos,
+                     float* __restrict__ out, int64_t rows, int length, int taps) {
   const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= rows * taps) return;
   const int64_t r = t / taps;
@@ -565,8 +652,22 @@ extern "C" int anystereo_gather_rows_linear(const void* vol, const void* pos, vo
                                             void* stream) {
   if (length < 1 || taps < 1 || rows < 0) return (int)cudaErrorInvalidValue;
   if (rows == 0) return (int)cudaGetLastError();
-  rows_linear_fwd<<<blocks_for((int64_t)rows * taps), kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)vol, (const float*)pos, (float*)out, rows, length, taps);
+  // a grid of (rows, ranges) holds at most 2^31 - 1 rows and 65,535 ranges
+  if (length > kRowsStaged || 4LL * taps < length || rows > 2147483647LL ||
+      taps > 65535LL * 4 * kThreads * kRowsFwdVecs) {
+    rows_linear_fwd_taps<<<blocks_for((int64_t)rows * taps), kThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)vol, (const float*)pos, (float*)out, rows, length, taps);
+    return (int)cudaGetLastError();
+  }
+  // equal ranges of at most 4 * kThreads * kRowsFwdVecs taps, each a multiple of 4
+  const int most = 4 * kThreads * kRowsFwdVecs;
+  const int ranges = (taps + most - 1) / most;
+  const int span = ((taps + ranges - 1) / ranges + 3) / 4 * 4;
+  const int vec = ((reinterpret_cast<uintptr_t>(pos) ^ reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  const size_t shared = sizeof(float) * (length + 3);
+  rows_linear_fwd<<<dim3((unsigned)rows, (unsigned)((taps + span - 1) / span)), kThreads, shared,
+                    (cudaStream_t)stream>>>((const float*)vol, (const float*)pos, (float*)out, length,
+                                            taps, span, vec);
   return (int)cudaGetLastError();
 }
 

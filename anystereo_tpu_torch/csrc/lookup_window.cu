@@ -63,9 +63,37 @@
 //   - layout 1 (B5, `window_t_fwd`): adjacent threads take adjacent r of one
 //     level and walk their windows; the loads of bases_t and the stores to
 //     the transposed out coalesce along R;
-//   - the [L, R] backward (B4 and B5) splits L over grid.y as well, each
-//     thread writing kChunk entries of its column, so that the stores to
-//     dvol_t coalesce and the grid fills the card;
+//   - the [L, R] backward (B4 and B5, `window_t_bwd`; the "classify"
+//     training step's lookup gradient): a thread a row and 16 entries
+//     reloaded and re-floored its row's bases for every 16 entries, and read
+//     up to two cotangent values a level and entry, 144 bytes apart between
+//     neighbouring threads in layout 0, so every warp load touched 32
+//     sectors: 18.2 us at the RAFT training shape against a bound of 0.92 on
+//     the H100, bound by latency and scattered loads, not bytes.  So a block
+//     of kBwdWarps warps owns a tile of kBwdRows rows (one 128-byte line of a
+//     dvol_t row; lane = row) and a range of L.  It copies the tile's
+//     cotangent (layout 0: nrows*levels*taps contiguous floats; layout 1:
+//     levels*taps runs of nrows) and bases into shared memory by cp.async,
+//     every copy in flight at once (one round trip), the cotangent
+//     transposed to [channel][row] with an odd row stride so that neither
+//     the copies nor the reads conflict on banks.  Each (row, level) forms
+//     its window start once and its taps+1 slot coefficients once, already
+//     scaled, into a table [level][slot][row] whose slot taps+1 and whose
+//     dead cells (outside [0, L >> lvl)) hold zero, so an entry's lookup is
+//     one clamp of cell - i0 and no branch.  Each warp then walks chunks of
+//     max(2^(levels-1), 4) entries: a level's coefficient is read once a
+//     cell and added into each of its entries, levels ascending, and each
+//     entry stored as one 128-byte line of 32 rows; a chunk that no row's
+//     window reaches at any level is stored as zeros without the lookups.
+//     The walk is unrolled at compile time (`static_for`): a loop the
+//     compiler left rolled put the chunk's sums in local memory and took
+//     2.3x longer at 4 levels.  Where the tiles give the card's SMs fewer
+//     than kBwdBlocksPerSM blocks each (6,400 rows at training), L is split
+//     over grid.y, each range at least one chunk a warp, and a block forms
+//     only the coefficients of the cells its range falls in (8 blocks an SM
+//     lost at 29,952 rows, 8 warps a block at 239,616; `PERF.md` §6).
+//     Tables over 227 KB (levels*taps beyond ~890) take the walk of a thread
+//     a row (`window_t_bwd_walk`);
 //   - [R, L] volumes (layout 2, B6): a thread per (row, level) forward, a
 //     warp per row backward with lanes striding over L (coalesced stores).
 // The backward finds an entry's slot by index arithmetic (one subtraction a
@@ -93,11 +121,30 @@ namespace {
 
 constexpr int kMaxLevels = 5;  // a cell sums at most 2^4 entries
 constexpr int kThreads = 256;
-constexpr int kChunk = 16;  // entries of L a thread writes in the [L, R] backward
+constexpr int kChunk = 16;  // entries of L a thread writes in the wide [L, R] backward
 constexpr int kPmRows = 32;   // rows of a tile of the pixel-major forward
 constexpr int kPmSpan = 128;  // the most entries of L it stages at a time (16 KB)
 constexpr int kMaxShared = 227 * 1024;  // a block's most on Hopper
+constexpr int kBwdRows = 32;     // rows of a tile of the [L, R] backward: lane = row
+constexpr int kBwdStride = kBwdRows + 1;  // its staged cotangent's row stride (odd)
+constexpr int kBwdWarps = 4;     // warps of its block
+constexpr int kBwdBlocksPerSM = 4;  // blocks its split of L over grid.y gives each SM at least
 static_assert(kPmRows % 32 == 0, "a warp of the pixel-major forward is rows of one level");
+static_assert(kBwdRows == 32, "a lane of the [L, R] backward is a row of its tile");
+
+// Shared memory of the [L, R] backward in 4-byte words: the tile's
+// cotangent [levels*taps][kBwdStride], its slot coefficients
+// [levels][taps + 2][kBwdRows] (slot taps + 1 a zero), and each (level,
+// row)'s i0 and f.  64-bit: a window too wide for it takes the walk.
+__host__ __device__ constexpr int64_t t_bwd_words(int levels, int64_t taps) {
+  return levels * taps * kBwdStride + levels * (taps + 2) * kBwdRows + 2 * levels * kBwdRows;
+}
+
+// Entries a warp of the [L, R] backward walks at a time: one deepest cell,
+// at least 4.
+__host__ __device__ constexpr int t_bwd_chunk(int levels) {
+  return (1 << (levels - 1)) > 4 ? 1 << (levels - 1) : 4;
+}
 
 // Entries of L the pixel-major forward stages at a time: the row rounded up
 // to 16 entries (the widest cell), at most kPmSpan.
@@ -111,6 +158,23 @@ __host__ __device__ constexpr int pm_chunk(int length) {
 // start (two slots), all 4-byte words.
 __host__ __device__ constexpr int pm_shared_bytes(int chunk, int levels, int taps) {
   return 4 * (chunk * kPmRows + kPmRows * levels * taps + 2 * kPmRows + 4);
+}
+
+// A loop index known at compile time, usable on the device.
+template <int I>
+struct Index {
+  static constexpr int value = I;
+  __host__ __device__ constexpr operator int() const { return I; }
+};
+
+// f(Index<i>{}) for i = 0 .. N-1, unrolled whatever the compiler's
+// heuristics: arrays indexed by i stay in registers.
+template <int N, typename F>
+__device__ __forceinline__ void static_for(F&& f) {
+  if constexpr (N > 0) {
+    static_for<N - 1>(f);
+    f(Index<N - 1>{});
+  }
 }
 
 // i0 (clamped, as an int) and the fractional weight of a level's window.
@@ -307,10 +371,135 @@ __global__ void window_pm_fwd(const float* __restrict__ vol_t,
   for (int i = done + threadIdx.x; i < total; i += blockDim.x) dst[i] = stage[i];
 }
 
-__global__ void __launch_bounds__(kThreads)
+// grid (tiles of kBwdRows rows, ranges of `span` entries of L), kBwdWarps
+// warps; `span` a multiple of t_bwd_chunk(LEVELS).  Copies the tile's
+// cotangent (`pixel_major`: layout 0) and bases into shared memory, forms
+// the window starts and the slot coefficients of the cells the range falls
+// in, then each warp walks chunks of entries, lane = row.
+template <int LEVELS>
+__global__ void __launch_bounds__(32 * kBwdWarps)
 window_t_bwd(const float* __restrict__ bases_t, const float* __restrict__ g,
              float* __restrict__ dvol_t, int64_t rows, int length, int taps,
-             int levels, int pixel_major) {
+             int pixel_major, int span) {
+  constexpr int chunk = t_bwd_chunk(LEVELS);
+  extern __shared__ __align__(16) float smem[];
+  const int chans = LEVELS * taps, slots = taps + 2;
+  float* gs = smem;                                               // [chans][kBwdStride]
+  float* coef = gs + chans * kBwdStride;                          // [LEVELS][slots][kBwdRows]
+  int* s_i0 = reinterpret_cast<int*>(coef + LEVELS * slots * kBwdRows);  // [LEVELS][kBwdRows]
+  float* s_f = reinterpret_cast<float*>(s_i0 + LEVELS * kBwdRows);       // [LEVELS][kBwdRows]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int64_t r0 = (int64_t)blockIdx.x * kBwdRows;
+  const int nrows = rows - r0 < kBwdRows ? (int)(rows - r0) : kBwdRows;
+  // one round trip: every copy of the tile's cotangent (transposed into
+  // gs[channel][row]) and of its bases (into s_f, as raw bases) in flight
+  const uint64_t policy = evict_first();
+  if (pixel_major) {  // the tile's rows, contiguous: element i is (i / chans, i % chans)
+    const float* src = g + r0 * chans;
+    for (int i = threadIdx.x; i < nrows * chans; i += blockDim.x) {
+      const int row = i / chans;
+      copy_async4(gs + (i - row * chans) * kBwdStride + row, src + i, policy);
+    }
+  } else {  // a run of the tile's rows a channel, zeros past its end
+    for (int i = threadIdx.x; i < chans * kBwdRows; i += blockDim.x) {
+      const int k = i / kBwdRows, row = i % kBwdRows;
+      if (row < nrows)
+        copy_async4(gs + k * kBwdStride + row, g + (int64_t)k * rows + r0 + row, policy);
+      else
+        gs[k * kBwdStride + row] = 0.0f;
+    }
+  }
+  for (int t = threadIdx.x; t < LEVELS * kBwdRows; t += blockDim.x)
+    if (t % kBwdRows < nrows)
+      copy_async4(s_f + t, bases_t + (int64_t)(t / kBwdRows) * rows + r0 + t % kBwdRows, policy);
+  copy_async_wait();
+  // each (level, row)'s window start, from the base this thread copied; a
+  // row past the tile's end has none
+  for (int t = threadIdx.x; t < LEVELS * kBwdRows; t += blockDim.x) {
+    const int n_lvl = length >> (t / kBwdRows);
+    int i0 = n_lvl;
+    float f = 0.0f;
+    if (t % kBwdRows < nrows) window_start(s_f[t], n_lvl, taps, i0, f);
+    s_i0[t] = i0;
+    s_f[t] = f;
+  }
+  __syncthreads();
+  const int e0 = blockIdx.y * span;
+  const int e1 = min(e0 + span, length);
+  // slot m of (row, level) is cell i0 + m: its coefficient
+  // ((1 - f)*g_m + f*g_{m-1}) * 2^-lvl, zero for a cell outside [0, n_lvl)
+  // and for slot taps + 1; a cell that no entry of the range falls in is
+  // not formed (no stored entry looks it up)
+#pragma unroll
+  for (int lvl = 0; lvl < LEVELS; ++lvl) {
+    const int n_lvl = length >> lvl;
+    const int i0 = s_i0[lvl * kBwdRows + lane];
+    const float f = s_f[lvl * kBwdRows + lane];
+    const float omf = __fsub_rn(1.0f, f);
+    const int clo = e0 >> lvl, chi = (e1 - 1) >> lvl;
+    const float* gr = gs + lvl * taps * kBwdStride + lane;
+    float* cr = coef + lvl * slots * kBwdRows + lane;
+    for (int m = warp; m < slots; m += kBwdWarps) {
+      const int cell = i0 + m;
+      if (m > taps || cell < 0 || cell >= n_lvl) {
+        cr[m * kBwdRows] = 0.0f;
+      } else if (cell >= clo && cell <= chi) {
+        float c = 0.0f;
+        if (m < taps) c = __fmul_rn(omf, gr[m * kBwdStride]);
+        if (m >= 1) c = __fadd_rn(c, __fmul_rn(f, gr[(m - 1) * kBwdStride]));
+        cr[m * kBwdRows] = __fmul_rn(c, 1.0f / (float)(1 << lvl));
+      }
+    }
+  }
+  __syncthreads();
+  // the entries [lo, hi) of the cells some row's window holds at some
+  // level: a chunk outside them is zeros
+  int i0r[LEVELS];
+  int a = INT_MAX, b = INT_MIN;
+#pragma unroll
+  for (int lvl = 0; lvl < LEVELS; ++lvl) {
+    i0r[lvl] = s_i0[lvl * kBwdRows + lane];
+    const int c0 = max(i0r[lvl], 0), c1 = min(i0r[lvl] + taps + 1, length >> lvl);
+    if (c0 < c1) a = min(a, c0 << lvl), b = max(b, c1 << lvl);
+  }
+  const int lo = __reduce_min_sync(0xffffffffu, a), hi = __reduce_max_sync(0xffffffffu, b);
+  const bool store = lane < nrows;
+  // a cell's coefficient is read once (slot taps + 1 where the cell lies
+  // outside the row's window; a dead cell's slot holds zero) and added into
+  // each of its entries, levels ascending
+  for (int jc = e0 + warp * chunk; jc < e1; jc += kBwdWarps * chunk) {
+    float acc[chunk];
+    static_for<chunk>([&](auto t) { acc[t] = 0.0f; });
+    if (jc < hi && jc + chunk > lo) {
+      static_for<LEVELS>([&](auto lvl) {
+        constexpr int width = 1 << decltype(lvl)::value;
+        const float* cr = coef + lvl * slots * kBwdRows + lane;
+        static_for<chunk / width>([&](auto q) {
+          const int cell = (jc >> lvl) + q;
+          const unsigned m = min((unsigned)(cell - i0r[lvl]), (unsigned)(taps + 1));
+          const float c = cr[m * kBwdRows];
+          static_for<width>([&](auto t) {
+            acc[q * width + t] = __fadd_rn(acc[q * width + t], c);
+          });
+        });
+      });
+    }
+    float* dst = dvol_t + (int64_t)jc * rows + r0 + lane;
+    static_for<chunk>([&](auto t) {
+      if (store && jc + t < e1) dst[(int64_t)t * rows] = acc[t];
+    });
+  }
+}
+
+// Windows whose coefficient table does not fit a block (levels*taps beyond
+// ~890, wider than any model's): a thread a row and kChunk entries, each
+// entry's slots found from the row's starts and its cotangent read from
+// device memory.  (Its name holds `window_t_bwd`: a profiler sum by name
+// takes both.)
+__global__ void __launch_bounds__(kThreads)
+window_t_bwd_walk(const float* __restrict__ bases_t, const float* __restrict__ g,
+                  float* __restrict__ dvol_t, int64_t rows, int length, int taps,
+                  int levels, int pixel_major) {
   const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= rows) return;
   int i0[kMaxLevels];
@@ -365,6 +554,34 @@ window_rows_bwd(const float* __restrict__ bases, const float* __restrict__ g,
   float* drow = dvol + r * length;
   for (int j = lane; j < length; j += 32)
     drow[j] = entry_grad(j, length, taps, levels, i0, f, grow, 1);
+}
+
+// Entries of L a block of the [L, R] backward covers: all of L, or, where
+// its tiles give the card's `sms` SMs fewer than kBwdBlocksPerSM blocks
+// each, L split into equal ranges, each a whole number of chunks and at
+// least one chunk a warp.
+inline int t_bwd_span(int64_t rows, int length, int chunk, int sms) {
+  const int64_t tiles = (rows + kBwdRows - 1) / kBwdRows;
+  const int64_t wanted = ((int64_t)kBwdBlocksPerSM * sms + tiles - 1) / tiles;
+  const int most = (length + kBwdWarps * chunk - 1) / (kBwdWarps * chunk);
+  const int ranges = (int)(wanted < most ? wanted : most);
+  const int span = (length + ranges - 1) / ranges;
+  return (span + chunk - 1) / chunk * chunk;
+}
+
+template <int LEVELS>
+cudaError_t launch_t_bwd(const float* bases_t, const float* g, float* dvol_t, int64_t rows,
+                         int length, int taps, int pixel_major, int sms, cudaStream_t s) {
+  auto kernel = window_t_bwd<LEVELS>;
+  const int shared = (int)(4 * t_bwd_words(LEVELS, taps));
+  if (shared > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+    if (err != cudaSuccess) return err;
+  }
+  const int span = t_bwd_span(rows, length, t_bwd_chunk(LEVELS), sms);
+  const dim3 grid((unsigned)((rows + kBwdRows - 1) / kBwdRows), (unsigned)((length + span - 1) / span));
+  kernel<<<grid, 32 * kBwdWarps, shared, s>>>(bases_t, g, dvol_t, rows, length, taps, pixel_major, span);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -424,12 +641,28 @@ extern "C" int anystereo_gather_pyramid_window_bwd(const void* bases, const void
     const unsigned blocks = (unsigned)((rows + rows_per_block - 1) / rows_per_block);
     window_rows_bwd<<<blocks, kThreads, 0, s>>>((const float*)bases, (const float*)g,
                                                 (float*)dvol, rows, length, taps, levels);
-  } else {
+  } else if (4 * t_bwd_words(levels, taps) > kMaxShared) {
     const dim3 grid((unsigned)((rows + kThreads - 1) / kThreads),
                     (unsigned)((length + kChunk - 1) / kChunk));
-    window_t_bwd<<<grid, kThreads, 0, s>>>((const float*)bases, (const float*)g,
-                                           (float*)dvol, rows, length, taps, levels,
-                                           layout == 0);
+    window_t_bwd_walk<<<grid, kThreads, 0, s>>>((const float*)bases, (const float*)g,
+                                                (float*)dvol, rows, length, taps, levels,
+                                                layout == 0);
+  } else {
+    int device, sms;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return (int)err;
+    const int pm = layout == 0;
+    const float *b = (const float*)bases, *gg = (const float*)g;
+    float* d = (float*)dvol;
+    switch (levels) {
+      case 1: err = launch_t_bwd<1>(b, gg, d, rows, length, taps, pm, sms, s); break;
+      case 2: err = launch_t_bwd<2>(b, gg, d, rows, length, taps, pm, sms, s); break;
+      case 3: err = launch_t_bwd<3>(b, gg, d, rows, length, taps, pm, sms, s); break;
+      case 4: err = launch_t_bwd<4>(b, gg, d, rows, length, taps, pm, sms, s); break;
+      default: err = launch_t_bwd<5>(b, gg, d, rows, length, taps, pm, sms, s); break;
+    }
+    if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
 }

@@ -13,9 +13,12 @@
                                       # IGEV and RAFT eval forwards under
                                       # "classify", the window linear
                                       # lookup's inside the IGEV one under
-                                      # "levels", and its forward and
+                                      # "levels", its forward and
                                       # backward inside the IGEV training
-                                      # step under "levels"
+                                      # step under "levels", and the
+                                      # window-pyramid lookup's forward and
+                                      # backward inside the RAFT training
+                                      # step under "classify"
     python3 chip_smoke.py --spread    # and the run-to-run spread of the fp32
                                       # gradients with and without cuDNN's
                                       # deterministic algorithms
@@ -23,9 +26,10 @@
                                       # and, in the kernels phase, the aligned
                                       # lookup's forward and backward, the
                                       # row gather, the scatter-add, the
-                                      # forwards of the window-pyramid and
-                                      # window linear lookups and the
-                                      # backwards of the linear lookups as
+                                      # window-pyramid lookup's forward and
+                                      # backward, the window linear lookup's
+                                      # forward and backward and the rows
+                                      # linear lookup's forward and backward as
                                       # the checkout at DIR builds them (an
                                       # earlier commit): held to this tree's
                                       # (all but the scatter bit for bit) and
@@ -44,9 +48,9 @@ Phases (any failure raises, and the exit code is not 0):
            pyramid lookup's forward and backward (IGEV shapes at 2 levels,
            RAFT shapes at 4), the window-pyramid lookups in their three
            layouts, forward and backward, held to their plain versions bit
-           for bit and to each other (the pixel-major forward, the
-           "classify" flavor's, also at path-shaped positions, with
-           `floor_ms` and the read-flush time), the query row gather and its
+           for bit and to each other (the pixel-major forward and its
+           backward, the "classify" flavor's, also at path-shaped positions,
+           with `floor_ms` and the read-flush time), the query row gather and its
            scatter-add transpose (the 9-tap disparity table and both latent
            tables, 51,200 queries a sample), `gather_rows_hybrid`, and the
            single-level linear lookups, forward and backward, bit for bit:
@@ -56,8 +60,8 @@ Phases (any failure raises, and the exit code is not 0):
            (375 rows of 1242 positions) and at 300 x 312 x 9, each beside
            `grid_sample` (forward) and `grid_sampler_2d_backward`, the one
            PyTorch call that computes the same lerp (the window forward also
-           at path-shaped starts; it and both backwards with `floor_ms` and
-           the read-flush time).
+           at path-shaped starts; it, both backwards and the rows forward
+           with `floor_ms` and the read-flush time).
            The aligned
            lookup's forward is held and timed at uniformly random positions
            and at path-shaped ones (a smooth disparity field), beside a
@@ -593,17 +597,29 @@ def _kernels_window(torch):
                 raise AssertionError(f"{name} {call}: differs from gather_pyramid_window_pm on the "
                                      "same operands in its layout")
         # B4, the "classify" flavor's lookup: path-shaped starts, the read
-        # flush, one row, the parent
+        # flush, one row, the parent; forward, then backward
         vol_t = vol.t().contiguous()
         bases_path = _path_positions(torch, call, rows)[:, None] * scales - radius
         starts = {k: b.t().contiguous() for k, b in
                   (("check", bases), ("main", bases_main), ("path", bases_path))}
         v1, b1 = vol_t[:, :1].contiguous(), starts["main"][:, :1].contiguous()
-        _window_beside(torch, calls["gather_pyramid_window_pm"][-1], "gather_pyramid_window_pm",
-                       lambda b: tw.gather_pyramid_window_pm(vol_t, b, TAPS),
-                       lambda b: tw.gather_pyramid_window_pm_ref(vol_t, b, TAPS), starts,
+        _kernel_beside(torch, calls["gather_pyramid_window_pm"][-1], "gather_pyramid_window_pm",
+                       lambda: tw.gather_pyramid_window_pm(vol_t, starts["main"], TAPS),
+                       lambda: tw.gather_pyramid_window_pm(vol_t, starts["check"], TAPS),
                        lambda: tw.gather_pyramid_window_pm(v1, b1, TAPS),
-                       _window_cost(torch, bases_path, length, True)[0])
+                       path=(lambda: tw.gather_pyramid_window_pm(vol_t, starts["path"], TAPS),
+                             lambda: tw.gather_pyramid_window_pm_ref(vol_t, starts["path"], TAPS),
+                             _window_cost(torch, bases_path, length, True)[0]))
+        # and its backward (B5's is the same kernel): the bound's bytes, the
+        # whole of dvol written, do not depend on the positions
+        cot1 = cot[:1].contiguous()
+        _kernel_beside(torch, calls["gather_pyramid_window_pm_bwd"][-1], "gather_pyramid_window_pm_bwd",
+                       lambda: tw.gather_pyramid_window_pm_bwd(starts["main"], cot, length, TAPS),
+                       lambda: tw.gather_pyramid_window_pm_bwd(starts["check"], cot, length, TAPS),
+                       lambda: tw.gather_pyramid_window_pm_bwd(b1, cot1, length, TAPS),
+                       path=(lambda: tw.gather_pyramid_window_pm_bwd(starts["path"], cot, length, TAPS),
+                             lambda: tw.gather_pyramid_window_pm_bwd_ref(starts["path"], cot, length, TAPS),
+                             calls["gather_pyramid_window_pm_bwd"][-1]["bytes"]))
         del vol, vol_t, cot, results
     order = [c[0] for c in _lookup_shapes()]
     records = []
@@ -618,60 +634,45 @@ def _kernels_window(torch):
     return records
 
 
-def _window_beside(torch, res, what, fwd, ref, starts, one, bytes_path):
-    """A redesigned window forward (B4 or B7) beyond the common timing.
-    `fwd(b)` launches the kernel on the window starts b, `ref(b)` its plain
-    version; `starts` holds the check's, the timing's and the path-shaped
-    starts (`check`, `main`, `path`), `one` launches it on one row.  Held to
-    the plain version at the path's starts and, with --parent, to the
-    parent's kernel at the check's and the path's; timed at the path's
-    starts, after the read flush and on one row; with --parent in turns with
-    the parent's kernel at the timing's and the path's starts."""
-    check, main, path = starts["check"], starts["main"], starts["path"]
-    got = fwd(path)
-    torch.cuda.synchronize()
-    if not torch.equal(got, ref(path)):
-        raise AssertionError(f"{what} {res['call']}: differs from its plain version at path-shaped starts")
+def _kernel_beside(torch, res, what, fn, check, one, path=None):
+    """A redesigned kernel (B4's and B7's forward and backward, B8's) beyond
+    the common timing: `fn()` launches it at the timing's inputs, `check()`
+    at the check's (far positions and collisions), `one()` on one row;
+    `path`, where given, is (a launch at path-shaped inputs, its plain
+    version, the bound's bytes there).  With --parent held to the
+    parent's kernel bit for bit at each and timed in turns with it; timed
+    after the read flush, on one row and at the path's inputs."""
+    runs = (check, fn)
+    if path is not None:
+        at_path, plain, bytes_path = path
+        got = at_path()
+        torch.cuda.synchronize()
+        if not torch.equal(got, plain()):
+            raise AssertionError(f"{what} {res['call']}: differs from its plain version at path-shaped "
+                                 "inputs")
+        runs += (at_path,)
+        res["ms_path"] = _time_ms(torch, at_path)
+        res["bytes_path"] = bytes_path
+        res["bound_ms_path"] = _bound(bytes_path, res["flops"])[0]
     if PARENT:
-        for b in (check, path):
-            if not torch.equal(fwd(b), _as_parent(lambda: fwd(b))()):
+        for run in runs:
+            if not torch.equal(run(), _as_parent(run)()):
                 raise AssertionError(f"{what} {res['call']}: differs from the parent's kernel")
         res["equal_to_parent"] = True
-    res["ms_path"] = _time_ms(torch, lambda: fwd(path))
-    res["ms_clean"] = _time_ms(torch, lambda: fwd(main), read_flush=True)
-    res["floor_ms"] = _time_ms(torch, one)
-    if PARENT:
-        _beside_parent(torch, res, "ms", lambda: fwd(main))
-        _beside_parent(torch, res, "ms_path", lambda: fwd(path))
-    res["bytes_path"] = bytes_path
-    res["bound_ms_path"] = _bound(bytes_path, res["flops"])[0]
-    parent = "" if not PARENT else (
-        f"; parent {res['parent_ms']} / this tree {res['ms_beside_parent']} ms in turns, path-shaped "
-        f"parent {res['parent_ms_path']} / this tree {res['ms_path_beside_parent']} ms; equal to "
-        f"the parent's output bit for bit")
-    _log(f"[kernels] {what} {res['call']}: path-shaped {res['ms_path']:.4f} ms (bound "
-         f"{res['bound_ms_path']:.4f}), read flush {res['ms_clean']:.4f} ms, floor {res['floor_ms']:.4f} "
-         f"ms{parent}")
-
-
-def _backward_beside(torch, res, what, bwd, check, one):
-    """A redesigned backward (B7's or B8's) beyond the common timing: `bwd()`
-    launches it at the timing's inputs, `check()` at the check's (far
-    positions and collisions), `one()` on one row.  With --parent held to
-    the parent's kernel bit for bit at both and timed in turns with it;
-    timed after the read flush and on one row."""
-    if PARENT:
-        for fn in (check, bwd):
-            if not torch.equal(fn(), _as_parent(fn)()):
-                raise AssertionError(f"{what} {res['call']}: differs from the parent's kernel")
-        res["equal_to_parent"] = True
-        _beside_parent(torch, res, "ms", bwd)
-    res["ms_clean"] = _time_ms(torch, bwd, read_flush=True)
+        _beside_parent(torch, res, "ms", fn)
+        if path is not None:
+            _beside_parent(torch, res, "ms_path", path[0])
+    res["ms_clean"] = _time_ms(torch, fn, read_flush=True)
     res["floor_ms"] = _time_ms(torch, one)
     parent = "" if not PARENT else (
         f"; parent {res['parent_ms']} / this tree {res['ms_beside_parent']} ms in turns, equal to "
         f"the parent's output bit for bit")
-    _log(f"[kernels] {what} {res['call']}: read flush {res['ms_clean']:.4f} ms, floor "
+    if PARENT and path is not None:
+        parent += (f"; path-shaped parent {res['parent_ms_path']} / this tree "
+                   f"{res['ms_path_beside_parent']} ms")
+    at_path = "" if path is None else (
+        f"path-shaped {res['ms_path']:.4f} ms (bound {res['bound_ms_path']:.4f}), ")
+    _log(f"[kernels] {what} {res['call']}: {at_path}read flush {res['ms_clean']:.4f} ms, floor "
          f"{res['floor_ms']:.4f} ms{parent}")
 
 
@@ -979,20 +980,22 @@ def _kernels_linear(torch):
         base_path = (_path_positions(torch, volume, rows) * 2.0 ** -int(level) - radius).contiguous()
         i0 = torch.floor(base_path).long()
         live = (i0 + TAPS + 1).clamp(0, length) - i0.clamp(0, length)
-        _window_beside(torch, res_f, "gather_window_linear", lambda b: tl.gather_window_linear(vol, b, TAPS),
-                       lambda b: tl.gather_window_linear_ref(vol, b, TAPS),
-                       {"check": base, "main": base_main, "path": base_path},
+        _kernel_beside(torch, res_f, "gather_window_linear",
+                       lambda: tl.gather_window_linear(vol, base_main, TAPS),
+                       lambda: tl.gather_window_linear(vol, base, TAPS),
                        lambda: tl.gather_window_linear(vol[:1], base_main[:1], TAPS),
-                       4 * int(live.sum()) + 4 * rows + 4 * rows * TAPS)
+                       path=(lambda: tl.gather_window_linear(vol, base_path, TAPS),
+                             lambda: tl.gather_window_linear_ref(vol, base_path, TAPS),
+                             4 * int(live.sum()) + 4 * rows + 4 * rows * TAPS))
         win_bwd.append(timed(
             res_b, "gather_window_linear_bwd",
             lambda: tl.gather_window_linear_bwd(base_main, cot, length, TAPS),
             lambda: tl.gather_window_linear_bwd_ref(base_main, cot, length, TAPS),
             4 * rows * (1 + TAPS + length), 4 * rows * (TAPS + 1), lib_bwd))
-        _backward_beside(torch, res_b, "gather_window_linear_bwd",
-                         lambda: tl.gather_window_linear_bwd(base_main, cot, length, TAPS),
-                         lambda: tl.gather_window_linear_bwd(base, cot, length, TAPS),
-                         lambda: tl.gather_window_linear_bwd(base_main[:1], cot[:1], length, TAPS))
+        _kernel_beside(torch, res_b, "gather_window_linear_bwd",
+                       lambda: tl.gather_window_linear_bwd(base_main, cot, length, TAPS),
+                       lambda: tl.gather_window_linear_bwd(base, cot, length, TAPS),
+                       lambda: tl.gather_window_linear_bwd(base_main[:1], cot[:1], length, TAPS))
         del vol, cot, lib_fwd, lib_bwd
 
     # arbitrary positions: the evaluator's occlusion warp, and the small op shape
@@ -1034,14 +1037,17 @@ def _kernels_linear(torch):
             res_f, "gather_rows_linear", lambda: tl.gather_rows_linear(vol, pos_main),
             lambda: tl.gather_rows_linear_ref(vol, pos_main), vol_bytes + 8 * rows * taps,
             4 * rows * taps, lib_fwd, gather_body=lambda: _old_gather_1d_linear(torch, vol, pos_main)))
+        _kernel_beside(torch, res_f, "gather_rows_linear", lambda: tl.gather_rows_linear(vol, pos_main),
+                       lambda: tl.gather_rows_linear(vol, pos),
+                       lambda: tl.gather_rows_linear(vol[:1], pos_main[:1]))
         rows_bwd.append(timed(
             res_b, "gather_rows_linear_bwd", lambda: tl.gather_rows_linear_bwd(pos_main, cot, length),
             lambda: tl.gather_rows_linear_bwd_ref(pos_main, cot, length),
             4 * rows * (2 * taps + length), 5 * rows * taps, lib_bwd))
-        _backward_beside(torch, res_b, "gather_rows_linear_bwd",
-                         lambda: tl.gather_rows_linear_bwd(pos_main, cot, length),
-                         lambda: tl.gather_rows_linear_bwd(pos, cot, length),
-                         lambda: tl.gather_rows_linear_bwd(pos_main[:1], cot[:1], length))
+        _kernel_beside(torch, res_b, "gather_rows_linear_bwd",
+                       lambda: tl.gather_rows_linear_bwd(pos_main, cot, length),
+                       lambda: tl.gather_rows_linear_bwd(pos, cot, length),
+                       lambda: tl.gather_rows_linear_bwd(pos_main[:1], cot[:1], length))
         del vol, cot, unit, lib_fwd, lib_bwd
     # one IGEV iteration's four launches: the forward's at the eval shapes, the
     # backward's at the training shapes (the one path that runs it)
@@ -1762,10 +1768,11 @@ def _beside_parent_line(records):
             "scatter_rows_add": ("B2", lambda c: f"C={c['table'][2]}", common + ("library_ms",)),
             "gather_rows": ("B3", lambda c: f"C={c['table'][2]}", common + clean + ("library_ms",)),
             "gather_pyramid_window_pm": ("B4", lambda c: c["call"], common + path + ("ms_clean",)),
+            "gather_pyramid_window_pm_bwd": ("B4 bwd", lambda c: c["call"], common + path + ("ms_clean",)),
             "gather_window_linear": ("B7", lambda c: c["call"], common + path + (
                 "ms_clean", "library_ms", "library_err")),
             "gather_window_linear_bwd": ("B7 bwd", lambda c: c["call"], common + clean + library),
-            "gather_rows_linear": ("B8", lambda c: c["call"], library),
+            "gather_rows_linear": ("B8", lambda c: c["call"], common + clean + library),
             "gather_rows_linear_bwd": ("B8 bwd", lambda c: c["call"], common + clean + library)}
     out = {"launch": r(YARDSTICK)}
     for rec in records:
@@ -1782,14 +1789,19 @@ def _train_parts(flavor):
     """{key: (a part of a kernel's name, its wrapper)} of the kernels that
     `phase_profile_train` sums inside a training step under `flavor`:
     "aligned": B1 forward (32 launches a step) and backward (32), B2 (48),
-    B3 (48); "levels": B7 forward (64) and backward (64)."""
+    B3 (48); "levels": B7 forward (64) and backward (64); "classify" (the
+    RAFT step): B4 forward (16) and backward (16)."""
     from anystereo_tpu_torch.ops.kernels import lookup_linear as tl
+    from anystereo_tpu_torch.ops.kernels import lookup_window as tw
     from anystereo_tpu_torch.ops.kernels.gather import gather_rows, scatter_rows_add
     from anystereo_tpu_torch.ops.kernels.lookup import (
         gather_pyramid_aligned,
         gather_pyramid_aligned_bwd,
     )
 
+    if flavor == "classify":
+        return {"b4_fwd_ms": ("window_pm_fwd", tw.gather_pyramid_window_pm),
+                "b4_bwd_ms": ("window_t_bwd", tw.gather_pyramid_window_pm_bwd)}
     if flavor == "levels":
         return {"b7_fwd_ms": ("window_linear_fwd", tl.gather_window_linear),
                 "b7_bwd_ms": ("window_linear_bwd", tl.gather_window_linear_bwd)}
@@ -1910,6 +1922,8 @@ def main(argv) -> int:
     del trained
     torch.cuda.empty_cache()
     by_path["train_raft"], trained = phase_train(torch, kernels, "raft", "classify")
+    if profile:
+        phase_profile_train(torch, *trained, flavor="classify")
     del trained
     torch.cuda.empty_cache()
     by_path["train_levels"], trained = phase_train(torch, kernels, "igev", "levels", steps=1)

@@ -545,6 +545,71 @@ def test_window_pm_forward_unaligned_volume(card):
     _pm_all_layouts(vol_t, _pm_bases(card, x, 4), 9)
 
 
+# (rows, length, levels): the [L, R] backward's tiles of 32 rows, with L split
+# over grid.y while the tiles give a card of 132 SMs fewer than 4 blocks an
+# SM (the RAFT training shape: 3 ranges of 32 entries), L whole at the eval
+# shapes; ragged tiles and R % 4 != 0, L % 4 != 0 and L not a multiple of a
+# range, L 1 and 2, levels up to 5
+_TB_CASES = [(6400, 80, 4), (6400 + 7, 80, 2), (29952, 312, 4), (239616, 48, 2), (239616 + 3, 48, 2),
+             (200, 79, 4), (1001, 39, 3), (33, 1, 1), (70, 2, 2), (70, 2, 5), (5000, 21, 5), (1, 313, 5)]
+
+
+def _t_backwards(card, bases_t, cot, length, taps, offset=0):
+    """Both [L, R] backwards (layouts 0 and 1) on one cotangent [R, C], held
+    to their plain versions bit for bit with one launch each; the cotangent
+    placed `offset` floats past a 16-byte boundary.  Returns layout 0's."""
+    outs = []
+    for bwd, ref, g in ((tw.gather_pyramid_window_pm_bwd, tw.gather_pyramid_window_pm_bwd_ref, cot),
+                        (tw.gather_pyramid_window_t_bwd, tw.gather_pyramid_window_t_bwd_ref, cot.t())):
+        flat = torch.empty(offset + g.numel(), device=card)
+        g = flat[offset:].view(g.shape).copy_(g)
+        assert g.is_contiguous() and g.data_ptr() % 16 == 4 * offset
+        before = bwd.launches
+        got, want = bwd(bases_t, g, length, taps), ref(bases_t, g, length, taps)
+        torch.cuda.synchronize()
+        assert bwd.launches == before + 1
+        assert got.shape == (length, bases_t.shape[1]) and torch.equal(got, want)
+        outs.append(got)
+    assert torch.equal(outs[0], outs[1])
+    return outs[0]
+
+
+@pytest.mark.parametrize("rows,length,levels", _TB_CASES)
+@pytest.mark.parametrize("positions", ["random", "path"])
+def test_window_t_backward_tiles(card, rows, length, levels, positions):
+    """The redesigned [L, R] backward (a block a tile of 32 rows and a range
+    of L, the cotangent staged once, slot coefficients formed once, chunks
+    of entries walked by cell, zeros outside the tile's hulls) equals its
+    plain version bit for bit in both layouts, at random and path-shaped
+    bases, far bases as zero columns, on an aligned cotangent and on one 4
+    bytes past a 16-byte boundary."""
+    g = torch.Generator(device=card).manual_seed(rows + length + levels)
+    if positions == "random":
+        x = torch.rand(rows, device=card, generator=g) * (length + 40) - 20
+    else:
+        x = _smooth_positions(card, rows, length, 8 if length == 48 else 1)
+    far = rows >= len(_FAR)
+    bases = _pm_bases(card, x, levels, far=far)
+    cot = torch.randn(rows, levels * 9, device=card, generator=g)
+    for offset in (0, 1):
+        got = _t_backwards(card, bases, cot, length, 9, offset)
+        if far:
+            assert not got[:, : len(_FAR)].any()
+
+
+@pytest.mark.parametrize("taps,levels", [(1, 2), (17, 4), (176, 5), (177, 5), (400, 3)])
+def test_window_t_backward_other_taps(card, taps, levels):
+    """Taps other than 9: the coefficient table grows with levels*taps (past
+    48 KB the launch asks for more shared memory; 176 taps at 5 levels is the
+    most a block holds), and wider windows take the walk of a thread a row;
+    both bit for bit the plain versions."""
+    g = torch.Generator(device=card).manual_seed(taps + levels)
+    x = torch.rand(3001, device=card, generator=g) * 170 - 20
+    bases = _pm_bases(card, x, levels)
+    cot = torch.randn(3001, levels * taps, device=card, generator=g)
+    _t_backwards(card, bases, cot, 130, taps)
+
+
 # (rows, length): the eval GEV shapes (tiles of 32 rows a warp), the
 # training GEV's (16 rows), the eval and training correlation's (a thread a
 # tap), ragged last tiles and blocks, and the edges of the tile heights on a
@@ -753,6 +818,40 @@ def test_window_linear_backward_tiles(card, rows, length, taps):
     vol = torch.randn(rows, length, device=card, generator=g, requires_grad=True)
     tl.gather_window_linear(vol, base, taps).backward(cot)
     assert tl.gather_window_linear_bwd.launches == before + 2 and torch.equal(vol.grad, dwant)
+
+
+# (rows, length, taps, offset): the staged rows forward (a block a row and a
+# range of up to 2,048 taps, the row copied into shared memory) at the
+# occlusion warp's shape and one row of it, L % 4 != 0 (rows off a 16-byte
+# boundary), K != L and K over 2,048, volume and positions `offset` floats
+# past a 16-byte boundary (positions and output then at different offsets:
+# scalar taps); the longest staged row and the first too long, and K < L/4,
+# which take a thread a tap
+_RF_CASES = [(375, 1242, 1242, 0), (1, 1242, 1242, 0), (375, 1241, 1242, 1), (7, 39, 40, 1),
+             (50, 300, 2500, 3), (3, 8192, 2048, 2), (3, 8193, 4000, 0), (10, 400, 99, 0),
+             (10, 400, 100, 2), (64, 5, 2, 0)]
+
+
+@pytest.mark.parametrize("rows,length,taps,offset", _RF_CASES)
+def test_rows_linear_forward_staging_edges(card, rows, length, taps, offset):
+    """The redesigned rows forward equals its plain version bit for bit with
+    one launch, far positions (+-1e6, +-3e9) giving zeros and taps at
+    i0 = -2, -1, L-1 and L; as the forward of `gather_rows_linear` too."""
+    g = torch.Generator(device=card).manual_seed(rows + length + taps)
+    flat = torch.randn(offset + rows * length, device=card, generator=g)
+    vol = flat[offset:].view(rows, length)
+    flat_pos = torch.empty(offset + rows * taps, device=card)
+    pos = flat_pos[offset:].view(rows, taps)
+    pos.copy_(torch.rand(rows, taps, device=card, generator=g) * (length + 8) - 4)
+    edge = torch.tensor([*_LINEAR_FAR, -1.5, -0.5, length - 0.5, length + 0.25], device=card)
+    pos[0, : min(taps, 8)] = edge[: min(taps, 8)]
+    assert vol.data_ptr() % 16 == pos.data_ptr() % 16 == 4 * offset
+    before = tl.gather_rows_linear.launches
+    got, want = tl.gather_rows_linear(vol, pos), tl.gather_rows_linear_ref(vol, pos)
+    torch.cuda.synchronize()
+    assert tl.gather_rows_linear.launches == before + 1
+    assert got.shape == (rows, taps) and torch.equal(got, want)
+    assert not got[0, : min(taps, 4)].any()
 
 
 def test_linear_lookups_are_differentiable_through_the_kernels(card):

@@ -284,6 +284,236 @@ def test_window_pm_staging_rule_reads_only_what_it_copied(rows, length, levels, 
         assert chunks == tiles and copied < 0.75 * vol_t.size  # about the windows, not whole rows
 
 
+# ------------------------------------- the window-pyramid backward (B4, B5)
+#
+# `csrc/lookup_window.cu:window_t_bwd`: a block of 4 warps owns a tile of 32
+# rows (lane = row) and a range of L.  It copies the tile's cotangent into
+# [levels*taps][33] (layout 0: the tile's rows contiguous; layout 1: a run of
+# 32 rows a channel, zeros past the tile's end), forms each (level, row)'s
+# window start and the slot coefficients [level][taps + 2][32] of the cells
+# its range falls in (slot taps + 1 and cells outside [0, L >> lvl) zero).
+# Each warp walks chunks of max(2^(levels-1), 4) entries: per level and cell
+# it reads the coefficient of slot min(cell - i0, taps + 1) once and adds
+# it into the cell's entries, levels ascending; a chunk outside the tile's
+# hull (the entries of every row's live cells at every level) is stored as
+# zeros.  L is split into equal ranges (a whole number of chunks, at least
+# one a warp) while the tiles give the card fewer than 4 blocks an SM.  The
+# mirror stages into NaN-filled arrays, so a coefficient or cotangent read
+# that the rule did not write comes out NaN, and counts each entry's writes.
+
+BWD_ROWS, BWD_WARPS, BWD_BLOCKS_PER_SM = 32, 4, 4
+
+
+def _t_bwd_span(rows, length, chunk, sms):
+    tiles = -(-rows // BWD_ROWS)
+    wanted = -(-(BWD_BLOCKS_PER_SM * sms) // tiles)
+    most = -(-length // (BWD_WARPS * chunk))
+    span = -(-length // min(wanted, most))
+    return -(-span // chunk) * chunk
+
+
+def _mirror_window_t_bwd(bases_t, g, length, taps, pixel_major, sms):
+    """(dvol_t [L, R], writes [L, R], ranges) of the kernel's tiles, ranges,
+    coefficient table and chunk walk, in numpy fp32."""
+    levels, rows = bases_t.shape
+    chans, slots, chunk = levels * taps, taps + 2, max(2 ** (levels - 1), 4)
+    span = _t_bwd_span(rows, length, chunk, sms)
+    dvol = np.full((length, rows), np.nan, np.float32)
+    writes = np.zeros((length, rows), np.int64)
+    one, lanes = np.float32(1), np.arange(BWD_ROWS)
+    for r0 in range(0, rows, BWD_ROWS):
+        nrows = min(BWD_ROWS, rows - r0)
+        gs = np.full((chans, BWD_ROWS + 1), np.nan, np.float32)
+        if pixel_major:  # the tile's rows, contiguous in g [R, chans]
+            tile = g.reshape(-1)[r0 * chans:(r0 + nrows) * chans]
+            for i, v in enumerate(tile):
+                gs[i % chans, i // chans] = v
+        else:  # g [chans, R]: 32 rows a channel, zeros past the tile's end
+            gs[:, :BWD_ROWS] = 0
+            gs[:, :nrows] = g[:, r0:r0 + nrows]
+        i0 = np.zeros((levels, BWD_ROWS), np.int64)
+        f = np.zeros((levels, BWD_ROWS), np.float32)
+        for lvl in range(levels):
+            i0[lvl] = length >> lvl  # past the tile's end: no window
+            i0[lvl, :nrows], f[lvl, :nrows] = _pm_starts(bases_t[lvl, r0:r0 + nrows], length >> lvl, taps)
+        for e0 in range(0, length, span):
+            e1 = min(e0 + span, length)
+            coef = np.full((levels, slots, BWD_ROWS), np.nan, np.float32)
+            lo, hi = INT_MAX, INT_MIN
+            for lvl in range(levels):
+                n_lvl = length >> lvl
+                for m in range(slots):
+                    cell = i0[lvl] + m
+                    dead = (m > taps) | (cell < 0) | (cell >= n_lvl)
+                    formed = ~dead & (cell >= e0 >> lvl) & (cell <= (e1 - 1) >> lvl)
+                    c = np.zeros(BWD_ROWS, np.float32)
+                    if m < taps:
+                        c = (one - f[lvl]) * gs[lvl * taps + m, :BWD_ROWS]
+                    if 1 <= m <= taps:
+                        c = c + f[lvl] * gs[lvl * taps + m - 1, :BWD_ROWS]
+                    c = c * np.float32(1.0 / 2 ** lvl)
+                    coef[lvl, m] = np.where(dead, np.float32(0), np.where(formed, c, coef[lvl, m]))
+                c0, c1 = np.maximum(i0[lvl], 0), np.minimum(i0[lvl] + taps + 1, n_lvl)
+                live = c0 < c1
+                if live.any():
+                    lo, hi = min(lo, int((c0[live] << lvl).min())), max(hi, int((c1[live] << lvl).max()))
+            for jc in range(e0, e1, chunk):  # each warp a chunk in turn
+                acc = np.zeros((chunk, BWD_ROWS), np.float32)
+                if jc < hi and jc + chunk > lo:
+                    for lvl in range(levels):
+                        for q in range(chunk >> lvl):
+                            m = (jc >> lvl) + q - i0[lvl]
+                            m = np.where((m < 0) | (m > taps + 1), taps + 1, m)
+                            c = coef[lvl, m, lanes]
+                            for t in range(1 << lvl):
+                                acc[(q << lvl) + t] = acc[(q << lvl) + t] + c
+                for t in range(chunk):
+                    if jc + t < e1:
+                        dvol[jc + t, r0:r0 + nrows] = acc[t, :nrows]
+                        writes[jc + t, r0:r0 + nrows] += 1
+    return dvol, writes, -(-length // span)
+
+
+@pytest.mark.parametrize("rows,length,levels,taps,positions", [
+    (200, 80, 4, 9, "path"),      # the RAFT training shape's tiles, L split in 3
+    (200, 80, 4, 9, "random"),
+    (70, 312, 4, 9, "random"),    # the eval correlation's row, a ragged tile
+    (70, 312, 2, 9, "path"),
+    (75, 48, 2, 9, "path"),       # the GEV row: 8 rows a cell share one x
+    (41, 39, 3, 17, "random"),    # L % 4 != 0, wider windows
+    (33, 21, 5, 1, "random"),     # one tap, cells of 16 entries
+    (40, 5, 5, 9, "random"),      # rows shorter than a cell from level 3 on
+    (37, 2, 2, 9, "random"),      # L 2: one level-1 cell
+    (35, 1, 1, 9, "random"),
+    (64, 300, 3, 9, "gap"),       # half a tile far along: a stretch of zeros
+])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_window_t_backward_tiles_match_plain(rows, length, levels, taps, positions, sms):
+    """The backward's staging, coefficient table, hulls and chunk walk,
+    mirrored in numpy fp32 for both layouts, write every entry once and
+    equal the plain versions bit for bit, far bases (+-1e6, +-3e9) as zero
+    columns; the split of L over ranges as the card's SM count (1 or 132)
+    asks it of these few tiles."""
+    from anystereo_tpu_torch.ops.kernels.lookup_window import (
+        gather_pyramid_window_pm_bwd_ref,
+        gather_pyramid_window_t_bwd_ref,
+    )
+
+    rng = np.random.default_rng(rows * length + levels * taps)
+    if positions == "random":
+        x = rng.uniform(-20, length + 20, rows).astype(np.float32)
+    else:
+        x = _smooth_x(rows, length, 8 if length == 48 else 1)
+    scales = np.array([2.0 ** -lvl for lvl in range(levels)], np.float32)
+    bases = (x[None, :] * scales[:, None] - np.float32(taps // 2)).astype(np.float32)
+    if positions == "gap":  # rows 16-31 of each tile far along the row
+        far_along = (np.arange(rows) % BWD_ROWS) >= BWD_ROWS // 2
+        bases[:, far_along] = (np.float32(250.5) * scales[:, None]).astype(np.float32)
+        bases[:, ~far_along] = np.float32(1.25)
+    bases[:, :4] = np.array([-1e6, 1e6, -3e9, 3e9], np.float32)[None, :]
+    g = rng.standard_normal((rows, levels * taps)).astype(np.float32)
+    want = gather_pyramid_window_pm_bwd_ref(torch.from_numpy(bases), torch.from_numpy(g), length, taps).numpy()
+    want_t = gather_pyramid_window_t_bwd_ref(torch.from_numpy(bases), torch.from_numpy(g.T.copy()),
+                                             length, taps).numpy()
+    np.testing.assert_array_equal(want_t, want)
+    for pixel_major, cot in ((True, g), (False, g.T.copy())):
+        got, writes, ranges = _mirror_window_t_bwd(bases, cot, length, taps, pixel_major, sms)
+        assert (writes == 1).all()
+        np.testing.assert_array_equal(got, want)
+        assert not got[:, :4].any()
+    if (rows, length, levels) == (200, 80, 4):  # 7 tiles: whole rows for 4 blocks, 3 ranges for 528
+        assert ranges == (1 if sms == 1 else 3)
+    if rows >= BWD_BLOCKS_PER_SM * BWD_ROWS * sms:
+        assert ranges == 1
+
+
+# ------------------------------------------------ the rows linear forward (B8)
+#
+# `csrc/lookup_linear.cu:rows_linear_fwd`: a block owns a row and a range of
+# its taps (equal ranges of at most 2,048, a multiple of 4).  It copies the
+# row into shared memory at the same offset within 16 bytes as in the
+# volume (a 4-byte head up to the first 16-byte boundary, 16-byte copies, a
+# 4-byte tail), loads its taps' positions as up to two float4s a thread
+# between a scalar head and tail (all scalars where positions and output sit at
+# different offsets within 16 bytes) and forms the taps from the staged row.
+# Rows longer than 8,192 entries or with fewer than L/4 taps take a thread a
+# tap.  The mirror copies into a NaN-filled stage and writes a NaN-filled
+# output, counting copies and writes.
+
+ROWS_FWD_STAGED, ROWS_FWD_VECS = 8192, 2
+ROWS_FWD_MOST = 4 * 256 * ROWS_FWD_VECS
+
+
+def _mirror_rows_linear_fwd(vol, pos, vol_off, pos_off, out_off):
+    """(out [R, K], copies [R, L], writes [R, K]) of the staged forward in
+    numpy fp32, for arrays that start `*_off` floats past a 16-byte
+    boundary."""
+    rows, length = vol.shape
+    taps = pos.shape[1]
+    assert length <= ROWS_FWD_STAGED and 4 * taps >= length
+    ranges = -(-taps // ROWS_FWD_MOST)
+    span = -(-(-(-taps // ranges)) // 4) * 4
+    vec = (pos_off - out_off) % 4 == 0
+    out = np.full((rows, taps), np.nan, np.float32)
+    copies = np.zeros((rows, length), np.int64)
+    writes = np.zeros((rows, taps), np.int64)
+    one = np.float32(1)
+    for r in range(rows):
+        shift = (vol_off + r * length) % 4
+        head = min(length, (4 - shift) % 4)
+        vecs = (length - head) // 4
+        stage = np.full(length + 3, np.nan, np.float32)
+        for i in [*range(head), *range(head + 4 * vecs, length)]:  # 4-byte copies
+            stage[shift + i] = vol[r, i]
+            copies[r, i] += 1
+        for v in range(vecs):
+            a = head + 4 * v
+            assert (shift + a) % 4 == 0 and (vol_off + r * length + a) % 4 == 0  # both ends aligned
+            stage[shift + a:shift + a + 4] = vol[r, a:a + 4]
+            copies[r, a:a + 4] += 1
+        row = stage[shift:shift + length]
+        for k0 in range(0, taps, span):
+            n = min(span, taps - k0)
+            phead = min(n, (4 - (pos_off + r * taps + k0) % 4) % 4) if vec else n
+            pvecs = (n - phead) // 4 if vec else 0
+            assert pvecs <= 256 * ROWS_FWD_VECS  # at most two float4s a thread
+            for k in range(k0, k0 + n):
+                p = pos[r, k]
+                f0 = np.floor(p)
+                w = p - f0
+                i0 = int(np.clip(f0, np.float32(-2), np.float32(length)))
+                lower = row[i0] if 0 <= i0 < length else np.float32(0)
+                upper = row[i0 + 1] if 0 <= i0 + 1 < length else np.float32(0)
+                out[r, k] = lower * (one - w) + upper * w
+                writes[r, k] += 1
+    return out, copies, writes
+
+
+@pytest.mark.parametrize("rows,length,taps,offsets", [
+    (4, 1242, 1242, (0, 0, 0)),   # the occlusion warp's row: one range
+    (5, 1242, 1242, (1, 2, 2)),   # rows off a 16-byte boundary, positions too
+    (5, 39, 39, (3, 1, 0)),       # L % 4 != 0, positions and output apart: scalars
+    (3, 78, 2500, (2, 0, 0)),     # K > L: two ranges of 1,252 and 1,248
+    (6, 5, 3, (1, 3, 3)),
+    (1, 300, 75, (0, 0, 0)),      # K = L / 4
+])
+def test_rows_linear_forward_staging_matches_plain(rows, length, taps, offsets):
+    """The staged rows forward, mirrored in numpy fp32, copies each entry of
+    a row once, writes each tap once and equals the plain version bit for
+    bit, far positions and i0 at -2, -1, L-1 and L included."""
+    from anystereo_tpu_torch.ops.kernels.lookup_linear import gather_rows_linear_ref
+
+    rng = np.random.default_rng(rows * length + taps)
+    vol = rng.standard_normal((rows, length)).astype(np.float32)
+    pos = rng.uniform(-4, length + 4, (rows, taps)).astype(np.float32)
+    pos[0, :min(taps, 8)] = np.array([-3e9, 3e9, -1e6, 1e6, -1.5, -0.5, length - 0.5, length + 0.25],
+                                     np.float32)[:min(taps, 8)]
+    got, copies, writes = _mirror_rows_linear_fwd(vol, pos, *offsets)
+    assert (copies == 1).all() and (writes == 1).all()
+    want = gather_rows_linear_ref(torch.from_numpy(vol), torch.from_numpy(pos)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
 # ------------------------------------------------ the window linear forward (B7)
 #
 # `csrc/lookup_linear.cu:window_linear_fwd`: each warp owns a tile of 32 or
