@@ -1,10 +1,11 @@
 """Typed model and training configuration for the PyTorch port.
 
-A copy of the JAX package's `anystereo_tpu/config.py` model section (the
-enums, `LiifConfig`, `ModelConfig` and `raft_config`) and of its
-`TrainConfig`, with the same fields, defaults and validation, so one
-configuration value means the same model and schedule in both packages.  The port keeps its own copy rather than importing the JAX
-package.
+A copy of the JAX package's `anystereo_tpu/config.py`: the model section
+(the enums, `LiifConfig`, `ModelConfig` and `raft_config`), `TrainConfig`,
+`MeshConfig`, `DataConfig`, `EvalConfig` and `Config`, with the same fields,
+defaults and validation, so one configuration value means the same model and
+schedule in both packages.  The port keeps its own copy rather than
+importing the JAX package.
 
 The JAX schedule rewrites (`fuse_gru_gates`, `joint_gru_convs`,
 `fast_disp_head`, `fuse_motion_convs`, `batch_lr_matching`) keep the flags
@@ -215,3 +216,48 @@ class TrainConfig:
     def sample_q(self) -> int:
         """Static per-sample query count."""
         return self.inp_size[0] * self.inp_size[1]
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh layout: `data` = batch sharding, `spatial` = H-tiling of
+    images and cost volumes.  The port trains on one card: `train()` raises
+    `NotImplementedError` for `data * spatial > 1`."""
+
+    data: int = 1
+    spatial: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Dataset selection and augmentation."""
+
+    train_datasets: Tuple[str, ...] = ("sceneflow",)
+    root: str = "/datasets"
+    num_workers: int = 8
+    # photometric
+    saturation_range: Tuple[float, float] = (0.0, 1.4)
+    img_gamma: Optional[Tuple[float, float]] = None
+    # spatial
+    spatial_scale: Tuple[float, float] = (-0.2, 0.4)
+    do_flip: Optional[str] = None  # 'h' | 'v' | None
+    yjitter: bool = True
+    eraser_prob: float = 0.5
+
+
+@dataclasses.dataclass(frozen=True)
+class EvalConfig:
+    dataset: str = "sceneflow"
+    valid_iters: int = 32
+    scale_test: float = 1.0  # arbitrary-scale factor (inputs downscaled by it)
+    divis_by: int = 32
+    max_disp_metric: float = 1000.0  # validity ceiling of the metrics
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)

@@ -14,27 +14,40 @@ derives it from the ground truth over all pixels (finite, > 0, < max_disp),
 which Middlebury and ETH3D need (their readers hand out the non-occluded
 mask as `valid`).
 
-Ported here: the padding protocols, `Validator`, `validate_dataset` over any
-dataset object, and the left-right-consistency occlusion provider on arrays.
-Building a dataset by name, the providers that read masks from files, result
-files and image dumps wait for the data readers.  Images are resized by
-`utils/resize` (the port needs no OpenCV).
+Occlusion splits: KITTI compares its disp_occ and disp_noc ground truth;
+Middlebury and ETH3D read mask0nocc.png beside disp0GT.pfm; SceneFlow uses
+the left-right consistency check (`eval/occlusion.occ_mask`, one launch of
+`gather_rows_linear` a frame on the card) when the right view's ground truth
+exists.  Middlebury 2014 (disp0.pfm) has no occlusion ground truth.
+
+`build_eval_dataset` resolves a dataset name to its dataset and protocol,
+`make_train_validate_fn` gives the trainer its validation hook and
+`run_validation` evaluates a checkpoint.  Images are resized by
+`utils/resize` and files read by `data/` (the port needs no OpenCV or PIL).
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import math
+import os
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
+from anystereo_tpu_torch.config import CoreType, ModelConfig
+from anystereo_tpu_torch.data.datasets import ETH3D, KittiMixed, Middlebury, SceneFlowDataset
+from anystereo_tpu_torch.data.frame_utils import read_pfm
+from anystereo_tpu_torch.data.png import read_png
+from anystereo_tpu_torch.eval import reporting
 from anystereo_tpu_torch.eval.metrics import AverageMeterDict, compute_metrics
 from anystereo_tpu_torch.eval.occlusion import occ_mask
 from anystereo_tpu_torch.eval.padder import InputPadder
-from anystereo_tpu_torch.nn.model import AnyStereo
+from anystereo_tpu_torch.nn.model import AnyStereo, build_model
 from anystereo_tpu_torch.ops.coords import make_coord
+from anystereo_tpu_torch.train.state import restore_eval_variables
 from anystereo_tpu_torch.utils.device import model_device, resolve_device
 from anystereo_tpu_torch.utils.resize import resize
 
@@ -126,9 +139,14 @@ def pad_for_fixed_upscale(left, right, up: int, divis: int = 16, device=None):
         float(up)
 
 
+def _lr_occlusion(dl: np.ndarray, dr: np.ndarray, dev) -> np.ndarray:
+    dl, dr = (torch.as_tensor(np.asarray(d), dtype=torch.float32, device=dev)[None] for d in (dl, dr))
+    return occ_mask(dl, dr)[0].cpu().numpy()
+
+
 def lr_consistency_occ_provider(device=None) -> Callable:
     """An occlusion provider for datasets that hold the right view's ground
-    truth (SceneFlow): a pixel is occluded when the right-view disparity
+    truth in memory: a pixel is occluded when the right-view disparity
     warped to the left disagrees with the left one by more than 3 px.  The
     dataset gives the pair as `disparity_pair(index)` → (left [H, W], right
     [H, W]) numpy, or None; the mask is computed on `device`."""
@@ -136,12 +154,61 @@ def lr_consistency_occ_provider(device=None) -> Callable:
 
     def provider(dataset, index) -> Optional[np.ndarray]:
         pair = dataset.disparity_pair(index) if hasattr(dataset, "disparity_pair") else None
-        if pair is None:
-            return None
-        dl, dr = (torch.as_tensor(np.asarray(d), dtype=torch.float32, device=dev)[None] for d in pair)
-        return occ_mask(dl, dr)[0].cpu().numpy()
+        return None if pair is None else _lr_occlusion(*pair, dev)
 
     return provider
+
+
+def kitti_occ_provider(dataset, index) -> Optional[np.ndarray]:
+    """Occlusion mask for KITTI: True where the disp_occ and disp_noc ground
+    truth images differ (the pixels only the occluded ground truth covers)."""
+    occ_path = dataset.disparity_list[index]
+    noc_path = occ_path.replace("disp_occ_0", "disp_noc_0").replace("disp_occ", "disp_noc")
+    if noc_path == occ_path or not os.path.exists(noc_path):
+        return None
+    return read_png(occ_path) != read_png(noc_path)
+
+
+def sceneflow_occ_provider(dataset, index, device=None) -> Optional[np.ndarray]:
+    """SceneFlow: occlusion by left-right consistency of the ground truth
+    PFMs (the right view's beside the left's), computed on `device`
+    (default: the CUDA card)."""
+    left_path = dataset.disparity_list[index]
+    right_path = left_path.replace("/left/", "/right/")
+    if right_path == left_path or not os.path.exists(right_path):
+        return None
+    return _lr_occlusion(read_pfm(left_path), read_pfm(right_path), resolve_device(device))
+
+
+def nocc_mask_occ_provider(dataset, index) -> Optional[np.ndarray]:
+    """Middlebury/ETH3D: occluded = complement of mask0nocc.png beside
+    disp0GT.pfm (`== 255` is non-occluded; a colour mask counts by its
+    luminance).  Middlebury 2014 (disp0.pfm) ships no occlusion ground
+    truth: None, rather than its reader's disp < 1e3 validity mask.  A reader
+    that returns (disp, nocc) gives the mask otherwise."""
+    path = dataset.disparity_list[index]
+    mask_path = path.replace("disp0GT.pfm", "mask0nocc.png")
+    if mask_path != path and os.path.exists(mask_path):
+        return _luminance(read_png(mask_path)) != 255
+    if os.path.basename(path) == "disp0.pfm":
+        return None
+    disp = dataset.reader(path)
+    if isinstance(disp, tuple):
+        _, nocc = disp
+        return ~np.asarray(nocc, bool)
+    return None
+
+
+def _luminance(img: np.ndarray) -> np.ndarray:
+    """PIL's `convert("L")` of a gray, gray+alpha, RGB or RGBA uint8 image:
+    (19595 R + 38470 G + 7471 B + 2^15) >> 16 for colour, the gray channel
+    otherwise."""
+    if img.ndim == 2:
+        return img
+    if img.shape[-1] <= 2:
+        return img[..., 0]
+    x = img[..., :3].astype(np.int64)
+    return ((19595 * x[..., 0] + 38470 * x[..., 1] + 7471 * x[..., 2] + 0x8000) >> 16).astype(np.uint8)
 
 
 class Validator:
@@ -233,12 +300,10 @@ def validate_dataset(
 
     occ_provider(dataset, i) → boolean [H, W] (True = occluded) or None adds
     the `_occ` / `_noc` metrics.  valid_from_gt, eval_others, bucket: see the
-    module docstring and `Validator`.  `model` must lie on `device` (default:
-    the CUDA card).  report_dir / dump_images (result files, colored dumps)
-    are not available in the port yet."""
-    if report_dir is not None or dump_images:
-        raise ValueError("report_dir and dump_images need the result writers of eval/reporting, "
-                         "which the port does not have yet")
+    module docstring and `Validator`.  report_dir: append a line a frame and
+    a summary to `report_dir/result.txt`; with dump_images also write each
+    frame's coloured disparity and error map to `report_dir/output/`.
+    `model` must lie on `device` (default: the CUDA card)."""
     vd = Validator(model, valid_iters, bucket=bucket, device=device)
     dev = vd.device
     meter = AverageMeterDict()
@@ -252,12 +317,109 @@ def validate_dataset(
         else:
             vmask = (np.asarray(valid) > 0) & (gt > 0) & (gt < max_disp)
         occ = occ_provider(dataset, i) if occ_provider is not None else None
-        meter.update(compute_metrics(
+        m = compute_metrics(
             torch.as_tensor(pred, device=dev)[None],
             torch.as_tensor(gt, device=dev)[None],
             torch.as_tensor(vmask, device=dev)[None],
             None if occ is None else torch.as_tensor(np.asarray(occ, bool), device=dev)[None],
-        ))
+        )
+        meter.update(m)
+        if report_dir is not None:
+            name = os.path.basename(os.path.dirname(dataset.image_list[i][0]))
+            name = f"{name}_{i:04d}"
+            reporting.append_result_line(os.path.join(report_dir, "result.txt"), name,
+                                         {k: float(v) for k, v in m.items()})
+            if dump_images:
+                out = os.path.join(report_dir, "output")
+                reporting.dump_disparity_png(out, name, pred)
+                reporting.dump_error_map_png(out, name, pred, gt, vmask)
         if (i + 1) % 20 == 0:
             log.info("validate %d/%d: %s", i + 1, n, meter.mean())
-    return meter.mean()
+    results = meter.mean()
+    if report_dir is not None:
+        reporting.write_summary(os.path.join(report_dir, "result.txt"), results, header="summary")
+    return results
+
+
+def build_eval_dataset(dataset: str, data_root: str, device=None):
+    """Resolve a validation-dataset name to (dataset, fixed_upscale,
+    occ_provider, valid_from_gt), shared by `run_validation` and the
+    in-training validation hook.  valid_from_gt is True for Middlebury and
+    ETH3D (see `validate_dataset`); the SceneFlow occlusion provider computes
+    on `device` (default: the CUDA card)."""
+    fixed_upscale = None
+    if dataset == "sceneflow":
+        ds = SceneFlowDataset(data_root, aug=None, things_test=True)
+    elif dataset == "kitti15":
+        ds = KittiMixed(data_root, data_root, aug=None, mode="valid_15")
+    elif dataset == "kitti12":
+        ds = KittiMixed(data_root, data_root, aug=None, mode="valid_12")
+    elif dataset in ("middlebury_Q_F", "middlebury_H_F"):
+        # the fixed-scale arbitrary-scale protocol: inputs from the Q/H
+        # split, ground truth from the F split, decoded at 4x / 2x
+        src = dataset.split("_")[1]
+        fixed_upscale = 4 if src == "Q" else 2
+        ds = Middlebury(data_root, aug=None, split=src)
+        full = Middlebury(data_root, aug=None, split="F")
+        ds.disparity_list = full.disparity_list
+    elif dataset.startswith("middlebury_"):
+        ds = Middlebury(data_root, aug=None, split=dataset.split("_")[1])
+    elif dataset == "eth3d":
+        ds = ETH3D(data_root, aug=None)
+    else:
+        raise ValueError(dataset)
+
+    occ_provider = None
+    valid_from_gt = False
+    if dataset.startswith("kitti"):
+        occ_provider = kitti_occ_provider
+    elif dataset.startswith("middlebury") or dataset == "eth3d":
+        occ_provider = nocc_mask_occ_provider
+        valid_from_gt = True
+    elif dataset == "sceneflow":
+        occ_provider = functools.partial(sceneflow_occ_provider, device=resolve_device(device))
+    return ds, fixed_upscale, occ_provider, valid_from_gt
+
+
+def _divis(cfg: ModelConfig) -> int:
+    return 32 if cfg.core is CoreType.IGEV else 16
+
+
+def make_train_validate_fn(model_cfg: ModelConfig, dataset: str, data_root: str, valid_iters: int = 32,
+                           max_images: Optional[int] = None, device=None):
+    """A `validate_fn(state, step)` for the training loop: the held-out split
+    of `dataset` with the state's current weights; returns the metric dict.
+    `model_cfg` is the trained model's configuration; the state's model must
+    lie on `device` (default: the CUDA card)."""
+    ds, fixed_upscale, occ_provider, valid_from_gt = build_eval_dataset(dataset, data_root, device)
+    divis = _divis(model_cfg)
+
+    def validate_fn(state, step: int) -> Dict[str, float]:
+        return validate_dataset(
+            state.model, ds, valid_iters, divis=divis, max_images=max_images,
+            fixed_upscale=fixed_upscale, occ_provider=occ_provider, valid_from_gt=valid_from_gt,
+            device=device)
+
+    return validate_fn
+
+
+def run_validation(
+    model_cfg: ModelConfig,
+    ckpt_dir: str,
+    dataset: str,
+    data_root: str,
+    valid_iters: int = 32,
+    scale_test: float = 1.0,
+    max_images: Optional[int] = None,
+    eval_others: bool = False,
+    bucket: Optional[int] = None,
+    device=None,
+) -> Dict[str, float]:
+    """Build the dataset and the model on `device` (default: the CUDA card),
+    load the latest checkpoint's weights from `ckpt_dir`, validate."""
+    ds, fixed_upscale, occ_provider, valid_from_gt = build_eval_dataset(dataset, data_root, device)
+    model = restore_eval_variables(ckpt_dir, build_model(model_cfg, device))
+    return validate_dataset(
+        model, ds, valid_iters, scale_test, _divis(model_cfg), max_images=max_images,
+        fixed_upscale=fixed_upscale, occ_provider=occ_provider, valid_from_gt=valid_from_gt,
+        eval_others=eval_others, bucket=bucket, device=device)

@@ -1,4 +1,4 @@
-"""Device selection for the port's entry points.
+"""Device and process selection for the port's entry points.
 
 Entry points run on the CUDA card unless the caller asks for the CPU by
 name.  There is no silent fallback: without a card and without an explicit
@@ -7,7 +7,7 @@ CPU request they raise.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -32,3 +32,12 @@ def model_device(model: torch.nn.Module, device: Optional[Union[str, torch.devic
     if found.type != dev.type:
         raise RuntimeError(f"the model lies on {found}, the caller asked for {dev}")
     return found
+
+
+def process_topology() -> Tuple[int, int]:
+    """(rank, world size) of the initialised `torch.distributed` group, else
+    (0, 1): which slice of the data a process loads and which files it
+    owns beside a checkpoint."""
+    if torch.distributed.is_available() and torch.distributed.is_initialized():
+        return torch.distributed.get_rank(), torch.distributed.get_world_size()
+    return 0, 1

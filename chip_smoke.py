@@ -46,6 +46,7 @@ Phases (any failure raises, and the exit code is not 0):
            of the one PyTorch call that computes the same function (where
            there is one) and the least time the card could take: the aligned
            pyramid lookup's forward and backward (IGEV shapes at 2 levels,
+           the forward also at the trainer's 544x960 SceneFlow validation,
            RAFT shapes at 4), the window-pyramid lookups in their three
            layouts, forward and backward, held to their plain versions bit
            for bit and to each other (the pixel-major forward and its
@@ -56,8 +57,9 @@ Phases (any failure raises, and the exit code is not 0):
            single-level linear lookups, forward and backward, bit for bit:
            `gather_window_linear` at the eight level shapes of the "levels"
            flavor's eval forwards and the four of its training step,
-           `gather_rows_linear` at the evaluator's occlusion shape
-           (375 rows of 1242 positions) and at 300 x 312 x 9, each beside
+           `gather_rows_linear` at the evaluator's occlusion shapes
+           (375 rows of 1242 positions, SceneFlow's 540 of 960) and at
+           300 x 312 x 9, each beside
            `grid_sample` (forward) and `grid_sampler_2d_backward`, the one
            PyTorch call that computes the same lerp (the window forward also
            at path-shaped starts; it, both backwards and the rows forward
@@ -88,7 +90,23 @@ Phases (any failure raises, and the exit code is not 0):
            batch, one warm-up and three timed steps with the exact launch
            counts of each: the IGEV model ("aligned") and the RAFT model
            ("classify"); one timed step of the IGEV model under "levels";
-6. check   fp32 (TF32 off, cuDNN deterministic), 4 iterations: the IGEV and
+6. trainer training from dataset files: a SceneFlow tree (8 + 2 pairs of
+           540x960 PNGs with left and right PFM disparities) and a KITTI
+           2015 tree (2 frames of 375x1242, 16-bit disparity PNGs) written
+           by the port's writers; `fetch_dataset(["sceneflow"])` in
+           multi-scale mode at `TrainConfig()` defaults, `PrefetchLoader`
+           (batch 2, 4 workers, seed 1234), `train()` for 4 steps with a
+           checkpoint and a 2-frame SceneFlow validation every 2 steps, a
+           second `train()` that resumes at step 4 and runs to 6 (its first
+           state bit for bit the saved one, its learning rates the straight
+           schedule's), a checkpoint restored on the card and on the CPU,
+           and `run_validation` of the checkpoint on SceneFlow (within 1e-3
+           px of the last in-training EPE) and KITTI 2015; exact launches
+           per step (B1 32 + 32, gather 48, scatter 48) and per validation
+           frame (B1 64, B8 1 on SceneFlow); `read_png` times of both frame
+           kinds, unfiltered and Paeth-filtered; the loader's samples/s with
+           2 and with 4 samples in flight, and one sample alone;
+7. check   fp32 (TF32 off, cuDNN deterministic), 4 iterations: the IGEV and
            RAFT eval forwards through the kernels against the same with every
            lookup forced to its plain version, under each flavor, and the
            flavors against "aligned"; the occlusion mask through the kernel
@@ -314,12 +332,21 @@ def _lookup_shapes():
     """(call, rows, length, levels) of every lookup the main paths make: the
     IGEV pairs (GEV rows of 48, correlation rows of W/4; 2 levels) and the
     RAFT correlation alone (4 levels), at the eval (batch 1, 96x312 cells) and
-    the training size (batch 2, 40x80 cells)."""
+    the training size (batch 2, 40x80 cells); and the IGEV pair of the
+    trainer's SceneFlow validation (batch 1, 136x240 cells)."""
     h4, w4, groups, d = H // 4, W // 4, 8, 192 // 4
     cells, tw4 = 2 * (TRAIN_H // 4) * (TRAIN_W // 4), TRAIN_W // 4
+    sh4, sw4 = _sf_cells()
     return (("gev", h4 * w4 * groups, d, IGEV_LEVELS), ("corr", h4 * w4, w4, IGEV_LEVELS),
             ("train_gev", cells * groups, d, IGEV_LEVELS), ("train_corr", cells, tw4, IGEV_LEVELS),
-            ("raft_corr", h4 * w4, w4, RAFT_LEVELS), ("raft_train_corr", cells, tw4, RAFT_LEVELS))
+            ("raft_corr", h4 * w4, w4, RAFT_LEVELS), ("raft_train_corr", cells, tw4, RAFT_LEVELS),
+            ("sf_gev", sh4 * sw4 * groups, d, IGEV_LEVELS), ("sf_corr", sh4 * sw4, sw4, IGEV_LEVELS))
+
+
+def _sf_cells():
+    """The correlation cells of a SceneFlow frame in validation: 540x960
+    padded to a multiple of 32 (544x960), at a quarter."""
+    return -(-SF_H // 32) * 8, -(-SF_W // 32) * 8
 
 
 def _positions(torch, gen, rows, length):
@@ -336,12 +363,16 @@ def _positions(torch, gen, rows, length):
 
 def _path_positions(torch, call, rows):
     """Positions shaped as the main path gives them: a smooth disparity field
-    d over the cells (4 to 40 cells; eval 1x96x312, training 2x40x80); the
+    d over the cells (4 to 40 cells; eval 1x96x312, training 2x40x80,
+    SceneFlow validation 1x136x240); the
     GEV volume has one x = d for each run of 8 consecutive rows (a cell's
     groups), the correlation x = column - d."""
     import math
 
-    batch, h4, w4 = (TRAIN_BATCH, TRAIN_H // 4, TRAIN_W // 4) if "train" in call else (1, H // 4, W // 4)
+    if "train" in call:
+        batch, h4, w4 = TRAIN_BATCH, TRAIN_H // 4, TRAIN_W // 4
+    else:
+        batch, (h4, w4) = 1, _sf_cells() if call.startswith("sf_") else (H // 4, W // 4)
     hh = torch.arange(h4, device=DEVICE, dtype=torch.float32)[:, None] / h4
     ww = torch.arange(w4, device=DEVICE, dtype=torch.float32)[None, :]
     d = torch.stack([22 + 18 * torch.sin(2 * math.pi * (1.5 * ww / w4 + 0.5 * hh + 0.3 * b))
@@ -434,7 +465,7 @@ def _kernels_lookup_fwd(torch):
     # PyTorch call computes this lookup
     return _record("gather_pyramid_aligned", "anystereo_tpu_torch/csrc/lookup_aligned.cu",
                    "anystereo_tpu/ops/pallas/lookup_kernel.py:1103", calls, main=(0, 1),
-                   paths=("eval_igev", "train_igev", "eval_raft"))
+                   paths=("eval_igev", "train_igev", "eval_raft", "trainer"))
 
 
 def _bound(nbytes, flops):
@@ -524,7 +555,7 @@ def _kernels_lookup_bwd(torch):
         calls.append(res)
     return _record("gather_pyramid_aligned_bwd", "anystereo_tpu_torch/csrc/lookup_aligned.cu",
                    "anystereo_tpu/ops/pallas/lookup_kernel.py:965", calls, main=(0, 1),
-                   paths=("train_igev",))
+                   paths=("train_igev", "trainer"))
 
 
 def _kernels_window(torch):
@@ -549,7 +580,8 @@ def _kernels_window(torch):
     gen = torch.Generator(device=DEVICE).manual_seed(6)
     radius = (TAPS - 1) // 2
     calls = {name + tag: [] for name, *_ in layouts for tag in ("", "_bwd")}
-    for call, rows, length, levels in _lookup_shapes():
+    shapes = [c for c in _lookup_shapes() if not c[0].startswith("sf_")]  # "aligned" only there
+    for call, rows, length, levels in shapes:
         vol = torch.randn(rows, length, device=DEVICE, generator=gen)
         x, x_main = _positions(torch, gen, rows, length)
         scales = torch.tensor([2.0 ** -lvl for lvl in range(levels)], device=DEVICE)
@@ -621,7 +653,7 @@ def _kernels_window(torch):
                              lambda: tw.gather_pyramid_window_pm_bwd_ref(starts["path"], cot, length, TAPS),
                              calls["gather_pyramid_window_pm_bwd"][-1]["bytes"]))
         del vol, vol_t, cot, results
-    order = [c[0] for c in _lookup_shapes()]
+    order = [c[0] for c in shapes]
     records = []
     for name, _, _, line_fwd, line_bwd, vol_t, out_t in layouts:
         system = name == "gather_pyramid_window_pm"
@@ -826,7 +858,7 @@ def _kernels_gather(torch):
     src = "anystereo_tpu_torch/csrc/gather_rows.cu"
     # per decode all three tables go through the gather forward and the
     # scatter backward
-    paths = ("train_igev", "train_raft")
+    paths = ("train_igev", "train_raft", "trainer")
     return [
         _record("gather_rows", src, "anystereo_tpu/ops/pallas/gather_kernel.py:319", fwd,
                 main=(0, 1, 2), paths=paths, library=True),
@@ -998,11 +1030,13 @@ def _kernels_linear(torch):
                        lambda: tl.gather_window_linear_bwd(base_main[:1], cot[:1], length, TAPS))
         del vol, cot, lib_fwd, lib_bwd
 
-    # arbitrary positions: the evaluator's occlusion warp, and the small op shape
+    # arbitrary positions: the evaluator's occlusion warp (KITTI-sized frames,
+    # and SceneFlow's in the trainer's validation), and the small op shape
     rows_fwd, rows_bwd = [], []
-    for call, rows, length, taps in (("occ_mask", EVAL_H, EVAL_W, EVAL_W), ("op_300x312x9", 300, 312, 9)):
+    for call, rows, length, taps in (("occ_mask", EVAL_H, EVAL_W, EVAL_W), ("op_300x312x9", 300, 312, 9),
+                                     ("sf_occ_mask", SF_H, SF_W, SF_W)):
         vol = torch.rand(rows, length, device=DEVICE, generator=gen) * 60
-        if call == "occ_mask":  # x - disparity, as `warp_disparity` forms it
+        if call.endswith("occ_mask"):  # x - disparity, as `warp_disparity` forms it
             pos_main = torch.arange(length, device=DEVICE, dtype=torch.float32) - vol
         else:
             pos_main = torch.rand(rows, taps, device=DEVICE, generator=gen) * length
@@ -1061,7 +1095,7 @@ def _kernels_linear(torch):
         _record("gather_window_linear_bwd", src, f"{jax_file}:155", win_bwd, main=train_iteration,
                 paths=("train_levels",), library=True),
         _record("gather_rows_linear", src, f"{jax_file}:1137", rows_fwd, main=(0,),
-                paths=("validate",), library=True),
+                paths=("validate", "trainer"), library=True),
         _record("gather_rows_linear_bwd", src, f"{jax_file}:63", rows_bwd, main=(0,), paths=("op",),
                 library=True),
     ]
@@ -1385,6 +1419,371 @@ def phase_train(torch, kernels, core, flavor, steps=TRAIN_STEPS):
 
 
 # ----------------------------------------------------------------- phase 6
+
+
+SF_H, SF_W, SF_TRAIN, SF_TEST = 540, 960, 8, 2  # SceneFlow's frame size; pairs of the tree
+KITTI_FRAMES = 2
+TRAINER_STEPS, TRAINER_RESUMED, TRAINER_CKPT_EVERY, TRAINER_VAL_FRAMES = 4, 6, 2, 2
+TRAINER_WORKERS = 4
+LOADER_BATCHES = 8  # batches the loader makes alone, timed
+LOADER_SERIAL = 4  # samples made one at a time on one thread, timed
+EPE_ATOL = 1e-3  # px, run_validation from the checkpoint against the in-training validation
+
+
+def _stereo_pair(np, rng, h, w, dmin, dmax):
+    """A blurred-noise texture and a smooth disparity field in [dmin, dmax];
+    the right view is the texture resampled at x + d (so left(x) matches
+    right(x - d))."""
+    from scipy.ndimage import gaussian_filter, map_coordinates
+
+    margin = int(dmax) + 2
+    tex = gaussian_filter(rng.rand(h, w + margin, 3).astype(np.float32), (1.2, 1.2, 0))
+    tex = (tex - tex.min()) / (tex.max() - tex.min()) * 255
+    field = gaussian_filter(rng.rand(h // 8, w // 8).astype(np.float32), 3)
+    field = (field - field.min()) / max(float(np.ptp(field)), 1e-6)
+    disp = np.kron(field, np.ones((8, 8), np.float32))
+    disp = np.pad(disp, ((0, h - disp.shape[0]), (0, w - disp.shape[1])), mode="edge")
+    disp = dmin + (dmax - dmin) * gaussian_filter(disp, 4)
+    left = tex[:, :w]
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    right = np.stack([map_coordinates(tex[..., c], [ys, xs + disp], order=1) for c in range(3)], -1)
+    return left.astype(np.uint8), np.clip(right, 0, 255).astype(np.uint8), disp.astype(np.float32)
+
+
+def _write_trees(np, root):
+    """A SceneFlow tree (frames_finalpass and disparity, left and right views,
+    SF_TRAIN + SF_TEST pairs at 540x960) and a KITTI 2015 tree of
+    KITTI_FRAMES frames at 375x1242 with 16-bit disp_occ_0 / disp_noc_0,
+    written by the port's own writers."""
+    from anystereo_tpu_torch.data.frame_utils import write_pfm
+    from anystereo_tpu_torch.data.png import write_png
+
+    rng = np.random.RandomState(1234)
+    sf = os.path.join(root, "sceneflow")
+    for split, n in (("TRAIN", SF_TRAIN), ("TEST", SF_TEST)):
+        for i in range(n):
+            left, right, disp = _stereo_pair(np, rng, SF_H, SF_W, 8.0, 60.0)
+            for view, img in (("left", left), ("right", right)):
+                d = os.path.join(sf, "frames_finalpass", split, "A", "0000", view)
+                os.makedirs(d, exist_ok=True)
+                write_png(os.path.join(d, f"{i:04d}.png"), img)
+                d = os.path.join(sf, "disparity", split, "A", "0000", view)
+                os.makedirs(d, exist_ok=True)
+                write_pfm(os.path.join(d, f"{i:04d}.pfm"), disp)
+    kitti = os.path.join(root, "kitti15")
+    for i in range(KITTI_FRAMES):
+        left, right, disp = _stereo_pair(np, rng, EVAL_H, EVAL_W, 5.0, 80.0)
+        occ = np.where(rng.rand(EVAL_H, EVAL_W) < 0.3, 0, np.round(disp * 256)).astype(np.uint16)
+        noc = occ.copy()
+        noc[:, : EVAL_W // 8] = 0  # a band only the occluded ground truth covers
+        for sub, img in (("image_2", left), ("image_3", right), ("disp_occ_0", occ), ("disp_noc_0", noc)):
+            d = os.path.join(kitti, "training", sub)
+            os.makedirs(d, exist_ok=True)
+            write_png(os.path.join(d, f"{i:06d}_10.png"), img)
+    return sf, kitti
+
+
+def _read_png_ms(np, root, sf, kitti, card):
+    """A line of `read_png`'s times on a SceneFlow frame and a KITTI 16-bit
+    disparity, as the tree's writer filters them (None) and with every row
+    Paeth-filtered."""
+    from anystereo_tpu_torch.data.png import read_png, write_png
+
+    frames = {f"{SF_H}x{SF_W} RGB": os.path.join(sf, "frames_finalpass", "TRAIN", "A", "0000", "left",
+                                                  "0000.png"),
+              f"{EVAL_H}x{EVAL_W} 16-bit": os.path.join(kitti, "training", "disp_occ_0", "000000_10.png")}
+    out = {}
+    for kind, path in frames.items():
+        img = read_png(path)
+        paeth = os.path.join(root, "paeth.png")
+        write_png(paeth, img, filter_type=4)
+        for filt, p in (("None", path), ("Paeth", paeth)):
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                got = read_png(p)
+                times.append((time.perf_counter() - t0) * 1e3)
+            if not np.array_equal(got, img):
+                raise AssertionError(f"read_png of the {filt}-filtered {kind} file disagrees")
+            out[f"{kind}, {filt}"] = min(times)
+    return ("[trainer] read_png ms (best of 3, on the card's host): " +
+            ", ".join(f"{k} {v:.1f}" for k, v in out.items()) + f"; {card}")
+
+
+def phase_trainer(torch, kernels, card):
+    """The training entry point from dataset files at full width: a SceneFlow
+    tree on disk → `fetch_dataset` in multi-scale mode at `TrainConfig()`
+    defaults → `PrefetchLoader` (batch 2, 4 workers, seed 1234) → `train()`
+    for TRAINER_STEPS steps, a checkpoint and a SceneFlow validation of
+    TRAINER_VAL_FRAMES frames every TRAINER_CKPT_EVERY steps; then a second
+    `train()` on the same checkpoint directory that resumes at step
+    TRAINER_STEPS and runs to TRAINER_RESUMED; then `run_validation` of the
+    checkpoint on SceneFlow and on KITTI 2015.  The launches of every step
+    and of every validation frame are checked exactly; the steps are timed
+    (synchronised) by a wrapper around the trainer's step."""
+    import tempfile
+
+    import numpy as np
+
+    from anystereo_tpu_torch.config import Config, ModelConfig, TrainConfig
+    from anystereo_tpu_torch.data.augment import AugmentorConfig
+    from anystereo_tpu_torch.data.datasets import fetch_dataset
+    from anystereo_tpu_torch.data.loader import PrefetchLoader, to_device
+    from anystereo_tpu_torch.eval.validate import make_train_validate_fn, run_validation
+    from anystereo_tpu_torch.nn.model import build_model
+    from anystereo_tpu_torch.train import trainer
+    from anystereo_tpu_torch.train.optimizer import one_cycle_schedule
+    from anystereo_tpu_torch.train.state import (
+        create_train_state,
+        restore_checkpoint,
+        save_checkpoint,
+    )
+
+    names = [k.__name__ for k in kernels]
+    it = TrainConfig().train_iters
+    per_step = dict.fromkeys(names, 0)
+    per_step.update(gather_pyramid_aligned=2 * it, gather_pyramid_aligned_bwd=2 * it, gather_rows=3 * it,
+                    scatter_rows_add=3 * it)
+    per_frame = dict.fromkeys(names, 0)
+    per_frame.update(gather_pyramid_aligned=2 * ITERS, gather_rows_linear=1)
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        sf, kitti = _write_trees(np, root)
+        lines = [f"[trainer] wrote the SceneFlow tree ({SF_TRAIN} + {SF_TEST} pairs of {SF_H}x{SF_W}) "
+                 f"and the KITTI 2015 tree ({KITTI_FRAMES} frames of {EVAL_H}x{EVAL_W}) in "
+                 f"{time.perf_counter() - t0:.1f} s",
+                 _read_png_ms(np, root, sf, kitti, card)]
+        ckpt_dir = os.path.join(root, "ckpt")
+        cfg = Config(train=TrainConfig(ckpt_dir=ckpt_dir, ckpt_every=TRAINER_CKPT_EVERY))
+        tcfg = cfg.train
+        aug = AugmentorConfig(crop_size=tcfg.inp_size, yjitter=cfg.data.yjitter)
+        ds = fetch_dataset(["sceneflow"], {"sceneflow": sf}, aug, multi_scale=tcfg.multi_scale,
+                           scale_min=tcfg.scale_min, scale_max=tcfg.scale_max, inp_size=tcfg.inp_size)
+        if len(ds) != SF_TRAIN:
+            raise AssertionError(f"fetch_dataset found {len(ds)} SceneFlow training pairs, not {SF_TRAIN}")
+        inner_validate = make_train_validate_fn(cfg.model, "sceneflow", sf,
+                                                max_images=TRAINER_VAL_FRAMES)
+        schedule = one_cycle_schedule(tcfg.lr, tcfg.num_steps, tcfg.warmup_frac)
+        log = {"steps": [], "val": [], "first": None}
+
+        def validate_fn(state, step):
+            before = _counts(kernels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = inner_validate(state, step)
+            torch.cuda.synchronize()
+            log["val"].append((step, res, (time.perf_counter() - t0) * 1e3))
+            _expect_launches(kernels, before, {k: TRAINER_VAL_FRAMES * v for k, v in per_frame.items()},
+                             f"the in-training validation at step {step}")
+            return res
+
+        real_make = trainer.make_train_step
+
+        def timed_make(model, tcfg_, device=None):
+            step_fn = real_make(model, tcfg_, device=device)
+
+            def step(state, batch):
+                if log["first"] is None:  # the state as train() hands it to its first step
+                    log["first"] = _state_copy(state)
+                before = _counts(kernels)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = step_fn(state, batch)
+                torch.cuda.synchronize()
+                log["steps"].append((state.step, (time.perf_counter() - t0) * 1e3, metrics))
+                _expect_launches(kernels, before, per_step, f"trainer step {state.step}")
+                return state, metrics
+
+            return step
+
+        for k in kernels:
+            k.launches = 0
+        runs = []
+        trainer.make_train_step = timed_make
+        try:
+            for max_steps in (TRAINER_STEPS, TRAINER_RESUMED):
+                log.update(first=None, wait=[])
+                loader = PrefetchLoader(ds, tcfg.batch_size, num_workers=TRAINER_WORKERS, seed=tcfg.seed)
+                n_steps = len(log["steps"])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state = trainer.train(cfg, _Timed(loader, log), validate_fn, max_steps=max_steps)
+                torch.cuda.synchronize()
+                runs.append(dict(state=state, first=log["first"], wall=(time.perf_counter() - t0) * 1e3,
+                                 steps=log["steps"][n_steps:], loader_wait=sum(log["wait"]),
+                                 batches=len(log["wait"])))
+        finally:
+            trainer.make_train_step = real_make
+        # the resumed run started from the saved state, bit for bit
+        saved, resumed = runs[0]["state"], runs[1]["first"]
+        if resumed["step"] != TRAINER_STEPS:
+            raise AssertionError(f"the second train() started at step {resumed['step']}, not {TRAINER_STEPS}")
+        diff = _state_diff(_state_copy(saved), resumed)
+        if diff:
+            raise AssertionError(f"the resumed state differs from the saved one: {diff[:5]}")
+        for step_no, ms, metrics in log["steps"]:
+            loss, gnorm = float(metrics["loss"]), metrics["grad_norm"]
+            if not (np.isfinite(loss) and 0 < gnorm < float("inf")) or metrics["nonfinite_skips"]:
+                raise AssertionError(f"trainer step {step_no}: loss {loss}, grad_norm {gnorm}, skips "
+                                     f"{metrics['nonfinite_skips']}")
+            if metrics["lr"] != schedule(step_no - 1):
+                raise AssertionError(f"trainer step {step_no}: lr {metrics['lr']} is not the straight "
+                                     f"schedule's {schedule(step_no - 1)}")
+        if [s for s, _, _ in log["steps"]] != list(range(1, TRAINER_RESUMED + 1)):
+            raise AssertionError(f"trainer steps taken: {[s for s, _, _ in log['steps']]}")
+        if [s for s, _, _ in log["val"]] != list(range(TRAINER_CKPT_EVERY, TRAINER_RESUMED + 1,
+                                                        TRAINER_CKPT_EVERY)):
+            raise AssertionError(f"validations at steps {[s for s, _, _ in log['val']]}")
+        state = runs[1]["state"]
+        # the loader alone: LOADER_BATCHES batches, the start of its threads included
+        t0 = time.perf_counter()
+        it_ = iter(PrefetchLoader(ds, tcfg.batch_size, num_workers=TRAINER_WORKERS, seed=tcfg.seed + 1))
+        for _ in range(LOADER_BATCHES):
+            next(it_)
+        loader_rate = LOADER_BATCHES * tcfg.batch_size / (time.perf_counter() - t0)
+        it_.close()
+        # what bounds it: the loader maps one batch at a time, so only
+        # batch_size samples are in flight; beside it one sample at a time on
+        # this thread, and the loader with as many in flight as it has workers
+        t0 = time.perf_counter()
+        for i in range(LOADER_SERIAL):
+            ds.__getitem__(i, rng=np.random.RandomState(i))
+        serial_ms = (time.perf_counter() - t0) * 1e3 / LOADER_SERIAL
+        wide_batches = LOADER_BATCHES * tcfg.batch_size // TRAINER_WORKERS
+        t0 = time.perf_counter()
+        it_ = iter(PrefetchLoader(ds, TRAINER_WORKERS, num_workers=TRAINER_WORKERS, seed=tcfg.seed + 2))
+        for _ in range(wide_batches):
+            next(it_)
+        wide_rate = wide_batches * TRAINER_WORKERS / (time.perf_counter() - t0)
+        it_.close()
+        # the copy of one batch to the card, as the trainer's prefetch makes it
+        batch = ds.__getitem__(0, rng=np.random.RandomState(0))
+        batch = {k: np.stack([v] * tcfg.batch_size) for k, v in batch.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        to_device(batch)
+        torch.cuda.synchronize()
+        copy_ms = (time.perf_counter() - t0) * 1e3
+        # checkpoint cost, and the card's checkpoint restored on the CPU
+        extra = os.path.join(root, "extra")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_checkpoint(extra, state)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        mb = os.path.getsize(path) / 2**20
+        fresh = create_train_state(build_model(cfg.model, seed=7), tcfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restore_checkpoint(extra, fresh)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        diff = _state_diff(_state_copy(state), _state_copy(fresh))
+        on_cpu = restore_checkpoint(extra, create_train_state(build_model(cfg.model, "cpu", seed=7), tcfg, "cpu"))
+        diff += _state_diff(_state_copy(state), _state_copy(on_cpu))
+        if diff:
+            raise AssertionError(f"a checkpoint restored on the card or the CPU differs: {diff[:5]}")
+        del fresh, on_cpu
+        # evaluate the checkpoint by dataset name
+        before = _counts(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sf_metrics = run_validation(ModelConfig(), ckpt_dir, "sceneflow", sf, max_images=TRAINER_VAL_FRAMES)
+        torch.cuda.synchronize()
+        sf_ms = (time.perf_counter() - t0) * 1e3 / TRAINER_VAL_FRAMES
+        _expect_launches(kernels, before, {k: TRAINER_VAL_FRAMES * v for k, v in per_frame.items()},
+                         "run_validation on SceneFlow")
+        last = log["val"][-1][1]
+        if abs(sf_metrics["epe"] - last["epe"]) > EPE_ATOL:
+            raise AssertionError(f"run_validation's EPE {sf_metrics['epe']} against the step-"
+                                 f"{TRAINER_RESUMED} validation's {last['epe']}")
+        before = _counts(kernels)
+        kitti_metrics = run_validation(ModelConfig(), ckpt_dir, "kitti15", kitti, max_images=KITTI_FRAMES)
+        _expect_launches(kernels, before, {**dict.fromkeys(names, 0),
+                                           "gather_pyramid_aligned": KITTI_FRAMES * 2 * ITERS},
+                         "run_validation on KITTI 2015")
+        for name, m in (("sceneflow", sf_metrics), ("kitti15", kitti_metrics)):
+            bad = [k for k, v in m.items() if not np.isfinite(v)]
+            if bad or "epe_occ" not in m:
+                raise AssertionError(f"run_validation on {name}: {m}")
+    launches = {k.__name__: k.launches for k in kernels}
+    steps_ms = [ms for run in runs for ms in [s[1] for s in run["steps"]][1:]]  # warm-up of each run excluded
+    step_ms = sum(steps_ms) / len(steps_ms)
+    val_ms = [sum(v[2] for v in log["val"] if lo < v[0] <= hi)
+              for lo, hi in ((0, TRAINER_STEPS), (TRAINER_STEPS, TRAINER_RESUMED))]
+    wait_ms = sum(r["loader_wait"] for r in runs) / sum(r["batches"] for r in runs)
+    lines.append(f"[trainer] train() from files, IGEV `ModelConfig()`, batch {tcfg.batch_size} of "
+         f"{tcfg.inp_size[0]}x{tcfg.inp_size[1]} at scales {tcfg.scale_min}-{tcfg.scale_max}, Q "
+         f"{tcfg.sample_q}, {it} iters, bf16: {step_ms:.2f} ms/step over {len(steps_ms)} steps "
+         f"({', '.join(f'{t:.2f}' for t in steps_ms)}; the first step of each run excluded); losses "
+         f"{[round(float(s[2]['loss']), 4) for s in log['steps']]}; {card}")
+    runs_wall = ", ".join(f"{r['wall']:.0f}" for r in runs)
+    runs_steps = ", ".join(f"{sum(s[1] for s in r['steps']):.0f}" for r in runs)
+    lines.append(f"[trainer] host share: {wait_ms:.1f} ms a batch waiting on the loader and {copy_ms:.2f} ms "
+         f"copying it to the card, {(wait_ms + copy_ms) / (wait_ms + copy_ms + step_ms):.1%} of a step; "
+         f"train() walls {runs_wall} ms, of it steps {runs_steps} ms and validations "
+         f"{', '.join(f'{v:.0f}' for v in val_ms)} ms; the loader alone {loader_rate:.2f} samples/s "
+         f"({TRAINER_WORKERS} workers, {LOADER_BATCHES} batches of {tcfg.batch_size}, so {tcfg.batch_size} samples "
+         f"in flight; thread start included), {wide_rate:.2f} with {TRAINER_WORKERS} in flight ({wide_batches} "
+         f"batches of {TRAINER_WORKERS}), one sample alone on one thread {serial_ms:.1f} ms "
+         f"({1e3 / serial_ms:.2f} samples/s); {card}")
+    lines.append(f"[trainer] checkpoint {mb:.1f} MB: save {save_ms:.1f} ms, restore {restore_ms:.1f} ms; "
+         f"validation {sum(v[2] for v in log['val']) / len(log['val']) / TRAINER_VAL_FRAMES:.2f} ms/frame "
+         f"in training, run_validation {sf_ms:.2f} ms/frame; EPE at steps "
+         f"{[(v[0], round(v[1]['epe'], 4)) for v in log['val']]}, run_validation "
+         f"{sf_metrics['epe']:.4f} (SceneFlow), {kitti_metrics['epe']:.4f} (KITTI, epe_occ "
+         f"{kitti_metrics['epe_occ']:.4f}); launches {({k: v for k, v in launches.items() if v})}; {card}")
+    for line in lines:
+        _log(line)
+    # kept beside kernels.json: the kernels line pushes these out of a log
+    # that keeps only the end of the output
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "trainer.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return launches
+
+
+class _Timed:
+    """A loader whose iterator records, in log["wait"], how long each fetch
+    of a batch took."""
+
+    def __init__(self, loader, log):
+        self.loader, self.log = loader, log
+
+    def __iter__(self):
+        it = iter(self.loader)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                batch = next(it)
+                self.log["wait"].append((time.perf_counter() - t0) * 1e3)
+                yield batch
+        finally:
+            it.close()
+
+
+def _state_copy(state):
+    """A host copy of a train state's parameters, moments and counters."""
+    opt = state.optimizer
+    return {"step": state.step, "count": opt.count, "skips": (opt.notfinite_count, opt.total_notfinite),
+            "params": {n: p.detach().cpu().clone() for n, p in state.model.named_parameters()},
+            "buffers": {n: b.detach().cpu().clone() for n, b in state.model.named_buffers()},
+            "mu": [m.cpu().clone() for m in opt.mu], "nu": [m.cpu().clone() for m in opt.nu]}
+
+
+def _state_diff(a, b):
+    """The names of what differs between two `_state_copy`s, bit for bit."""
+    import torch
+
+    out = [k for k in ("step", "count", "skips") if a[k] != b[k]]
+    for group in ("params", "buffers"):
+        out += [f"{group}.{n}" for n in a[group] if not torch.equal(a[group][n], b[group][n])]
+    out += [f"mu[{i}]" for i, (x, y) in enumerate(zip(a["mu"], b["mu"])) if not torch.equal(x, y)]
+    out += [f"nu[{i}]" for i, (x, y) in enumerate(zip(a["nu"], b["nu"])) if not torch.equal(x, y)]
+    return out
+
+
+# ----------------------------------------------------------------- phase 7
 
 
 @contextlib.contextmanager
@@ -1930,6 +2329,8 @@ def main(argv) -> int:
     if profile:
         phase_profile_train(torch, *trained, flavor="levels")
     del trained
+    torch.cuda.empty_cache()
+    by_path["trainer"] = phase_trainer(torch, kernels, card)
     torch.cuda.empty_cache()
     phase_check(torch, kernels)
     if "--spread" in argv:

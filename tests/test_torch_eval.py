@@ -1,7 +1,10 @@
 """The evaluation entry point of the PyTorch port vs the JAX package:
 `InputPadder`, the metrics, the left-right-consistency occlusion mask, the
 padding protocols, `utils/resize` against OpenCV, `Validator.infer`,
-`validate_dataset` and `make_eval_step`.
+`validate_dataset` and `make_eval_step`; and the file side of evaluation: the
+occlusion providers that read ground-truth files, `build_eval_dataset` by
+name, `run_validation` of a checkpoint, the result file and the dumped
+images (`eval/reporting.py`, `eval/visualization.py`).
 
 The model cases run the IGEV model at `max_disp` 32 in fp32 with 2
 iterations on 30x61 frames (padded to 32x64 by the evaluator), on flax
@@ -15,7 +18,9 @@ bucketing): 1e-3 px, the whole-forward tolerance of `tests/test_torch_model.py`.
 Where the port's resize feeds the model and OpenCV feeds the JAX one
 (`scale_test` 1.5, `eval_others`), the inputs differ by up to 1e-4 of 255; the
 band stays 1e-3 px (measured 2e-5 px, as with identical inputs).
-`validate_dataset`: every metric key within 1e-4.
+`validate_dataset`: every metric key within 1e-4.  Occlusion masks, dataset
+lists, the result file's bytes, the colour maps and `run_validation` against
+`validate_dataset` with the same weights: exact.
 """
 
 import numpy as np
@@ -32,7 +37,8 @@ from anystereo_tpu.eval import validate as jval
 from anystereo_tpu.eval.padder import InputPadder as JaxPadder
 from anystereo_tpu.nn.model import AnyStereo as JaxAnyStereo
 from anystereo_tpu.train.step import make_eval_step as jax_make_eval_step
-from anystereo_tpu_torch.config import ModelConfig
+from anystereo_tpu_torch.config import ModelConfig, TrainConfig
+from anystereo_tpu_torch.data.png import read_png
 from anystereo_tpu_torch.eval import metrics as tmet
 from anystereo_tpu_torch.eval import occlusion as tocc
 from anystereo_tpu_torch.eval import validate as tval
@@ -340,7 +346,9 @@ def test_validate_dataset_matches_jax(models, valid_from_gt):
         np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-4, err_msg=k)
 
 
-def test_validate_dataset_without_provider_and_unported_options(models):
+def test_validate_dataset_without_provider_and_unported_options(models, tmp_path):
+    """Without a provider only the overall metrics; `report_dir` and
+    `dump_images`, once not ported, write the result file and the dumps."""
     _, _, tm = models
     ds = _MemoryDataset(1)
     got = tval.validate_dataset(tm, ds, valid_iters=1, device="cpu")
@@ -348,10 +356,15 @@ def test_validate_dataset_without_provider_and_unported_options(models):
     no_pair = _MemoryDataset(1)
     no_pair.disparity_pair = lambda i: None
     assert tval.lr_consistency_occ_provider("cpu")(no_pair, 0) is None
-    with pytest.raises(ValueError):
-        tval.validate_dataset(tm, ds, report_dir="out", device="cpu")
-    with pytest.raises(ValueError):
-        tval.validate_dataset(tm, ds, dump_images=True, device="cpu")
+    report = tval.validate_dataset(tm, ds, valid_iters=1, report_dir=str(tmp_path), dump_images=True,
+                                   device="cpu")
+    assert report == got
+    lines = (tmp_path / "result.txt").read_text().splitlines()
+    assert lines[0].startswith("0_0000 d1=") and lines[1] == "== summary =="
+    assert len(lines) == 2 + len(got)
+    for name in ("disp_0_0000.png", "errmap_0_0000.png"):
+        img = read_png(str(tmp_path / "output" / name))
+        assert img.shape == (H, W, 3) and img.dtype == np.uint8
 
 
 def test_make_eval_step_matches_jax(models):
@@ -380,3 +393,157 @@ def test_eval_entry_points_never_fall_back_to_cpu(models, monkeypatch):
         with pytest.raises(RuntimeError):
             call()
     assert tval.Validator(tm, device="cpu").device.type == "cpu"
+
+
+# ------------------------------------------------------ evaluation from files
+
+
+@pytest.fixture(scope="module")
+def eval_tree(tmp_path_factory):
+    """The synthetic trees of `tools/make_synthetic_datasets.py`, with the
+    right view's SceneFlow disparity beside the left's (a shifted copy, so
+    the left-right check finds occluded pixels)."""
+    cv2 = pytest.importorskip("cv2")  # noqa: F841 - the tree writer uses it
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools"))
+    import make_synthetic_datasets as synth
+    from anystereo_tpu.data.frame_utils import read_pfm, write_pfm
+
+    root = str(tmp_path_factory.mktemp("eval_tree"))
+    rng = np.random.RandomState(0)
+    synth.gen_sceneflow(root, rng, n_train=1, n_test=2, h=H, w=W)
+    synth.gen_kitti15(root, rng, n=2, h=H, w=W)
+    synth.gen_kitti12(root, rng, n=2, h=H, w=W)
+    synth.gen_middlebury(root, rng, hf=32, wf=64)
+    synth.gen_eth3d(root, rng, h=H, w=W)
+    for left in sorted(__import__("glob").glob(os.path.join(root, "disparity", "*", "*", "*", "left", "*.pfm"))):
+        d = read_pfm(left)
+        d[:, W // 2:] += 6.0  # an occluding step in the left view only
+        right = left.replace("/left/", "/right/")
+        os.makedirs(os.path.dirname(right), exist_ok=True)
+        write_pfm(right, read_pfm(left))
+        write_pfm(left, d)
+    mid14 = os.path.join(root, "2014", "scene_c")
+    os.makedirs(mid14)
+    write_pfm(os.path.join(mid14, "disp0.pfm"), (rng.rand(H, W) * 20).astype(np.float32))
+    return root
+
+
+EVAL_NAMES = ["sceneflow", "kitti15", "kitti12", "middlebury_F", "middlebury_H", "middlebury_Q",
+              "middlebury_Q_F", "middlebury_H_F", "eth3d"]
+
+
+@pytest.mark.parametrize("name", EVAL_NAMES)
+def test_build_eval_dataset_and_providers_match_jax(eval_tree, name):
+    jds, jup, jocc_fn, jvalid = jval.build_eval_dataset(name, eval_tree)
+    tds, tup, tocc_fn, tvalid = tval.build_eval_dataset(name, eval_tree, device="cpu")
+    assert tds.image_list == jds.image_list and tds.disparity_list == jds.disparity_list
+    assert len(tds) > 0 and (tup, tvalid) == (jup, jvalid)
+    masks = 0
+    for i in range(len(tds)):
+        want, got = jocc_fn(jds, i), tocc_fn(tds, i)
+        assert (got is None) == (want is None)
+        if got is not None:
+            assert got.dtype == np.bool_ and got.shape == want.shape
+            np.testing.assert_array_equal(got, want)
+            masks += int(0 < got.sum() < got.size)
+    assert masks > 0  # each provider found occluded and visible pixels
+
+
+def test_nocc_provider_without_occlusion_ground_truth(eval_tree):
+    import os
+
+    ds = jds = type("DS", (), {})()
+    ds.disparity_list = [os.path.join(eval_tree, "2014", "scene_c", "disp0.pfm")]
+    assert jval.nocc_mask_occ_provider(jds, 0) is None and tval.nocc_mask_occ_provider(ds, 0) is None
+    ds.disparity_list = [os.path.join(eval_tree, "none", "left", "0000.pfm")]
+    assert tval.sceneflow_occ_provider(ds, 0, device="cpu") is None
+    assert tval.kitti_occ_provider(ds, 0) is None
+
+
+@pytest.fixture
+def two_threads():
+    """Two intra-op threads for one test (see `tests/test_torch_trainer.py`)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_run_validation_from_a_port_checkpoint(models, eval_tree, tmp_path, two_threads):
+    """`run_validation` builds the model, restores the checkpoint's weights
+    and validates by name: the metrics of `validate_dataset` with those
+    weights, and on KITTI 2015 the JAX package's with its own (1e-4)."""
+    from anystereo_tpu_torch.train.state import create_train_state, save_checkpoint
+
+    jm, variables, tm = models
+    cfg = ModelConfig(max_disp=MAX_DISP, compute_dtype="float32")
+    save_checkpoint(str(tmp_path), create_train_state(tm, TrainConfig(), device="cpu"))
+    for name in ("kitti15", "sceneflow"):
+        got = tval.run_validation(cfg, str(tmp_path), name, eval_tree, valid_iters=ITERS, max_images=2,
+                                  device="cpu")
+        ds, up, occ, from_gt = tval.build_eval_dataset(name, eval_tree, device="cpu")
+        want = tval.validate_dataset(tm, ds, ITERS, max_images=2, fixed_upscale=up, occ_provider=occ,
+                                     valid_from_gt=from_gt, device="cpu")
+        assert got == want and "epe_occ" in got
+        if name != "kitti15":  # one JAX compile of the evaluator is enough
+            continue
+        jds, jup, jocc_fn, jfrom_gt = jval.build_eval_dataset(name, eval_tree)
+        jwant = jval.validate_dataset(jm, variables, jds, ITERS, max_images=2, fixed_upscale=jup,
+                                      occ_provider=jocc_fn, valid_from_gt=jfrom_gt)
+        assert set(jwant) == set(got)
+        for k in jwant:
+            np.testing.assert_allclose(got[k], jwant[k], rtol=0, atol=1e-4, err_msg=f"{name} {k}")
+
+
+def test_result_file_is_the_jax_writers(tmp_path):
+    from anystereo_tpu.eval import reporting as jrep
+    from anystereo_tpu_torch.eval import reporting as trep
+
+    rng = np.random.RandomState(4)
+    lines = [{k: float(rng.rand() * 10) for k in ("epe", "d1", "thres3", "epe_occ")} for _ in range(3)]
+    for rep, path in ((jrep, tmp_path / "jax.txt"), (trep, tmp_path / "port.txt")):
+        for i, m in enumerate(lines):
+            rep.append_result_line(str(path), f"frame_{i:04d}", m)
+        rep.write_summary(str(path), lines[0], header="summary")
+    assert (tmp_path / "port.txt").read_bytes() == (tmp_path / "jax.txt").read_bytes()
+
+
+@pytest.mark.parametrize("max_disp", [None, 25.0])
+def test_colour_maps_and_dumps_match_jax(tmp_path, max_disp):
+    from PIL import Image
+
+    from anystereo_tpu.eval import reporting as jrep
+    from anystereo_tpu.eval import visualization as jvis
+    from anystereo_tpu_torch.eval import reporting as trep
+    from anystereo_tpu_torch.eval import visualization as tvis
+
+    rng = np.random.RandomState(6)
+    gt = (rng.rand(H, W) * 30).astype(np.float32)
+    gt[rng.rand(H, W) < 0.2] = 0
+    pred = gt + (rng.randn(H, W) * 3).astype(np.float32)
+    valid = gt > 2
+    np.testing.assert_array_equal(tvis.disp_to_color(pred, max_disp), jvis.disp_to_color(pred, max_disp))
+    for v in (None, valid):
+        np.testing.assert_array_equal(tvis.disp_error_image(pred, gt, v), jvis.disp_error_image(pred, gt, v))
+    for rep, sub in ((jrep, "jax"), (trep, "port")):
+        rep.dump_disparity_png(str(tmp_path / sub), "f", pred, max_disp)
+        rep.dump_error_map_png(str(tmp_path / sub), "f", pred, gt, valid)
+    for name in ("disp_f.png", "errmap_f.png"):
+        np.testing.assert_array_equal(np.array(Image.open(tmp_path / "port" / name)),
+                                      read_png(str(tmp_path / "jax" / name)))
+
+
+def test_tensorboard_reporter_without_tensorboard(monkeypatch):
+    import sys
+
+    from anystereo_tpu_torch.eval.reporting import TensorBoardReporter
+
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    rep = TensorBoardReporter("unused")
+    assert rep.writer is None
+    rep.scalars("val", {"epe": 1.0}, 0)
+    rep.image("val", np.zeros((4, 5, 3), np.uint8), 0)
+    rep.flush()

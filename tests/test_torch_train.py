@@ -447,3 +447,41 @@ def test_train_step_width_96_against_float64():
            for n, p in tm.named_parameters()
            if float((p.grad - want[n]).norm()) > 1e-3 * float(want[n].norm()) + 1e-6]
     assert not bad, bad
+
+
+def test_trainer_step_and_checkpoint_match_jax(fp32_pair, variables, tmp_path, monkeypatch):
+    """The training slice as a whole: the port's `train()` (prefetch to the
+    device, the step, the checkpoint) from the same weights on the same batch
+    takes the JAX step of the fp32 fixture, held to the bands of
+    `test_parameters_after_one_step_fp32`; the checkpoint it writes restores
+    bit for bit.  (The JAX package's own `train()` compiles its step for
+    120-380 s on an 8-core CPU, so its step function stands in for it.)"""
+    import dataclasses
+
+    from anystereo_tpu_torch.config import Config
+    from anystereo_tpu_torch.train import trainer
+    from anystereo_tpu_torch.train.state import restore_checkpoint
+
+    _, (loss, _, _, _, new_params, _) = fp32_pair
+    seen = []
+    monkeypatch.setattr(trainer.MetricLogger, "push", lambda self, step, m: seen.append(m))
+    tcfg = dataclasses.replace(TCFG, ckpt_dir=str(tmp_path), ckpt_every=1)
+    cfg = Config(model=ModelConfig(max_disp=MAX_DISP, compute_dtype="float32"), train=tcfg)
+    state = create_train_state(_torch_model(variables, "float32"), tcfg, device="cpu")
+    state = trainer.train(cfg, [_batch()], state=state, max_steps=1)
+    assert state.step == 1 and len(seen) == 1
+    np.testing.assert_allclose(float(seen[0]["loss"]), float(loss), rtol=1e-4)
+    want, old = from_flax({"params": new_params}), from_flax(variables)
+    lr = TCFG.lr / 25
+    restored = create_train_state(_torch_model(variables, "float32"), tcfg, device="cpu")
+    restore_checkpoint(str(tmp_path), restored)
+    got = dict(state.model.named_parameters())
+    n = off = 0
+    for name, p in restored.model.named_parameters():
+        assert torch.equal(p, got[name]), name
+        d_got, d_want = p.detach() - old[name], want[name] - old[name]
+        assert float((d_got - d_want).abs().max()) <= 2.1 * lr, name
+        off += int(((d_got - d_want).abs() > 0.01 * lr).sum())
+        n += p.numel()
+    assert off / n < 0.01, (off, n)
+    assert restored.optimizer.count == 1 and restored.step == 1
