@@ -1,7 +1,8 @@
 """Typed model and training configuration for the PyTorch port.
 
 A copy of the JAX package's `anystereo_tpu/config.py`: the model section
-(the enums, `LiifConfig`, `ModelConfig` and `raft_config`), `TrainConfig`,
+(the enums, `LiifConfig`, `ModelConfig`, `raft_config` and
+`reference_regime_config`), `TrainConfig`,
 `MeshConfig`, `DataConfig`, `EvalConfig` and `Config`, with the same fields,
 defaults and validation, so one configuration value means the same model and
 schedule in both packages.  The port keeps its own copy rather than
@@ -179,6 +180,21 @@ def raft_config(**overrides) -> ModelConfig:
     return ModelConfig(**base)
 
 
+def reference_regime_config(**overrides) -> ModelConfig:
+    """The reference's training regime: frozen BatchNorm statistics wherever
+    the reference has BatchNorm2d/3d (it freezes every BatchNorm for the
+    whole run, the hourglass's BatchNorm3d included).  Use with weights
+    imported from a reference checkpoint through `utils.torch_convert`,
+    which fills the statistics.  From-scratch training should prefer the
+    default GroupNorm regime."""
+    base = dict(
+        norm_2d=NormType.FROZEN_BATCH,
+        norm_3d=NormType.FROZEN_BATCH,
+    )
+    base.update(overrides)
+    return ModelConfig(**base)
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Optimization schedule (the JAX package's `TrainConfig`, field for
@@ -220,9 +236,10 @@ class TrainConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Device-mesh layout: `data` = batch sharding, `spatial` = H-tiling of
-    images and cost volumes.  The port trains on one card: `train()` raises
-    `NotImplementedError` for `data * spatial > 1`."""
+    """Process layout: `data` = ranks that each train on their slice of the
+    batch (0: every rank of the process group), `spatial` = H-tiling of
+    images and cost volumes, which the port does not have yet
+    (`parallel.mesh.check_mesh` raises `NotImplementedError` for it)."""
 
     data: int = 1
     spatial: int = 1

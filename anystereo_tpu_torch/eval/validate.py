@@ -21,7 +21,8 @@ the left-right consistency check (`eval/occlusion.occ_mask`, one launch of
 exists.  Middlebury 2014 (disp0.pfm) has no occlusion ground truth.
 
 `build_eval_dataset` resolves a dataset name to its dataset and protocol,
-`make_train_validate_fn` gives the trainer its validation hook and
+`make_train_validate_fn` gives the trainer its validation hook (under data
+parallelism each rank validates its share of the frames) and
 `run_validation` evaluates a checkpoint.  Images are resized by
 `utils/resize` and files read by `data/` (the port needs no OpenCV or PIL).
 """
@@ -48,7 +49,7 @@ from anystereo_tpu_torch.eval.padder import InputPadder
 from anystereo_tpu_torch.nn.model import AnyStereo, build_model
 from anystereo_tpu_torch.ops.coords import make_coord
 from anystereo_tpu_torch.train.state import restore_eval_variables
-from anystereo_tpu_torch.utils.device import model_device, resolve_device
+from anystereo_tpu_torch.utils.device import model_device, process_topology, resolve_device
 from anystereo_tpu_torch.utils.resize import resize
 
 log = logging.getLogger(__name__)
@@ -290,6 +291,7 @@ def validate_dataset(
     eval_others: bool = False,
     bucket: Optional[int] = None,
     device=None,
+    split_over_ranks: bool = False,
 ) -> Dict[str, float]:
     """Per-image validation over `dataset`: any object with `__len__`,
     `_load_raw(i)` → (left [H, W, 3], right, flow [H, W, 2] with the
@@ -303,12 +305,20 @@ def validate_dataset(
     module docstring and `Validator`.  report_dir: append a line a frame and
     a summary to `report_dir/result.txt`; with dump_images also write each
     frame's coloured disparity and error map to `report_dir/output/`.
-    `model` must lie on `device` (default: the CUDA card)."""
+    `model` must lie on `device` (default: the CUDA card).
+
+    split_over_ranks: under an initialised process group of more than one
+    rank, frame i is validated on rank i mod world, and the per-image sums
+    and counts are summed over the ranks, so that every rank returns the
+    mean over all frames (every rank must call; report_dir is refused)."""
+    rank, world = process_topology() if split_over_ranks else (0, 1)
+    if world > 1 and report_dir is not None:
+        raise ValueError("report_dir is written by one process: validate with split_over_ranks=False")
     vd = Validator(model, valid_iters, bucket=bucket, device=device)
     dev = vd.device
     meter = AverageMeterDict()
     n = len(dataset) if max_images is None else min(len(dataset), max_images)
-    for i in range(n):
+    for i in range(rank, n, world):
         img1, img2, flow, valid = dataset._load_raw(i)
         gt = np.asarray(flow[..., 0], np.float32)
         pred = vd.infer(img1, img2, scale_test, divis, fixed_upscale, eval_others=eval_others)
@@ -335,10 +345,25 @@ def validate_dataset(
                 reporting.dump_error_map_png(out, name, pred, gt, vmask)
         if (i + 1) % 20 == 0:
             log.info("validate %d/%d: %s", i + 1, n, meter.mean())
+    if world > 1:
+        meter = _sum_over_ranks(meter, world)
     results = meter.mean()
     if report_dir is not None:
         reporting.write_summary(os.path.join(report_dir, "result.txt"), results, header="summary")
     return results
+
+
+def _sum_over_ranks(meter: AverageMeterDict, world: int) -> AverageMeterDict:
+    """The per-image sums and counts of every rank's meter, added in rank
+    order (the same total on every rank)."""
+    parts = [None] * world
+    torch.distributed.all_gather_object(parts, (meter.sums, meter.counts))
+    total = AverageMeterDict()
+    for sums, counts in parts:
+        for k, v in sums.items():
+            total.sums[k] = total.sums.get(k, 0.0) + v
+            total.counts[k] = total.counts.get(k, 0) + counts[k]
+    return total
 
 
 def build_eval_dataset(dataset: str, data_root: str, device=None):
@@ -390,7 +415,9 @@ def make_train_validate_fn(model_cfg: ModelConfig, dataset: str, data_root: str,
     """A `validate_fn(state, step)` for the training loop: the held-out split
     of `dataset` with the state's current weights; returns the metric dict.
     `model_cfg` is the trained model's configuration; the state's model must
-    lie on `device` (default: the CUDA card)."""
+    lie on `device` (default: the CUDA card).  Under data parallelism every
+    rank calls it and validates its share of the frames
+    (`validate_dataset(split_over_ranks=True)`)."""
     ds, fixed_upscale, occ_provider, valid_from_gt = build_eval_dataset(dataset, data_root, device)
     divis = _divis(model_cfg)
 
@@ -398,7 +425,7 @@ def make_train_validate_fn(model_cfg: ModelConfig, dataset: str, data_root: str,
         return validate_dataset(
             state.model, ds, valid_iters, divis=divis, max_images=max_images,
             fixed_upscale=fixed_upscale, occ_provider=occ_provider, valid_from_gt=valid_from_gt,
-            device=device)
+            device=device, split_over_ranks=True)
 
     return validate_fn
 

@@ -24,6 +24,7 @@ import dataclasses
 import os
 from typing import Optional
 
+import numpy as np
 import torch
 
 from anystereo_tpu_torch.ops.kernels.lookup import gather_pyramid_aligned
@@ -185,3 +186,30 @@ def lookup_channels(num_levels: int, radius: int, groups: Optional[int]) -> int:
     if groups is not None:
         return num_levels * taps * (groups + 1)
     return num_levels * taps
+
+
+def internal_to_reference_perm(num_levels: int, radius: int, groups: Optional[int]) -> np.ndarray:
+    """Index map from the port's lookup channel order to the reference's.
+
+    perm[i] = reference channel index of internal channel i, so
+    `out_internal[..., c] == out_reference[..., perm[c]]`, and a reference
+    convc1 kernel converts as `kernel_hwio[:, :, perm, :]` (the converter
+    gathers the reference's input channels into internal positions).
+    Internal: geo [G, levels, K] flattened, then corr [levels, K].
+    Reference: per level, geo [G, K] then corr [K].  The identity when
+    `groups` is None (RAFT: both orders are [levels, K])."""
+    k = 2 * radius + 1
+    if groups is None:
+        return np.arange(num_levels * k)
+    perm = np.empty(num_levels * k * (groups + 1), np.int64)
+    i = 0
+    for g in range(groups):
+        for lvl in range(num_levels):
+            for kk in range(k):
+                perm[i] = lvl * (groups + 1) * k + g * k + kk
+                i += 1
+    for lvl in range(num_levels):
+        for kk in range(k):
+            perm[i] = lvl * (groups + 1) * k + groups * k + kk
+            i += 1
+    return perm

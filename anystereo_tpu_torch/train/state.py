@@ -121,8 +121,16 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, keep: int = 5) -> str:
 @torch.no_grad()
 def restore_checkpoint(ckpt_dir: str, state: TrainState, step: Optional[int] = None) -> TrainState:
     """Restore the full state saved at `step` (default: the latest) into
-    `state`, in place, on its device; returns it."""
+    `state`, in place, on its device; returns it.  A weights-only checkpoint
+    (a converted reference checkpoint, `tools/convert_checkpoint.py`) has no
+    optimizer state to resume and raises `ValueError`: it is a warm start,
+    `train(warm_start=...)` or the CLI's `--restore`."""
     step, ckpt = _load(ckpt_dir, step)
+    if "optimizer" not in ckpt:
+        raise ValueError(
+            f"{ckpt_dir} step {step} is a weights-only checkpoint (no optimizer state to resume "
+            "from, e.g. a converted reference checkpoint); pass it as the warm start "
+            "(train(warm_start=...), the CLI's --restore) and give ckpt_dir a fresh directory")
     state.model.load_state_dict(ckpt["model"], strict=True)
     names = [n for n, _ in state.model.named_parameters()]
     opt, saved = state.optimizer, ckpt["optimizer"]
@@ -163,7 +171,9 @@ def restore_eval_variables(ckpt_dir: str, model: torch.nn.Module,
     as `restore_params_only` merges them, and the buffers (frozen-BatchNorm
     statistics) of the same name and shape.  A buffer the checkpoint lacks
     keeps its value, with a warning: frozen-BatchNorm metrics are
-    meaningless without the trained statistics.  Returns the model."""
+    meaningless without the trained statistics.  So does a checkpoint tensor
+    that fits nothing of the model (e.g. a converted reference checkpoint's
+    BatchNorm tensors in a GroupNorm model).  Returns the model."""
     donor = _load(ckpt_dir, step)[1]["model"]
     params = dict(model.named_parameters())
     for name, value in _merge(donor, params).items():
@@ -178,4 +188,11 @@ def restore_eval_variables(ckpt_dir: str, model: torch.nn.Module,
     if missing:
         log.warning("checkpoint %s has no %s; using the model's own values — frozen-BatchNorm "
                     "eval metrics are meaningless without the trained statistics", ckpt_dir, missing)
+    homes = {**params, **buffers}
+    unused = sorted(n for n, v in donor.items() if n not in homes or tuple(v.shape) != tuple(homes[n].shape))
+    if unused:
+        log.warning("checkpoint %s: %d of its %d tensors fit no parameter or buffer of the model and are "
+                    "not loaded (%s%s); a converted reference checkpoint needs a model built with "
+                    "config.reference_regime_config", ckpt_dir, len(unused), len(donor), unused[:4],
+                    " ..." if len(unused) > 4 else "")
     return model

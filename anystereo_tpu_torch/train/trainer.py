@@ -10,6 +10,16 @@ SIGINT checkpoint and stop; a failing step saves an emergency checkpoint
 (with a loader sidecar that replays the failed batch) before re-raising;
 `max_consecutive_nonfinite` skipped steps in a row abort with the last finite
 state saved.
+
+Data parallel (`cfg.mesh.data` > 1, or 0 under an initialised process group
+of more than one rank; `parallel/mesh.py`): each rank trains on
+`cuda:LOCAL_RANK` (or the CPU when asked for by name), loads its own slice
+of every batch, starts from rank 0's weights and steps on the full batch's
+gradient (`train/step.py`).  Only rank 0 writes checkpoints and logs
+metrics and validation results; each rank writes its loader's sidecar.
+Every rank calls `validate_fn` (`make_train_validate_fn`'s splits the frames
+over the ranks, so no rank waits on another's whole validation).  A stop on
+a signal is taken by every rank at the same step.
 """
 
 from __future__ import annotations
@@ -21,10 +31,18 @@ import signal
 import time
 from typing import Callable, Dict, Optional
 
+import torch
+import torch.distributed as dist
 
 from anystereo_tpu_torch.config import Config
 from anystereo_tpu_torch.data.loader import CheckpointablePrefetch, device_prefetch, to_device
 from anystereo_tpu_torch.nn.model import build_model
+from anystereo_tpu_torch.parallel.mesh import (
+    all_reduce_sum_,
+    broadcast_from_rank0_,
+    check_mesh,
+    rank_device,
+)
 from anystereo_tpu_torch.train.state import (
     TrainState,
     checkpoint_steps,
@@ -107,20 +125,26 @@ def train(
 ) -> TrainState:
     """Run the training loop.  `loader` yields numpy batches with the
     `make_train_step` contract; `validate_fn(state, step)` runs held-out
-    validation after each checkpoint.  Without `state` the model is built
-    from `cfg.model` with weights seeded by `cfg.train.seed`, on `device`
-    (default: the CUDA card; the CPU only when asked for by name); a given
-    `state` carries its own model and device.
+    validation after each checkpoint, on every rank.  Without `state` the
+    model is built from `cfg.model` with weights seeded by `cfg.train.seed`,
+    on `device` (default: the CUDA card; the CPU only when asked for by
+    name); a given `state` carries its own model and device.
 
     `warm_start`: a checkpoint directory whose weights are loaded before
     training starts (merged by name and shape; the schedule starts at step
     0).  Auto-resume of the full state from `cfg.train.ckpt_dir` takes
     precedence when that directory already holds steps."""
-    if cfg.mesh.data * max(cfg.mesh.spatial, 1) > 1:
-        raise NotImplementedError(
-            f"the port trains on one card; mesh data={cfg.mesh.data} spatial={cfg.mesh.spatial}")
+    rank, world = process_topology()
+    distributed = check_mesh(cfg.mesh, world)[0] > 1
     tcfg = cfg.train
-    dev = resolve_device(device) if state is None else next(state.model.parameters()).device
+    if state is not None:
+        dev = next(state.model.parameters()).device
+    elif distributed:
+        dev = rank_device(device)
+    else:
+        dev = resolve_device(device)
+    if distributed and dev.type == "cuda":
+        torch.cuda.set_device(dev)
 
     raw_it = iter(loader)
     # A checkpointable iterator (get_state/set_state) goes through
@@ -164,6 +188,8 @@ def train(
             else:
                 restore_eval_variables(warm_start, model)
                 log.info("warm-started weights from %s", warm_start)
+        if distributed:
+            broadcast_from_rank0_(model)
         state = create_train_state(model, tcfg, dev)
         if resume_available:
             state = restore_checkpoint(tcfg.ckpt_dir, state)
@@ -186,9 +212,18 @@ def train(
     logger = MetricLogger(log_every=100)
 
     def checkpoint(loader_state) -> None:
-        save_checkpoint(tcfg.ckpt_dir, state)
+        if rank == 0:
+            save_checkpoint(tcfg.ckpt_dir, state)
         if ckptable_loader:
             _save_loader_state(tcfg.ckpt_dir, state.step, loader_state)
+
+    def stop_now() -> bool:
+        """Whether any rank was asked to stop (every rank must agree)."""
+        if not distributed:
+            return stop_requested["flag"]
+        flag = torch.tensor([float(stop_requested["flag"])], device=dev)
+        all_reduce_sum_([flag])
+        return bool(flag.item() > 0)
 
     total = max_steps or tcfg.num_steps
     start = state.step
@@ -223,7 +258,8 @@ def train(
                 except Exception:
                     log.exception("emergency checkpoint failed")
                 raise
-            logger.push(i, metrics)
+            if rank == 0:
+                logger.push(i, metrics)
             skips = int(metrics["nonfinite_skips"])
             if skips == 1:
                 log.warning("step %d: nonfinite gradients — update skipped (loss=%s grad_norm=%s)",
@@ -241,12 +277,16 @@ def train(
                 raise RuntimeError(
                     f"training diverged at step {i}: {skips} consecutive nonfinite gradient "
                     f"steps (params remain finite; checkpoint saved to {tcfg.ckpt_dir})")
-            if (i + 1) % tcfg.ckpt_every == 0 or i + 1 == total or stop_requested["flag"]:
+            stop = stop_now()
+            if (i + 1) % tcfg.ckpt_every == 0 or i + 1 == total or stop:
                 checkpoint(it.state_after_current if ckptable_loader else None)
-                if validate_fn is not None and not stop_requested["flag"]:
+                if validate_fn is not None and not stop:
                     results = validate_fn(state, i + 1)
-                    log.info("validation @%d: %s", i + 1, results)
-            if stop_requested["flag"]:
+                    if rank == 0:
+                        log.info("validation @%d: %s", i + 1, results)
+                if distributed:
+                    dist.barrier()
+            if stop:
                 log.info("stopping at step %d on request", i + 1)
                 break
             if i + 1 < total:

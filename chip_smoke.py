@@ -105,8 +105,28 @@ Phases (any failure raises, and the exit code is not 0):
            per step (B1 32 + 32, gather 48, scatter 48) and per validation
            frame (B1 64, B8 1 on SceneFlow); `read_png` times of both frame
            kinds, unfiltered and Paeth-filtered; the loader's samples/s with
-           2 and with 4 samples in flight, and one sample alone;
-7. check   fp32 (TF32 off, cuDNN deterministic), 4 iterations: the IGEV and
+           2 and with 4 samples in flight, and one sample alone; the trees
+           stay for the next three phases;
+7. convert a seeded reference-format IGEV checkpoint at `ModelConfig()`
+           widths (keys and shapes from `tests/data/reference_keys_igev.json`,
+           `module.` prefix, `{"model": ...}` wrapper) through `python -m
+           anystereo_tpu_torch.tools.convert_checkpoint --verify`, loaded
+           strictly into a reference-regime model and validated on the KITTI
+           tree (B1 64 a frame); the conversion's ms and tensor count;
+8. cli     `cli.main(["train", ..., "--restore", <converted>])` for 2 steps
+           at `TrainConfig()` defaults on the SceneFlow tree (per step B1 32
+           + 32, gather 48, scatter 48; the CLI builds the GroupNorm model,
+           so the converted checkpoint's BatchNorm tensors are not loaded,
+           and the warning that says so must come), `cli.main(["evaluate", ...])` of its
+           checkpoint on SceneFlow (B1 64 and B8 1 a frame), and a `python -m
+           anystereo_tpu_torch.cli evaluate` subprocess on KITTI that must
+           exit 0 and print its metrics;
+9. ddp     two ranks on the one card (`torch.multiprocessing`, gloo), each
+           with one sample of a seeded batch of two whose valid counts
+           differ, one fp32 `train()` step at full width against one process
+           on the batch of two: loss, gradients, parameters, ms per step,
+           each rank's launches sent back;
+10. check  fp32 (TF32 off, cuDNN deterministic), 4 iterations: the IGEV and
            RAFT eval forwards through the kernels against the same with every
            lookup forced to its plain version, under each flavor, and the
            flavors against "aligned"; the occlusion mask through the kernel
@@ -132,6 +152,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 H, W, ITERS = 384, 1248, 32
@@ -465,7 +486,7 @@ def _kernels_lookup_fwd(torch):
     # PyTorch call computes this lookup
     return _record("gather_pyramid_aligned", "anystereo_tpu_torch/csrc/lookup_aligned.cu",
                    "anystereo_tpu/ops/pallas/lookup_kernel.py:1103", calls, main=(0, 1),
-                   paths=("eval_igev", "train_igev", "eval_raft", "trainer"))
+                   paths=("eval_igev", "train_igev", "eval_raft", "trainer", "convert", "cli", "ddp"))
 
 
 def _bound(nbytes, flops):
@@ -555,7 +576,7 @@ def _kernels_lookup_bwd(torch):
         calls.append(res)
     return _record("gather_pyramid_aligned_bwd", "anystereo_tpu_torch/csrc/lookup_aligned.cu",
                    "anystereo_tpu/ops/pallas/lookup_kernel.py:965", calls, main=(0, 1),
-                   paths=("train_igev", "trainer"))
+                   paths=("train_igev", "trainer", "cli", "ddp"))
 
 
 def _kernels_window(torch):
@@ -858,7 +879,7 @@ def _kernels_gather(torch):
     src = "anystereo_tpu_torch/csrc/gather_rows.cu"
     # per decode all three tables go through the gather forward and the
     # scatter backward
-    paths = ("train_igev", "train_raft", "trainer")
+    paths = ("train_igev", "train_raft", "trainer", "cli", "ddp")
     return [
         _record("gather_rows", src, "anystereo_tpu/ops/pallas/gather_kernel.py:319", fwd,
                 main=(0, 1, 2), paths=paths, library=True),
@@ -1095,7 +1116,7 @@ def _kernels_linear(torch):
         _record("gather_window_linear_bwd", src, f"{jax_file}:155", win_bwd, main=train_iteration,
                 paths=("train_levels",), library=True),
         _record("gather_rows_linear", src, f"{jax_file}:1137", rows_fwd, main=(0,),
-                paths=("validate", "trainer"), library=True),
+                paths=("validate", "trainer", "cli"), library=True),
         _record("gather_rows_linear_bwd", src, f"{jax_file}:63", rows_bwd, main=(0,), paths=("op",),
                 library=True),
     ]
@@ -1510,7 +1531,24 @@ def _read_png_ms(np, root, sf, kitti, card):
             ", ".join(f"{k} {v:.1f}" for k, v in out.items()) + f"; {card}")
 
 
-def phase_trainer(torch, kernels, card):
+def _igev_step_launches(kernels):
+    """The launches of one IGEV training step at `TrainConfig()` ("aligned"):
+    B1 32 + 32, gather 48, scatter 48, nothing else."""
+    from anystereo_tpu_torch.config import TrainConfig
+
+    it = TrainConfig().train_iters
+    return {**dict.fromkeys((k.__name__ for k in kernels), 0), "gather_pyramid_aligned": 2 * it,
+            "gather_pyramid_aligned_bwd": 2 * it, "gather_rows": 3 * it, "scatter_rows_add": 3 * it}
+
+
+def _sceneflow_frame_launches(kernels):
+    """The launches of one SceneFlow validation frame: B1 64 and B8 1 (the
+    left-right occlusion warp)."""
+    return {**dict.fromkeys((k.__name__ for k in kernels), 0), "gather_pyramid_aligned": 2 * ITERS,
+            "gather_rows_linear": 1}
+
+
+def phase_trainer(torch, kernels, card, root):
     """The training entry point from dataset files at full width: a SceneFlow
     tree on disk → `fetch_dataset` in multi-scale mode at `TrainConfig()`
     defaults → `PrefetchLoader` (batch 2, 4 workers, seed 1234) → `train()`
@@ -1520,9 +1558,9 @@ def phase_trainer(torch, kernels, card):
     TRAINER_STEPS and runs to TRAINER_RESUMED; then `run_validation` of the
     checkpoint on SceneFlow and on KITTI 2015.  The launches of every step
     and of every validation frame are checked exactly; the steps are timed
-    (synchronised) by a wrapper around the trainer's step."""
-    import tempfile
-
+    (synchronised) by a wrapper around the trainer's step.  The trees stay
+    in `root` for the phases after it; returns the launches and the trees'
+    roots (SceneFlow, KITTI 2015)."""
     import numpy as np
 
     from anystereo_tpu_torch.config import Config, ModelConfig, TrainConfig
@@ -1541,171 +1579,145 @@ def phase_trainer(torch, kernels, card):
 
     names = [k.__name__ for k in kernels]
     it = TrainConfig().train_iters
-    per_step = dict.fromkeys(names, 0)
-    per_step.update(gather_pyramid_aligned=2 * it, gather_pyramid_aligned_bwd=2 * it, gather_rows=3 * it,
-                    scatter_rows_add=3 * it)
-    per_frame = dict.fromkeys(names, 0)
-    per_frame.update(gather_pyramid_aligned=2 * ITERS, gather_rows_linear=1)
+    per_step = _igev_step_launches(kernels)
+    per_frame = _sceneflow_frame_launches(kernels)
 
-    with tempfile.TemporaryDirectory() as root:
+    t0 = time.perf_counter()
+    sf, kitti = _write_trees(np, root)
+    lines = [f"[trainer] wrote the SceneFlow tree ({SF_TRAIN} + {SF_TEST} pairs of {SF_H}x{SF_W}) "
+             f"and the KITTI 2015 tree ({KITTI_FRAMES} frames of {EVAL_H}x{EVAL_W}) in "
+             f"{time.perf_counter() - t0:.1f} s",
+             _read_png_ms(np, root, sf, kitti, card)]
+    ckpt_dir = os.path.join(root, "ckpt")
+    cfg = Config(train=TrainConfig(ckpt_dir=ckpt_dir, ckpt_every=TRAINER_CKPT_EVERY))
+    tcfg = cfg.train
+    aug = AugmentorConfig(crop_size=tcfg.inp_size, yjitter=cfg.data.yjitter)
+    ds = fetch_dataset(["sceneflow"], {"sceneflow": sf}, aug, multi_scale=tcfg.multi_scale,
+                       scale_min=tcfg.scale_min, scale_max=tcfg.scale_max, inp_size=tcfg.inp_size)
+    if len(ds) != SF_TRAIN:
+        raise AssertionError(f"fetch_dataset found {len(ds)} SceneFlow training pairs, not {SF_TRAIN}")
+    inner_validate = make_train_validate_fn(cfg.model, "sceneflow", sf,
+                                            max_images=TRAINER_VAL_FRAMES)
+    schedule = one_cycle_schedule(tcfg.lr, tcfg.num_steps, tcfg.warmup_frac)
+    log = {"steps": [], "val": [], "first": None}
+
+    def validate_fn(state, step):
+        before = _counts(kernels)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sf, kitti = _write_trees(np, root)
-        lines = [f"[trainer] wrote the SceneFlow tree ({SF_TRAIN} + {SF_TEST} pairs of {SF_H}x{SF_W}) "
-                 f"and the KITTI 2015 tree ({KITTI_FRAMES} frames of {EVAL_H}x{EVAL_W}) in "
-                 f"{time.perf_counter() - t0:.1f} s",
-                 _read_png_ms(np, root, sf, kitti, card)]
-        ckpt_dir = os.path.join(root, "ckpt")
-        cfg = Config(train=TrainConfig(ckpt_dir=ckpt_dir, ckpt_every=TRAINER_CKPT_EVERY))
-        tcfg = cfg.train
-        aug = AugmentorConfig(crop_size=tcfg.inp_size, yjitter=cfg.data.yjitter)
-        ds = fetch_dataset(["sceneflow"], {"sceneflow": sf}, aug, multi_scale=tcfg.multi_scale,
-                           scale_min=tcfg.scale_min, scale_max=tcfg.scale_max, inp_size=tcfg.inp_size)
-        if len(ds) != SF_TRAIN:
-            raise AssertionError(f"fetch_dataset found {len(ds)} SceneFlow training pairs, not {SF_TRAIN}")
-        inner_validate = make_train_validate_fn(cfg.model, "sceneflow", sf,
-                                                max_images=TRAINER_VAL_FRAMES)
-        schedule = one_cycle_schedule(tcfg.lr, tcfg.num_steps, tcfg.warmup_frac)
-        log = {"steps": [], "val": [], "first": None}
+        res = inner_validate(state, step)
+        torch.cuda.synchronize()
+        log["val"].append((step, res, (time.perf_counter() - t0) * 1e3))
+        _expect_launches(kernels, before, {k: TRAINER_VAL_FRAMES * v for k, v in per_frame.items()},
+                         f"the in-training validation at step {step}")
+        return res
 
-        def validate_fn(state, step):
-            before = _counts(kernels)
+    for k in kernels:
+        k.launches = 0
+    runs = []
+    with _recorded_steps(torch, kernels, per_step, log, "trainer"):
+        for max_steps in (TRAINER_STEPS, TRAINER_RESUMED):
+            log.update(first=None, wait=[])
+            loader = PrefetchLoader(ds, tcfg.batch_size, num_workers=TRAINER_WORKERS, seed=tcfg.seed)
+            n_steps = len(log["steps"])
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            res = inner_validate(state, step)
+            state = trainer.train(cfg, _Timed(loader, log), validate_fn, max_steps=max_steps)
             torch.cuda.synchronize()
-            log["val"].append((step, res, (time.perf_counter() - t0) * 1e3))
-            _expect_launches(kernels, before, {k: TRAINER_VAL_FRAMES * v for k, v in per_frame.items()},
-                             f"the in-training validation at step {step}")
-            return res
-
-        real_make = trainer.make_train_step
-
-        def timed_make(model, tcfg_, device=None):
-            step_fn = real_make(model, tcfg_, device=device)
-
-            def step(state, batch):
-                if log["first"] is None:  # the state as train() hands it to its first step
-                    log["first"] = _state_copy(state)
-                before = _counts(kernels)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                state, metrics = step_fn(state, batch)
-                torch.cuda.synchronize()
-                log["steps"].append((state.step, (time.perf_counter() - t0) * 1e3, metrics))
-                _expect_launches(kernels, before, per_step, f"trainer step {state.step}")
-                return state, metrics
-
-            return step
-
-        for k in kernels:
-            k.launches = 0
-        runs = []
-        trainer.make_train_step = timed_make
-        try:
-            for max_steps in (TRAINER_STEPS, TRAINER_RESUMED):
-                log.update(first=None, wait=[])
-                loader = PrefetchLoader(ds, tcfg.batch_size, num_workers=TRAINER_WORKERS, seed=tcfg.seed)
-                n_steps = len(log["steps"])
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                state = trainer.train(cfg, _Timed(loader, log), validate_fn, max_steps=max_steps)
-                torch.cuda.synchronize()
-                runs.append(dict(state=state, first=log["first"], wall=(time.perf_counter() - t0) * 1e3,
-                                 steps=log["steps"][n_steps:], loader_wait=sum(log["wait"]),
-                                 batches=len(log["wait"])))
-        finally:
-            trainer.make_train_step = real_make
-        # the resumed run started from the saved state, bit for bit
-        saved, resumed = runs[0]["state"], runs[1]["first"]
-        if resumed["step"] != TRAINER_STEPS:
-            raise AssertionError(f"the second train() started at step {resumed['step']}, not {TRAINER_STEPS}")
-        diff = _state_diff(_state_copy(saved), resumed)
-        if diff:
-            raise AssertionError(f"the resumed state differs from the saved one: {diff[:5]}")
-        for step_no, ms, metrics in log["steps"]:
-            loss, gnorm = float(metrics["loss"]), metrics["grad_norm"]
-            if not (np.isfinite(loss) and 0 < gnorm < float("inf")) or metrics["nonfinite_skips"]:
-                raise AssertionError(f"trainer step {step_no}: loss {loss}, grad_norm {gnorm}, skips "
-                                     f"{metrics['nonfinite_skips']}")
-            if metrics["lr"] != schedule(step_no - 1):
-                raise AssertionError(f"trainer step {step_no}: lr {metrics['lr']} is not the straight "
-                                     f"schedule's {schedule(step_no - 1)}")
-        if [s for s, _, _ in log["steps"]] != list(range(1, TRAINER_RESUMED + 1)):
-            raise AssertionError(f"trainer steps taken: {[s for s, _, _ in log['steps']]}")
-        if [s for s, _, _ in log["val"]] != list(range(TRAINER_CKPT_EVERY, TRAINER_RESUMED + 1,
-                                                        TRAINER_CKPT_EVERY)):
-            raise AssertionError(f"validations at steps {[s for s, _, _ in log['val']]}")
-        state = runs[1]["state"]
-        # the loader alone: LOADER_BATCHES batches, the start of its threads included
-        t0 = time.perf_counter()
-        it_ = iter(PrefetchLoader(ds, tcfg.batch_size, num_workers=TRAINER_WORKERS, seed=tcfg.seed + 1))
-        for _ in range(LOADER_BATCHES):
-            next(it_)
-        loader_rate = LOADER_BATCHES * tcfg.batch_size / (time.perf_counter() - t0)
-        it_.close()
-        # what bounds it: the loader maps one batch at a time, so only
-        # batch_size samples are in flight; beside it one sample at a time on
-        # this thread, and the loader with as many in flight as it has workers
-        t0 = time.perf_counter()
-        for i in range(LOADER_SERIAL):
-            ds.__getitem__(i, rng=np.random.RandomState(i))
-        serial_ms = (time.perf_counter() - t0) * 1e3 / LOADER_SERIAL
-        wide_batches = LOADER_BATCHES * tcfg.batch_size // TRAINER_WORKERS
-        t0 = time.perf_counter()
-        it_ = iter(PrefetchLoader(ds, TRAINER_WORKERS, num_workers=TRAINER_WORKERS, seed=tcfg.seed + 2))
-        for _ in range(wide_batches):
-            next(it_)
-        wide_rate = wide_batches * TRAINER_WORKERS / (time.perf_counter() - t0)
-        it_.close()
-        # the copy of one batch to the card, as the trainer's prefetch makes it
-        batch = ds.__getitem__(0, rng=np.random.RandomState(0))
-        batch = {k: np.stack([v] * tcfg.batch_size) for k, v in batch.items()}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        to_device(batch)
-        torch.cuda.synchronize()
-        copy_ms = (time.perf_counter() - t0) * 1e3
-        # checkpoint cost, and the card's checkpoint restored on the CPU
-        extra = os.path.join(root, "extra")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        path = save_checkpoint(extra, state)
-        save_ms = (time.perf_counter() - t0) * 1e3
-        mb = os.path.getsize(path) / 2**20
-        fresh = create_train_state(build_model(cfg.model, seed=7), tcfg)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        restore_checkpoint(extra, fresh)
-        torch.cuda.synchronize()
-        restore_ms = (time.perf_counter() - t0) * 1e3
-        diff = _state_diff(_state_copy(state), _state_copy(fresh))
-        on_cpu = restore_checkpoint(extra, create_train_state(build_model(cfg.model, "cpu", seed=7), tcfg, "cpu"))
-        diff += _state_diff(_state_copy(state), _state_copy(on_cpu))
-        if diff:
-            raise AssertionError(f"a checkpoint restored on the card or the CPU differs: {diff[:5]}")
-        del fresh, on_cpu
-        # evaluate the checkpoint by dataset name
-        before = _counts(kernels)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        sf_metrics = run_validation(ModelConfig(), ckpt_dir, "sceneflow", sf, max_images=TRAINER_VAL_FRAMES)
-        torch.cuda.synchronize()
-        sf_ms = (time.perf_counter() - t0) * 1e3 / TRAINER_VAL_FRAMES
-        _expect_launches(kernels, before, {k: TRAINER_VAL_FRAMES * v for k, v in per_frame.items()},
-                         "run_validation on SceneFlow")
-        last = log["val"][-1][1]
-        if abs(sf_metrics["epe"] - last["epe"]) > EPE_ATOL:
-            raise AssertionError(f"run_validation's EPE {sf_metrics['epe']} against the step-"
-                                 f"{TRAINER_RESUMED} validation's {last['epe']}")
-        before = _counts(kernels)
-        kitti_metrics = run_validation(ModelConfig(), ckpt_dir, "kitti15", kitti, max_images=KITTI_FRAMES)
-        _expect_launches(kernels, before, {**dict.fromkeys(names, 0),
-                                           "gather_pyramid_aligned": KITTI_FRAMES * 2 * ITERS},
-                         "run_validation on KITTI 2015")
-        for name, m in (("sceneflow", sf_metrics), ("kitti15", kitti_metrics)):
-            bad = [k for k, v in m.items() if not np.isfinite(v)]
-            if bad or "epe_occ" not in m:
-                raise AssertionError(f"run_validation on {name}: {m}")
+            runs.append(dict(state=state, first=log["first"], wall=(time.perf_counter() - t0) * 1e3,
+                             steps=log["steps"][n_steps:], loader_wait=sum(log["wait"]),
+                             batches=len(log["wait"])))
+    # the resumed run started from the saved state, bit for bit
+    saved, resumed = runs[0]["state"], runs[1]["first"]
+    if resumed["step"] != TRAINER_STEPS:
+        raise AssertionError(f"the second train() started at step {resumed['step']}, not {TRAINER_STEPS}")
+    diff = _state_diff(_state_copy(saved), resumed)
+    if diff:
+        raise AssertionError(f"the resumed state differs from the saved one: {diff[:5]}")
+    for step_no, ms, metrics in log["steps"]:
+        loss, gnorm = float(metrics["loss"]), metrics["grad_norm"]
+        if not (np.isfinite(loss) and 0 < gnorm < float("inf")) or metrics["nonfinite_skips"]:
+            raise AssertionError(f"trainer step {step_no}: loss {loss}, grad_norm {gnorm}, skips "
+                                 f"{metrics['nonfinite_skips']}")
+        if metrics["lr"] != schedule(step_no - 1):
+            raise AssertionError(f"trainer step {step_no}: lr {metrics['lr']} is not the straight "
+                                 f"schedule's {schedule(step_no - 1)}")
+    if [s for s, _, _ in log["steps"]] != list(range(1, TRAINER_RESUMED + 1)):
+        raise AssertionError(f"trainer steps taken: {[s for s, _, _ in log['steps']]}")
+    if [s for s, _, _ in log["val"]] != list(range(TRAINER_CKPT_EVERY, TRAINER_RESUMED + 1,
+                                                    TRAINER_CKPT_EVERY)):
+        raise AssertionError(f"validations at steps {[s for s, _, _ in log['val']]}")
+    state = runs[1]["state"]
+    # the loader alone: LOADER_BATCHES batches, the start of its threads included
+    t0 = time.perf_counter()
+    it_ = iter(PrefetchLoader(ds, tcfg.batch_size, num_workers=TRAINER_WORKERS, seed=tcfg.seed + 1))
+    for _ in range(LOADER_BATCHES):
+        next(it_)
+    loader_rate = LOADER_BATCHES * tcfg.batch_size / (time.perf_counter() - t0)
+    it_.close()
+    # what bounds it: the loader maps one batch at a time, so only
+    # batch_size samples are in flight; beside it one sample at a time on
+    # this thread, and the loader with as many in flight as it has workers
+    t0 = time.perf_counter()
+    for i in range(LOADER_SERIAL):
+        ds.__getitem__(i, rng=np.random.RandomState(i))
+    serial_ms = (time.perf_counter() - t0) * 1e3 / LOADER_SERIAL
+    wide_batches = LOADER_BATCHES * tcfg.batch_size // TRAINER_WORKERS
+    t0 = time.perf_counter()
+    it_ = iter(PrefetchLoader(ds, TRAINER_WORKERS, num_workers=TRAINER_WORKERS, seed=tcfg.seed + 2))
+    for _ in range(wide_batches):
+        next(it_)
+    wide_rate = wide_batches * TRAINER_WORKERS / (time.perf_counter() - t0)
+    it_.close()
+    # the copy of one batch to the card, as the trainer's prefetch makes it
+    batch = ds.__getitem__(0, rng=np.random.RandomState(0))
+    batch = {k: np.stack([v] * tcfg.batch_size) for k, v in batch.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    to_device(batch)
+    torch.cuda.synchronize()
+    copy_ms = (time.perf_counter() - t0) * 1e3
+    # checkpoint cost, and the card's checkpoint restored on the CPU
+    extra = os.path.join(root, "extra")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = save_checkpoint(extra, state)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    mb = os.path.getsize(path) / 2**20
+    fresh = create_train_state(build_model(cfg.model, seed=7), tcfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restore_checkpoint(extra, fresh)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    diff = _state_diff(_state_copy(state), _state_copy(fresh))
+    on_cpu = restore_checkpoint(extra, create_train_state(build_model(cfg.model, "cpu", seed=7), tcfg, "cpu"))
+    diff += _state_diff(_state_copy(state), _state_copy(on_cpu))
+    if diff:
+        raise AssertionError(f"a checkpoint restored on the card or the CPU differs: {diff[:5]}")
+    del fresh, on_cpu
+    # evaluate the checkpoint by dataset name
+    before = _counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sf_metrics = run_validation(ModelConfig(), ckpt_dir, "sceneflow", sf, max_images=TRAINER_VAL_FRAMES)
+    torch.cuda.synchronize()
+    sf_ms = (time.perf_counter() - t0) * 1e3 / TRAINER_VAL_FRAMES
+    _expect_launches(kernels, before, {k: TRAINER_VAL_FRAMES * v for k, v in per_frame.items()},
+                     "run_validation on SceneFlow")
+    last = log["val"][-1][1]
+    if abs(sf_metrics["epe"] - last["epe"]) > EPE_ATOL:
+        raise AssertionError(f"run_validation's EPE {sf_metrics['epe']} against the step-"
+                             f"{TRAINER_RESUMED} validation's {last['epe']}")
+    before = _counts(kernels)
+    kitti_metrics = run_validation(ModelConfig(), ckpt_dir, "kitti15", kitti, max_images=KITTI_FRAMES)
+    _expect_launches(kernels, before, {**dict.fromkeys(names, 0),
+                                       "gather_pyramid_aligned": KITTI_FRAMES * 2 * ITERS},
+                     "run_validation on KITTI 2015")
+    for name, m in (("sceneflow", sf_metrics), ("kitti15", kitti_metrics)):
+        bad = [k for k, v in m.items() if not np.isfinite(v)]
+        if bad or "epe_occ" not in m:
+            raise AssertionError(f"run_validation on {name}: {m}")
     launches = {k.__name__: k.launches for k in kernels}
     steps_ms = [ms for run in runs for ms in [s[1] for s in run["steps"]][1:]]  # warm-up of each run excluded
     step_ms = sum(steps_ms) / len(steps_ms)
@@ -1740,7 +1752,41 @@ def phase_trainer(torch, kernels, card):
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "trainer.txt"), "w") as f:
         f.write("\n".join(lines) + "\n")
-    return launches
+    return launches, sf, kitti
+
+
+@contextlib.contextmanager
+def _recorded_steps(torch, kernels, per_step, log, what):
+    """`train()`'s training step, wrapped while the block runs: each step
+    synchronised and timed, its launches held to `per_step` exactly, and
+    recorded in log["steps"] as (step, ms, metrics); where log["first"] is
+    None, the state as `train()` hands it to its first step goes there."""
+    from anystereo_tpu_torch.train import trainer
+
+    real_make = trainer.make_train_step
+
+    def timed_make(*args, **kwargs):
+        step_fn = real_make(*args, **kwargs)
+
+        def step(state, batch):
+            if "first" in log and log["first"] is None:
+                log["first"] = _state_copy(state)
+            before = _counts(kernels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            torch.cuda.synchronize()
+            log["steps"].append((state.step, (time.perf_counter() - t0) * 1e3, metrics))
+            _expect_launches(kernels, before, per_step, f"{what} step {state.step}")
+            return state, metrics
+
+        return step
+
+    trainer.make_train_step = timed_make
+    try:
+        yield
+    finally:
+        trainer.make_train_step = real_make
 
 
 class _Timed:
@@ -1783,7 +1829,376 @@ def _state_diff(a, b):
     return out
 
 
-# ----------------------------------------------------------------- phase 7
+# ----------------------------------------------------------------- phases 7-9
+
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+CLI_STEPS = 2
+DDP_RANKS, DDP_VALID_SHARE = 2, 0.25  # sample 1 of the ddp batch has a quarter of its queries valid
+# both ranks share the one card, and NCCL refuses two ranks on one device
+DDP_BACKEND = "gloo"
+# one step of two ranks against one process on the same batch of two (fp32,
+# cuDNN deterministic): the forward agrees bit for bit, but cuDNN reduces a
+# weight gradient over a batch of two in another order than two batches of
+# one and a sum, and where a convolution feeds a normalisation the gradient
+# is the small rest of large terms: 5.0e-3 of a 3-D convolution's gradient,
+# and Adam's first, sign-like step turns it into 5.5e-2 of that tensor's
+# update (NVIDIA H100 80GB HBM3, 700.00 W; cuDNN off: 1.2e-3 and 5.3e-2).
+# A tensor the ranks did not reduce is off by about its whole gradient and
+# update.
+DDP_LOSS_RTOL, DDP_GRAD_RTOL, DDP_MODEL_RTOL, DDP_UPDATE_RTOL = 1e-5, 2e-2, 1e-5, 0.25
+
+
+def _keep(phase, line):
+    """Log a phase's line and keep it in OUT_DIR/<phase>.txt: the kernels
+    line pushes it out of a log that keeps only the end of the output."""
+    _log(line)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, f"{phase}.txt"), "w") as f:
+        f.write(line + "\n")
+
+
+def _reference_state_dict(np, torch, seed=11):
+    """A seeded reference-format IGEV state_dict at `ModelConfig()` widths:
+    its keys and shapes are the committed manifest's
+    (`tests/data/reference_keys_igev.json`, what the JAX package's converter
+    reads), fan-in scaled weights, BatchNorm scales near 1 and variances in
+    [0.5, 1.5]."""
+    with open(os.path.join(HERE, "tests", "data", "reference_keys_igev.json")) as f:
+        keys = json.load(f)["keys"]
+    rng = np.random.RandomState(seed)
+    sd = {}
+    for key, shape, dtype in keys:
+        if dtype == "int64":
+            v = np.asarray(rng.randint(0, 1000), np.int64)
+        elif key.endswith(".running_var"):
+            v = rng.uniform(0.5, 1.5, shape)
+        elif key.endswith(".weight") and len(shape) >= 2:
+            v = rng.randn(*shape) / np.sqrt(np.prod(shape[1:]))
+        elif key.endswith(".weight"):
+            v = 1.0 + 0.1 * rng.randn(*shape)
+        else:
+            v = 0.1 * rng.randn(*shape)
+        sd[key] = torch.from_numpy(np.asarray(v, np.float32 if dtype == "float32" else np.int64))
+    return sd
+
+
+def _metric_lines(text, what):
+    """The `name: value` lines the CLI's evaluate prints, as a dict; all
+    finite, `epe` among them."""
+    out = {}
+    for line in text.splitlines():
+        name, sep, value = line.partition(": ")
+        if sep and name.replace("_", "").isalnum():
+            out[name] = float(value)
+    if "epe" not in out or not all(v == v and abs(v) != float("inf") for v in out.values()):
+        raise AssertionError(f"{what} printed no finite metrics: {text[-2000:]}")
+    return out
+
+
+def phase_convert(torch, kernels, card, root, kitti):
+    """Reference-checkpoint import: a seeded reference IGEV `.pth` (`module.`
+    prefix, `{"model": ...}` wrapper) → `python -m
+    anystereo_tpu_torch.tools.convert_checkpoint --verify` (a subprocess; its
+    forward runs on the card) → the result loaded strictly into a
+    reference-regime model on the card and held to this process's converter
+    tensor for tensor → `run_validation(reference_regime_config(), ...)` on
+    the KITTI tree, with B1 64 launches a frame exactly.  Returns the
+    launches and the converted checkpoint's directory."""
+    import re
+
+    import numpy as np
+
+    from anystereo_tpu_torch.config import reference_regime_config
+    from anystereo_tpu_torch.eval.validate import run_validation
+    from anystereo_tpu_torch.nn.model import build_model
+    from anystereo_tpu_torch.train.state import CHECKPOINT_FILE
+    from anystereo_tpu_torch.utils.torch_convert import convert_state_dict
+
+    sd = _reference_state_dict(np, torch)
+    ref = os.path.join(root, "reference.pth")
+    torch.save({"model": {"module." + k: v for k, v in sd.items()}}, ref)
+    out = os.path.join(root, "converted")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "anystereo_tpu_torch.tools.convert_checkpoint",
+                           "--torch-ckpt", ref, "--out", out, "--verify"],
+                          cwd=HERE, capture_output=True, text=True, timeout=600)
+    tool_s = time.perf_counter() - t0
+    if proc.returncode != 0 or "verify: forward finite OK" not in proc.stdout:
+        raise AssertionError(f"convert_checkpoint failed ({proc.returncode}): {proc.stdout[-2000:]}"
+                             f"{proc.stderr[-3000:]}")
+    convert_ms = float(re.search(r" in ([0-9.]+) ms", proc.stdout).group(1))
+    cfg = reference_regime_config()
+    saved = torch.load(os.path.join(out, "0", CHECKPOINT_FILE), map_location="cpu", weights_only=True)
+    model = build_model(cfg, DEVICE)
+    model.load_state_dict(saved["model"], strict=True)
+    del model
+    want = convert_state_dict(sd, cfg)
+    if sorted(want) != sorted(saved["model"]) or [k for k in want if not torch.equal(want[k], saved["model"][k])]:
+        raise AssertionError("the tool's checkpoint differs from the converter's tensors")
+    names = [k.__name__ for k in kernels]
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = run_validation(cfg, out, "kitti15", kitti, max_images=KITTI_FRAMES)
+    torch.cuda.synchronize()
+    frame_ms = (time.perf_counter() - t0) * 1e3 / KITTI_FRAMES
+    _expect_launches(kernels, [0] * len(kernels),
+                     {**dict.fromkeys(names, 0), "gather_pyramid_aligned": KITTI_FRAMES * 2 * ITERS},
+                     "run_validation of the converted checkpoint on KITTI 2015")
+    if not all(np.isfinite(v) for v in metrics.values()) or "epe_occ" not in metrics:
+        raise AssertionError(f"run_validation of the converted checkpoint: {metrics}")
+    launches = {k.__name__: k.launches for k in kernels}
+    _keep("convert", f"[convert] reference IGEV state_dict of {len(sd)} tensors ({sum(v.numel() for v in sd.values())} "
+         f"values) -> {len(saved['model'])} tensors of the port: {convert_ms:.1f} ms converting, the tool "
+         f"{tool_s:.1f} s with its start and its --verify forward on the card; loaded strictly, equal to this "
+         f"process's converter; run_validation (reference regime) on KITTI 2015: {frame_ms:.2f} ms/frame, epe "
+         f"{metrics['epe']:.4f}, d1 {metrics['d1']:.4f} (random weights); launches "
+         f"{({k: v for k, v in launches.items() if v})}; {card}")
+    return launches, out
+
+
+def phase_cli(torch, kernels, card, root, sf, kitti, converted):
+    """The command line: `cli.main(["train", ...])` in this process at
+    `TrainConfig()` defaults on the SceneFlow tree, warm started from the
+    converted checkpoint (`--restore`), for CLI_STEPS steps with the exact
+    launches of each.  The CLI builds the GroupNorm model (as the JAX CLI
+    does), so only the tensors that fit it load: the warm start must warn
+    about the converted BatchNorm tensors that find no home.  Then `cli.main(["evaluate", ...])` of its checkpoint on
+    SceneFlow with the exact launches of each frame; then one `python -m
+    anystereo_tpu_torch.cli evaluate` subprocess on KITTI 2015, which must
+    exit 0 and print finite metrics."""
+    import io
+
+    from anystereo_tpu_torch import cli
+    from anystereo_tpu_torch.train.state import checkpoint_steps
+
+    per_step = _igev_step_launches(kernels)
+    per_frame = _sceneflow_frame_launches(kernels)
+    ckpt = os.path.join(root, "cli_ckpt")
+    for k in kernels:
+        k.launches = 0
+    log = {"steps": []}
+    unloaded = _Warnings("anystereo_tpu_torch.train.state", "fit no parameter")
+    t0 = time.perf_counter()
+    with unloaded, _recorded_steps(torch, kernels, per_step, log, "cli train"):
+        rc = cli.main(["train", "--datasets", "sceneflow", "--data-root", sf, "--restore", converted,
+                       "--num-steps", str(CLI_STEPS), "--num-workers", str(TRAINER_WORKERS), "--ckpt-dir", ckpt])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    steps = [s for s, _, _ in log["steps"]]
+    if rc != 0 or steps != list(range(1, CLI_STEPS + 1)) or checkpoint_steps(ckpt) != [CLI_STEPS]:
+        raise AssertionError(f"cli train: exit {rc}, steps {steps}, checkpoints {checkpoint_steps(ckpt)}")
+    if len(unloaded.args) != 1:
+        raise AssertionError(f"cli train --restore <converted>: {len(unloaded.args)} warnings of tensors "
+                             "not loaded, expected 1 (the GroupNorm model)")
+    (_, n_unloaded, n_donor, *_), = unloaded.args
+    for step_no, _, metrics in log["steps"]:
+        loss = float(metrics["loss"])
+        if not (loss == loss and abs(loss) != float("inf")) or metrics["nonfinite_skips"]:
+            raise AssertionError(f"cli train step {step_no}: loss {loss}, skips {metrics['nonfinite_skips']}")
+    before = _counts(kernels)
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["evaluate", "--dataset", "sceneflow", "--data-root", sf, "--ckpt", ckpt])
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) * 1e3 / SF_TEST
+    if rc != 0:
+        raise AssertionError(f"cli evaluate exited {rc}")
+    _expect_launches(kernels, before, {k: SF_TEST * v for k, v in per_frame.items()},
+                     "cli evaluate on SceneFlow")
+    sf_metrics = _metric_lines(buf.getvalue(), "cli evaluate")
+    launches = {k.__name__: k.launches for k in kernels}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "anystereo_tpu_torch.cli", "evaluate", "--dataset", "kitti15",
+                           "--data-root", kitti, "--ckpt", ckpt], cwd=HERE, capture_output=True, text=True,
+                          timeout=600)
+    sub_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m anystereo_tpu_torch.cli evaluate exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    kitti_metrics = _metric_lines(proc.stdout, "python -m anystereo_tpu_torch.cli evaluate")
+    step_ms = [ms for _, ms, _ in log["steps"]]
+    _keep("cli", f"[cli] train --restore <converted> --num-steps {CLI_STEPS} at TrainConfig() defaults (the "
+         f"CLI's GroupNorm model: {n_unloaded} of the {n_donor} converted tensors do not fit it and were not "
+         f"loaded, with the warning): {', '.join(f'{ms:.2f}' for ms in step_ms)} ms a step, {train_s:.1f} s in all (the loader's start, "
+         f"the warm start and the checkpoint included); losses "
+         f"{[round(float(m['loss']), 4) for _, _, m in log['steps']]}; evaluate on SceneFlow in this process "
+         f"{eval_ms:.2f} ms/frame, epe {sf_metrics['epe']:.4f}; `python -m anystereo_tpu_torch.cli evaluate` on "
+         f"KITTI 2015: exit 0 in {sub_s:.1f} s, epe {kitti_metrics['epe']:.4f}; launches "
+         f"{({k: v for k, v in launches.items() if v})}; {card}")
+    return launches
+
+
+class _Warnings:
+    """Within `with`, the arguments of every warning of the logger `name`
+    whose message holds `text`."""
+
+    def __init__(self, name, text):
+        import logging
+
+        self.logger, self.text, self.args = logging.getLogger(name), text, []
+        outer = self
+
+        class Handler(logging.Handler):
+            def emit(self, record):
+                if outer.text in str(record.msg):
+                    outer.args.append(record.args)
+
+        self.handler = Handler(logging.WARNING)
+
+    def __enter__(self):
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+
+def _launch_counters():
+    """Every kernel wrapper that counts launches; the main paths reach the
+    first nine."""
+    from anystereo_tpu_torch.ops.kernels import lookup_linear as tl
+    from anystereo_tpu_torch.ops.kernels import lookup_window as tw
+    from anystereo_tpu_torch.ops.kernels.gather import gather_rows, scatter_rows_add
+    from anystereo_tpu_torch.ops.kernels.lookup import gather_pyramid_aligned, gather_pyramid_aligned_bwd
+
+    return [gather_pyramid_aligned, gather_pyramid_aligned_bwd, tw.gather_pyramid_window_pm,
+            tw.gather_pyramid_window_pm_bwd, gather_rows, scatter_rows_add,
+            tl.gather_window_linear, tl.gather_window_linear_bwd, tl.gather_rows_linear,
+            tl.gather_rows_linear_bwd, tw.gather_pyramid_window_t, tw.gather_pyramid_window_t_bwd,
+            tw.gather_pyramid_window, tw.gather_pyramid_window_bwd]
+
+
+def _ddp_config(ckpt_dir, batch, data):
+    from anystereo_tpu_torch.config import Config, MeshConfig, ModelConfig, TrainConfig
+
+    return Config(model=ModelConfig(compute_dtype="float32"), mesh=MeshConfig(data=data),
+                  train=TrainConfig(batch_size=batch, ckpt_dir=ckpt_dir))
+
+
+def _ddp_train(torch, kernels, cfg, batch, what):
+    """One step of `train()` on `batch` (numpy); returns its metrics, its ms
+    (synchronised), the launches, and the parameters and the gradient the
+    optimizer applied, on the host."""
+    from anystereo_tpu_torch.train import trainer
+
+    for k in kernels:
+        k.launches = 0
+    log = {"steps": []}
+    with _recorded_steps(torch, kernels, _igev_step_launches(kernels), log, what):
+        state = trainer.train(cfg, [batch], max_steps=1)
+    (_, ms, metrics), = log["steps"]
+    return {"metrics": {k: float(v) for k, v in metrics.items()}, "ms": ms,
+            "launches": {k.__name__: k.launches for k in kernels},
+            "params": {n: p.detach().cpu() for n, p in state.model.named_parameters()},
+            "grads": {n: p.grad.cpu() for n, p in state.model.named_parameters()}}
+
+
+def _ddp_rank(rank, port, root):
+    """One rank of the ddp phase, in its own process on the one card."""
+    import numpy as np
+    import torch
+
+    _fp32_deterministic(torch)
+    torch.distributed.init_process_group(DDP_BACKEND, init_method=f"tcp://127.0.0.1:{port}",
+                                         world_size=DDP_RANKS, rank=rank)
+    try:
+        batch = {k: v[rank:rank + 1] for k, v in np.load(os.path.join(root, "ddp_batch.npz")).items()}
+        res = _ddp_train(torch, _launch_counters(), _ddp_config(os.path.join(root, "ddp_ranks"), 1, 0), batch,
+                         f"ddp rank {rank}")
+        torch.save(res, os.path.join(root, f"ddp_rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_ddp(torch, kernels, card, root):
+    """Data-parallel training: DDP_RANKS ranks on the one card
+    (`torch.multiprocessing`, the process group over DDP_BACKEND), each with
+    one sample of a seeded synthetic batch of two whose valid counts differ,
+    one step of `train()` at full width (`ModelConfig()`, `TrainConfig()`:
+    160x320, 51,200 queries a sample, 16 iterations) in fp32 (cuDNN
+    deterministic); against one process on the same batch of two.  The loss
+    within DDP_LOSS_RTOL, every gradient the optimizer applied within
+    DDP_GRAD_RTOL, the parameters after the step within DDP_MODEL_RTOL of
+    the model's norm and each tensor within DDP_UPDATE_RTOL of its update,
+    the two replicas equal; only rank 0 writes the checkpoint; each rank's
+    launches are exact and come back with its results."""
+    import numpy as np
+
+    from anystereo_tpu_torch.config import TrainConfig
+    from anystereo_tpu_torch.nn.model import build_model
+    from anystereo_tpu_torch.train.state import checkpoint_steps
+
+    _fp32_deterministic(torch)
+    q = TrainConfig().sample_q
+    batch = {k: v.cpu().numpy() for k, v in _train_batch(torch, 2, TRAIN_H, TRAIN_W, q, seed=6).items()}
+    rng = np.random.RandomState(6)
+    batch["valid"][1] = 0
+    batch["valid"][1, rng.permutation(q)[: int(q * DDP_VALID_SHARE)]] = 1
+    np.savez(os.path.join(root, "ddp_batch.npz"), **batch)
+    want = _ddp_train(torch, kernels, _ddp_config(os.path.join(root, "ddp_one"), 2, 1), batch, "ddp one process")
+    start = dict(build_model(_ddp_config("", 2, 1).model, "cpu", seed=TrainConfig().seed).named_parameters())
+    torch.cuda.empty_cache()
+    ctx = torch.multiprocessing.get_context("spawn")
+    port = _free_port()
+    procs = [ctx.Process(target=_ddp_rank, args=(r, port, root)) for r in range(DDP_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(600)
+    wall = time.perf_counter() - t0
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * DDP_RANKS:
+        raise AssertionError(f"ddp ranks exited {codes}")
+    ranks = [torch.load(os.path.join(root, f"ddp_rank{r}.pt"), weights_only=True) for r in range(DDP_RANKS)]
+    if checkpoint_steps(os.path.join(root, "ddp_ranks")) != [1]:
+        raise AssertionError("the ranks' checkpoint directory does not hold step 1 alone")
+    loss = want["metrics"]["loss"]
+    rel = [abs(r["metrics"]["loss"] - loss) / abs(loss) for r in ranks]
+    grad = [_grad_diff(r["grads"], want["grads"], DDP_GRAD_RTOL) for r in ranks]
+    norm = torch.linalg.vector_norm
+    upd = sorted(((float(norm(ranks[0]["params"][n] - w) / norm(w - start[n].detach()).clamp_min(1e-30)), n)
+                  for n, w in want["params"].items()), reverse=True)
+    model_rel = float(norm(torch.stack([norm(ranks[0]["params"][n] - w) for n, w in want["params"].items()]))
+                      / norm(torch.stack([norm(w) for w in want["params"].values()])))
+    same = all(torch.equal(ranks[0]["params"][n], ranks[1]["params"][n]) for n in want["params"])
+    launches = {name: want["launches"][name] + sum(r["launches"][name] for r in ranks) for name in want["launches"]}
+    rank_ms = ", ".join(f"{r['ms']:.2f}" for r in ranks)
+    _keep("ddp", f"[ddp] {DDP_RANKS} ranks over {DDP_BACKEND} on one card, a sample each (valid queries "
+         f"{int(batch['valid'][0].sum())} and {int(batch['valid'][1].sum())}), against one process on both, "
+         f"fp32, one train() step at TrainConfig() shapes: loss {loss:.6f}, ranks' relative difference "
+         f"{max(rel):.2e} (bound {DDP_LOSS_RTOL}); worst ||dg||/||g|| {max(g[0] for g in grad):.2e} "
+         f"({grad[0][1]}; bound {DDP_GRAD_RTOL}); parameters after the step: the model within "
+         f"{model_rel:.2e} of its norm (bound {DDP_MODEL_RTOL}), worst ||dp||/||update|| {upd[0][0]:.2e} "
+         f"({upd[0][1]}; bound {DDP_UPDATE_RTOL}), next "
+         f"{[(round(v, 4), n) for v, n in upd[1:4]]}; replicas equal: {same}; ms per step: one process "
+         f"{want['ms']:.2f}, ranks {rank_ms} ({wall:.1f} s for the ranks' "
+         f"processes in all); launches {({k: v for k, v in launches.items() if v})}; {card}")
+    if (max(rel) > DDP_LOSS_RTOL or any(g[2] for g in grad) or not same or model_rel > DDP_MODEL_RTOL
+            or upd[0][0] > DDP_UPDATE_RTOL):
+        raise AssertionError(f"data-parallel step against one process: loss {rel}, gradients "
+                             f"{[g[2][:5] for g in grad]}, replicas equal {same}, parameters {model_rel} of "
+                             f"the model's norm, {upd[:3]} of their updates")
+    return launches
+
+
+# ----------------------------------------------------------------- phase 10
 
 
 @contextlib.contextmanager
@@ -1879,7 +2294,7 @@ def _fp32_train_runs(torch, core="igev", flavor="aligned"):
     return through_kernels, plain
 
 
-def _grad_diff(got, want):
+def _grad_diff(got, want, rtol=GRAD_CHECK_RTOL):
     """(worst ||dg|| / ||g||, its parameter, the parameters past the bound).
     The bound's absolute part is GRAD_CHECK_ATOL or, if larger, 1e-8 of the
     largest gradient norm: a conv bias in front of an instance norm (the RAFT
@@ -1895,7 +2310,7 @@ def _grad_diff(got, want):
         delta, norm = float((got[name] - g).norm()), float(g.norm())
         if norm > floor and delta / norm > worst:
             worst, worst_name = delta / norm, name
-        if not delta <= GRAD_CHECK_RTOL * norm + floor:
+        if not delta <= rtol * norm + floor:
             bad.append((name, delta, norm))
     return worst, worst_name, bad
 
@@ -1986,14 +2401,19 @@ def phase_spread(torch):
              f"runs: " + "; ".join(f"{k} {v[0]:.2e} ({v[1]})" for k, v in worst.items()))
 
 
+def _fp32_deterministic(torch):
+    """fp32 without TF32, cuDNN held to its deterministic algorithms."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+
+
 def phase_check(torch, kernels):
     """fp32 without TF32, and cuDNN held to its deterministic algorithms: its
     other backward algorithms sum with atomics, and two runs of one and the
     same path then differ by up to 1e-2 relative in the cost aggregation's
     gradients (measured on the H100), which would hide the kernels' 5e-6."""
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.deterministic = True
+    _fp32_deterministic(torch)
     for core in ("igev", "raft"):
         _check_eval(torch, kernels, core)
         torch.cuda.empty_cache()
@@ -2262,20 +2682,7 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; nothing was run", file=sys.stderr)
         return 2
-    from anystereo_tpu_torch.ops.kernels import lookup_linear as tl
-    from anystereo_tpu_torch.ops.kernels import lookup_window as tw
-    from anystereo_tpu_torch.ops.kernels.gather import gather_rows, scatter_rows_add
-    from anystereo_tpu_torch.ops.kernels.lookup import (
-        gather_pyramid_aligned,
-        gather_pyramid_aligned_bwd,
-    )
-
-    # every wrapper that counts launches; the main paths reach the first nine
-    kernels = [gather_pyramid_aligned, gather_pyramid_aligned_bwd, tw.gather_pyramid_window_pm,
-               tw.gather_pyramid_window_pm_bwd, gather_rows, scatter_rows_add,
-               tl.gather_window_linear, tl.gather_window_linear_bwd, tl.gather_rows_linear,
-               tl.gather_rows_linear_bwd, tw.gather_pyramid_window_t, tw.gather_pyramid_window_t_bwd,
-               tw.gather_pyramid_window, tw.gather_pyramid_window_bwd]
+    kernels = _launch_counters()
     profile = "--profile" in argv
     parent = argv[argv.index("--parent") + 1] if "--parent" in argv else None
     card = _card()
@@ -2330,7 +2737,14 @@ def main(argv) -> int:
         phase_profile_train(torch, *trained, flavor="levels")
     del trained
     torch.cuda.empty_cache()
-    by_path["trainer"] = phase_trainer(torch, kernels, card)
+    with tempfile.TemporaryDirectory() as root:
+        by_path["trainer"], sf, kitti = phase_trainer(torch, kernels, card, root)
+        torch.cuda.empty_cache()
+        by_path["convert"], converted = phase_convert(torch, kernels, card, root, kitti)
+        torch.cuda.empty_cache()
+        by_path["cli"] = phase_cli(torch, kernels, card, root, sf, kitti, converted)
+        torch.cuda.empty_cache()
+        by_path["ddp"] = phase_ddp(torch, kernels, card, root)
     torch.cuda.empty_cache()
     phase_check(torch, kernels)
     if "--spread" in argv:
