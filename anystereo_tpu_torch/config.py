@@ -236,10 +236,10 @@ class TrainConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Process layout: `data` = ranks that each train on their slice of the
-    batch (0: every rank of the process group), `spatial` = H-tiling of
-    images and cost volumes, which the port does not have yet
-    (`parallel.mesh.check_mesh` raises `NotImplementedError` for it)."""
+    """Process layout: `data` = ranks that each take their slice of the
+    batch (0: every rank of the process group), `spatial` = ranks that tile
+    the images' rows for inference (`parallel/spatial.py`; `train()` refuses
+    it)."""
 
     data: int = 1
     spatial: int = 1

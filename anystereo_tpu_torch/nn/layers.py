@@ -12,6 +12,12 @@ Convs add their bias after the product, in the compute dtype, as flax does.
 The JAX package's TPU schedule rewrites of these layers (folded 3x3x3
 convs, the subpixel 3-D deconv) are computed here as the plain conv3d and
 conv_transpose3d they stand for.
+
+Inside a spatial context (`parallel/spatial.py`: a rank holds a tile of the
+frame's rows) the convolutions exchange the rows their kernels need along H
+with the neighbouring ranks and convolve with no H padding, and the
+normalisations take their statistics over the whole image.  H is the
+second-to-last dim of both layouts.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import torch.nn.functional as F
 
 from anystereo_tpu_torch.config import NormType
 from anystereo_tpu_torch.ops.sampling import nearest_resize
+from anystereo_tpu_torch.parallel import spatial
 
 IntOrSeq = Union[int, Sequence[int]]
 
@@ -83,7 +90,16 @@ class Conv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
         conv = F.conv2d if self.dims == 2 else F.conv3d
-        y = conv(x.to(dt), self.weight.to(dt), None, self.stride, self.padding, 1, self.groups)
+        padding = self.padding
+        ctx = spatial.current()
+        if ctx is not None:
+            # output row i reads input rows [i*s - p, i*s - p + k): every
+            # rank's tile starts at a multiple of s, so each takes p rows
+            # before its own and k - s - p after
+            k, s, p = self.weight.shape[-2], self.stride[-2], padding[-2]
+            x = ctx.halo(x, p, k - s - p, x.dim() - 2)
+            padding = padding[:-2] + (0, padding[-1])
+        y = conv(x.to(dt), self.weight.to(dt), None, self.stride, padding, 1, self.groups)
         if self.bias is not None:
             y = y + _bcast(self.bias.to(dt), y.dim())
         return y
@@ -108,7 +124,19 @@ class TorchConvTranspose(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
         deconv = F.conv_transpose2d if self.dims == 2 else F.conv_transpose3d
-        y = deconv(x.to(dt), self.weight.to(dt), None, self.stride, self.padding)
+        ctx = spatial.current()
+        if ctx is None:
+            y = deconv(x.to(dt), self.weight.to(dt), None, self.stride, self.padding)
+        else:
+            # output row j = i*s - p + t reads input rows
+            # [ceil((j + p - k + 1) / s), floor((j + p) / s)]: a tile of rows
+            # [a0, a1) makes rows [a0*s, a1*s) from lo rows before it and hi
+            # after; unpadded, its first row sits at lo*s + p
+            k, s, p = self.weight.shape[-2], self.stride[-2], self.padding[-2]
+            lo, hi, rows = (k - 1 - p) // s, (p - 1) // s + 1, x.shape[-2]
+            x = ctx.halo(x, lo, hi, x.dim() - 2)
+            y = deconv(x.to(dt), self.weight.to(dt), None, self.stride, self.padding[:-2] + (0, self.padding[-1]))
+            y = y.narrow(y.dim() - 2, lo * s + p, rows * s)
         if self.bias is not None:
             y = y + _bcast(self.bias.to(dt), y.dim())
         return y
@@ -158,9 +186,13 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     Statistics are reduced in fp32 and rounded to x's dtype, then the
     normalization runs in x's dtype, as `jnp.mean` / `jnp.var` do."""
     dims = tuple(range(2, x.dim()))
-    xf = x.float()
-    mu = xf.mean(dims, keepdim=True).to(x.dtype)
-    var = xf.var(dims, unbiased=False, keepdim=True).to(x.dtype)
+    ctx = spatial.current()
+    if ctx is None:
+        xf = x.float()
+        mu, var = xf.mean(dims, keepdim=True), xf.var(dims, unbiased=False, keepdim=True)
+    else:
+        mu, var = ctx.moments(x, dims, x.dim() - 2)
+    mu, var = mu.to(x.dtype), var.to(x.dtype)
     return (x - mu) * torch.rsqrt(var + eps)
 
 
@@ -181,7 +213,13 @@ class GroupNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or torch.promote_types(x.dtype, torch.float32)
-        return F.group_norm(x.float(), self.groups, self.weight, self.bias, 1e-5).to(dt)
+        ctx = spatial.current()
+        if ctx is None:
+            return F.group_norm(x.float(), self.groups, self.weight, self.bias, 1e-5).to(dt)
+        xg = x.reshape(x.shape[0], self.groups, -1, *x.shape[2:])  # [B, G, C/G, *spatial]
+        mu, var = ctx.moments(xg, tuple(range(2, xg.dim())), xg.dim() - 2)
+        y = ((xg.float() - mu) * torch.rsqrt(var + 1e-5)).reshape(x.shape)
+        return (y * _bcast(self.weight, y.dim()) + _bcast(self.bias, y.dim())).to(dt)
 
 
 class LayerNorm2d(nn.Module):

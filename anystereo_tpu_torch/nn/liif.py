@@ -29,6 +29,7 @@ from anystereo_tpu_torch.ops.sampling import (
     nearest_sample,
 )
 from anystereo_tpu_torch.ops.upsample import _clamp_coords, quarter_shifts
+from anystereo_tpu_torch.parallel import spatial
 
 
 def affinity_features(
@@ -41,7 +42,12 @@ def affinity_features(
     fn = feat / norm.clamp_min(1e-12)
     _, h, w, _ = feat.shape
     py, px = dilation * (wh // 2), dilation * (ww // 2)
-    padded = F.pad(fn, (0, 0, px, px, py, py))
+    ctx = spatial.current()
+    if ctx is None:
+        padded = F.pad(fn, (0, 0, px, px, py, py))
+    else:
+        # a rank that holds a tile of the rows reads its neighbours' rows
+        padded = F.pad(ctx.halo(fn, py, py, 1), (0, 0, px, px))
     outs = []
     for ky in range(wh):
         for kx in range(ww):
@@ -276,7 +282,7 @@ class LiifDecoder(FlaxNamed):
         # 4-neighbor local ensemble: decode at each diagonal neighbor cell of
         # the first latent and blend by the areas of the opposite cells
         preds, areas = [], []
-        for dy, dx in quarter_shifts(feats[0].shape[1], feats[0].shape[2]):
+        for dy, dx in quarter_shifts(spatial.frame_rows(feats[0].shape[1]), feats[0].shape[2]):
             shifted = (ys + dy, xs + dx) if dense else coords + coords.new_tensor((dy, dx))
             latent, (rel_y, rel_x) = build(feats, shifted, grid, scale)
             preds.append(self.imnet(latent))
@@ -308,7 +314,7 @@ class LiifDecoder(FlaxNamed):
         cell = None if scale is None else (2.0 / scale).reshape(b, 1, 1).expand(b, q, 2)
         pieces, rel0 = [], None
         for i, feat in enumerate(feats):
-            fh, fw = feat.shape[1], feat.shape[2]
+            fh, fw = spatial.frame_rows(feat.shape[1]), feat.shape[2]
             if self.cfg.quarter_nearest == "both":
                 cls = [_clamp_coords(sample_coords + sample_coords.new_tensor(shift))
                        for shift in quarter_shifts(fh, fw)]
@@ -339,7 +345,7 @@ class LiifDecoder(FlaxNamed):
         cell = None if scale is None else (2.0 / scale).reshape(b, 1, 1, 1).expand(b, oh, ow, 2)
         pieces, rel0 = [], None
         for i, feat in enumerate(feats):
-            fh, fw = feat.shape[1], feat.shape[2]
+            fh, fw = spatial.frame_rows(feat.shape[1]), feat.shape[2]
             if self.cfg.quarter_nearest == "both":
                 corners = [nearest_dense_gather(feat, sy + dy, sx + dx)
                            for dy, dx in quarter_shifts(fh, fw)]

@@ -46,6 +46,7 @@ from anystereo_tpu_torch.ops.upsample import (
     quarter_shifts,
     unfold3x3,
 )
+from anystereo_tpu_torch.parallel.spatial import frame_rows
 from anystereo_tpu_torch.utils.device import resolve_device
 
 
@@ -67,8 +68,9 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 def dense_query_coords(b: int, out_h: int, out_w: int,
                        device: Optional[torch.device] = None) -> torch.Tensor:
-    """Full-grid queries for fixed-size decoding ([B, H*W, 2], (y, x))."""
-    return make_coord((out_h, out_w), device=device)[None].expand(b, out_h * out_w, 2)
+    """Full-grid queries for fixed-size decoding ([B, H*W, 2], (y, x)); in a
+    spatial context, the rank's `out_h` rows of the frame's grid."""
+    return make_coord((out_h, out_w), device=device, rows=True)[None].expand(b, out_h * out_w, 2)
 
 
 class AnyStereo(nn.Module):
@@ -220,7 +222,8 @@ class AnyStereo(nn.Module):
         if self.cfg.liif.quarter_nearest != "none":
             # the four corner cells, by per-axis shifts, in the weights' order
             up = torch.cat([nearest_dense_gather(disp_scaled[..., None], ys + dy, xs + dx)[0]
-                            for dy, dx in quarter_shifts(*disp_scaled.shape[1:])], dim=-1)
+                            for dy, dx in quarter_shifts(frame_rows(disp_scaled.shape[1]),
+                                                         disp_scaled.shape[2])], dim=-1)
         else:
             up, _, _ = nearest_dense_gather(unfold3x3(disp_scaled), ys, xs)  # [B, H', W', 9]
         return self._denorm_disp((up * weights).sum(dim=-1), w0, scale)
@@ -263,7 +266,7 @@ class AnyStereo(nn.Module):
             if mode == "train":
                 coords = dense_query_coords(b, h, w, dev)
             else:
-                dense_grid = (_axis_centers(h, device=dev), _axis_centers(w, device=dev))
+                dense_grid = (_axis_centers(h, device=dev, rows=True), _axis_centers(w, device=dev))
         left = self._normalize(left)
         right = self._normalize(right)
         match_l, match_r, feats_l, stems = self._matching(left, right)

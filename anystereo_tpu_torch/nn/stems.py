@@ -12,6 +12,7 @@ from anystereo_tpu_torch.config import AggregationType, NormType
 from anystereo_tpu_torch.nn.layers import (
     Conv, ConvNormAct, FlaxNamed, LayerNorm2d, instance_norm, make_norm, pixel_unshuffle,
 )
+from anystereo_tpu_torch.parallel import spatial
 
 
 class HighResAggregation(FlaxNamed):
@@ -35,7 +36,9 @@ class HighResAggregation(FlaxNamed):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         embed, gate, conv, norm = self.parts
         y = embed(pixel_unshuffle(x, 2))
-        y = y * gate(y.mean(dim=(2, 3), keepdim=True))
+        ctx = spatial.current()
+        # the squeeze's mean is over the whole image, also when a rank holds a tile
+        y = y * gate(y.mean(dim=(2, 3), keepdim=True) if ctx is None else ctx.mean(y, (2, 3), 2))
         y = norm(conv(y))
         return F.gelu(y, approximate="none") if self.head_act == "gelu" else F.relu(y)
 

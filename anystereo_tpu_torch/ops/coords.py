@@ -2,7 +2,8 @@
 
 Twin of `anystereo_tpu/ops/coords.py`: normalized coords live in [-1, 1],
 stored in (y, x) order; pixel centers of an axis of length n sit at
--1 + (2i + 1) / n.
+-1 + (2i + 1) / n.  Inside a spatial context (`parallel/spatial.py`) a
+grid's rows are the rank's rows of the frame's grid.
 """
 
 from __future__ import annotations
@@ -11,12 +12,22 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from anystereo_tpu_torch.parallel import spatial
+
 
 def _axis_centers(
-    n: int, lo: float = -1.0, hi: float = 1.0, device: Optional[torch.device] = None
+    n: int, lo: float = -1.0, hi: float = 1.0, device: Optional[torch.device] = None,
+    rows: bool = False,
 ) -> torch.Tensor:
-    r = (hi - lo) / (2 * n)
-    return lo + r + (2 * r) * torch.arange(n, dtype=torch.float32, device=device)
+    """Centers of n cells over [lo, hi].  `rows`: the axis is the frame's
+    rows, of which a rank in a spatial context holds n: the centers of its
+    rows in the frame's grid."""
+    ctx = spatial.current() if rows else None
+    if ctx is None:
+        r = (hi - lo) / (2 * n)
+        return lo + r + (2 * r) * torch.arange(n, dtype=torch.float32, device=device)
+    a0, a1, total = ctx.span(n)
+    return _axis_centers(total, lo, hi, device)[a0:a1]
 
 
 def make_coord(
@@ -24,13 +35,15 @@ def make_coord(
     ranges: Sequence[Tuple[float, float]] | None = None,
     flatten: bool = True,
     device: Optional[torch.device] = None,
+    rows: bool = False,
 ) -> torch.Tensor:
     """Pixel-center coordinate grid: [H*W, 2] (flatten) or [H, W, 2],
-    components ordered (y, x)."""
+    components ordered (y, x).  `rows`: the first axis is the frame's rows
+    (`_axis_centers`)."""
     axes = []
     for i, n in enumerate(shape):
         lo, hi = (-1.0, 1.0) if ranges is None else ranges[i]
-        axes.append(_axis_centers(n, lo, hi, device))
+        axes.append(_axis_centers(n, lo, hi, device, rows=rows and i == 0))
     grid = torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1)
     if flatten:
         grid = grid.reshape(-1, grid.shape[-1])

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 def all_pairs_correlation(fl: torch.Tensor, fr: torch.Tensor) -> torch.Tensor:
     """corr[b,h,i,j] = <fl[b,h,i,:], fr[b,h,j,:]>, fp32 accumulation.
     fl: [B, H, W1, C], fr: [B, H, W2, C] → [B, H, W1, W2]."""
+    # row by row along W: a rank that holds a tile of the rows needs no exchange
     return torch.matmul(fl.float(), fr.float().transpose(-1, -2))
 
 
@@ -58,6 +59,7 @@ def build_gwc_and_corr(
     """GWC volume and all-pairs correlation from one grouped product:
     corr = Σ_g S_g and gwc[..., g, d] = S_g[w, w-d] / (C/G), where
     S_g = fl_g @ fr_g^T.  Returns (gwc [B,H,W,G,D] fp32, corr [B,H,W,W] fp32)."""
+    # row by row along W: a rank that holds a tile of the rows needs no exchange
     b, h, w, c = fl.shape
     assert c % num_groups == 0
     cg = c // num_groups
@@ -80,6 +82,7 @@ def build_gwc_and_corr(
 
 def disparity_regression(prob: torch.Tensor, max_disp: int) -> torch.Tensor:
     """Soft-argmin expectation Σ_d d·p(d) over the last axis."""
+    # per pixel: a rank that holds a tile of the rows needs no exchange
     assert prob.shape[-1] == max_disp
     d_vals = torch.arange(max_disp, dtype=prob.dtype, device=prob.device)
     return torch.sum(prob * d_vals, dim=-1)

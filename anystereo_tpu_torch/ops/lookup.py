@@ -102,6 +102,7 @@ def build_pyramid(
 ) -> CorrPyramid:
     """Lookup pyramids of `num_levels` levels, each halving the last axis
     (floor), held as their level-0 rows in fp32, the layout the kernel reads."""
+    # pools along the disparity or W axis only: a tile of rows needs no exchange
     geo = None if geo_volume is None else geo_volume.float().contiguous()
     return CorrPyramid(corr.float().contiguous(), geo, num_levels, radius)
 
@@ -129,6 +130,7 @@ def pyramid_lookup(
     last live window ends; "classify" and "levels" do not, and a window far
     outside its row gives exact zeros.
     """
+    # taps along the row at x (coords is x): a tile of rows needs no exchange
     b, h, w = disp.shape
     r = pyr.radius
     k = 2 * r + 1

@@ -3,6 +3,11 @@
 Public functions keep the JAX package's channels-last layout ([B, H, W, C]);
 inside, the pooling ops run on a channels-first view, so a caller that holds
 an NCHW tensor and passes `x.permute(0, 2, 3, 1)` pays for no copy.
+
+Inside a spatial context (`parallel/spatial.py`) a map holds a tile of the
+frame's rows: the resizes, pools and nearest gathers work in global row
+indices and positions and read the rows they need past the tile from the
+neighbouring ranks.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ import torch.nn.functional as F
 
 from anystereo_tpu_torch.ops.kernels.gather import gather_rows, gather_rows_ref
 from anystereo_tpu_torch.ops.kernels.lookup_linear import gather_rows_linear, gather_rows_linear_ref
+from anystereo_tpu_torch.parallel import spatial
 
 
 def gather_1d_linear(vol: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
@@ -74,7 +80,15 @@ def nearest_sample(feat: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     """Nearest-neighbor sample of a [B, H, W, C] map at normalized (y, x)
     queries `coords` [B, Q, 2] in [-1, 1] → [B, Q, C]."""
     b, h, w, c = feat.shape
-    iy = _nearest_indices(coords[..., 0], h)  # [B, Q]
+    ctx = spatial.current()
+    if ctx is None:
+        iy = _nearest_indices(coords[..., 0], h)  # [B, Q]
+    else:
+        # the rows of the tile and a halo, indexed from the halo's first row
+        a0, _, rows = ctx.span(h)
+        feat = ctx.halo(feat, spatial.GATHER_HALO, spatial.GATHER_HALO, 1)
+        h = feat.shape[1]
+        iy = spatial.within(_nearest_indices(coords[..., 0], rows) - (a0 - spatial.GATHER_HALO), h)
     ix = _nearest_indices(coords[..., 1], w)
     return gather_rows_flat(feat.reshape(b, h * w, c), iy * w + ix)
 
@@ -96,10 +110,14 @@ def nearest_dense_gather(x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor):
     returns (out [B, H', W', C], iy [H'], ix [W']).  An index_select gives
     exactly the one-hot contraction of the JAX twin."""
     h, w = x.shape[1], x.shape[2]
-    iy = _nearest_indices(ys.clamp(-1 + 1e-6, 1 - 1e-6), h)
+    ctx = spatial.current()
     ix = _nearest_indices(xs.clamp(-1 + 1e-6, 1 - 1e-6), w)
-    out = x.index_select(1, iy).index_select(2, ix)
-    return out, iy, ix
+    if ctx is None:
+        iy = _nearest_indices(ys.clamp(-1 + 1e-6, 1 - 1e-6), h)
+        return x.index_select(1, iy).index_select(2, ix), iy, ix
+    # ys are the rank's rows of the output grid; iy global latent rows
+    iy = _nearest_indices(ys.clamp(-1 + 1e-6, 1 - 1e-6), ctx.global_rows(h))
+    return ctx.take_rows(x, iy, 1).index_select(2, ix), iy, ix
 
 
 def _linear_resize_matrix(n_in: int, n_out: int, dtype, device) -> torch.Tensor:
@@ -123,26 +141,53 @@ def interp_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     matmuls (the resize matrices take x's dtype, as in the JAX twin)."""
     _, h, w, _ = x.shape
     oh, ow = out_hw
-    if (oh, ow) == (h, w):
-        return x
-    mh = _linear_resize_matrix(h, oh, x.dtype, x.device)
+    ctx = spatial.current()
+    if ctx is None:
+        if (oh, ow) == (h, w):
+            return x
+        mh = _linear_resize_matrix(h, oh, x.dtype, x.device)
+    else:
+        # align_corners positions follow the global sizes: the rank's rows of
+        # the global matrix, over its input rows and a halo
+        if (ctx.global_rows(oh), ow) == (ctx.global_rows(h), w):
+            return x
+        mh, x = ctx.local_matrix(x, _host_resize_matrix, oh, 1)
     mw = _linear_resize_matrix(w, ow, x.dtype, x.device)
     y = torch.einsum("oh,bhwc->bowc", mh, x)
     return torch.einsum("pw,bowc->bopc", mw, y)
+
+
+def _host_resize_matrix(n_in: int, n_out: int) -> torch.Tensor:
+    """`_linear_resize_matrix` in fp32 on the host (a spatial context's
+    global matrix; the same values the card computes)."""
+    return _linear_resize_matrix(n_in, n_out, torch.float32, torch.device("cpu"))
 
 
 def nearest_resize(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     """Nearest resize of [B, H, W, C] (F.interpolate mode='nearest')."""
     _, h, w, _ = x.shape
     oh, ow = out_hw
-    iy = torch.floor(torch.arange(oh, device=x.device) * (h / oh)).long()
     ix = torch.floor(torch.arange(ow, device=x.device) * (w / ow)).long()
-    return x.index_select(1, iy).index_select(2, ix)
+    ctx = spatial.current()
+    if ctx is None:
+        iy = torch.floor(torch.arange(oh, device=x.device) * (h / oh)).long()
+        return x.index_select(1, iy).index_select(2, ix)
+    # the rank's output rows, at global indices
+    o0, o1, rows_out = ctx.span(oh)
+    iy = torch.floor(torch.arange(o0, o1, device=x.device) * (ctx.global_rows(h) / rows_out)).long()
+    return ctx.take_rows(x, iy, 1).index_select(2, ix)
 
 
 def avg_pool2d(x: torch.Tensor, window: int, stride: int, padding: int = 0) -> torch.Tensor:
     """F.avg_pool2d on [B, H, W, C] with count_include_pad=True."""
-    y = F.avg_pool2d(x.permute(0, 3, 1, 2), window, stride, padding)
+    ctx = spatial.current()
+    if ctx is None:
+        y = F.avg_pool2d(x.permute(0, 3, 1, 2), window, stride, padding)
+    else:
+        # a conv's halo (Conv in nn/layers.py); the zero rows past the frame
+        # count as the padding does
+        x = ctx.halo(x, padding, window - stride - padding, 1)
+        y = F.avg_pool2d(x.permute(0, 3, 1, 2), window, stride, (0, padding))
     return y.permute(0, 2, 3, 1)
 
 
@@ -155,5 +200,7 @@ def pool_half_last(x: torch.Tensor) -> torch.Tensor:
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
-    """AdaptiveAvgPool2d(1) on [B, H, W, C] → [B, 1, 1, C]."""
-    return x.mean(dim=(1, 2), keepdim=True)
+    """AdaptiveAvgPool2d(1) on [B, H, W, C] → [B, 1, 1, C], over the whole
+    image also when a rank holds a tile."""
+    ctx = spatial.current()
+    return x.mean(dim=(1, 2), keepdim=True) if ctx is None else ctx.mean(x, (1, 2), 1)

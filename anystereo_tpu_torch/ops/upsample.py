@@ -6,17 +6,24 @@ import torch
 import torch.nn.functional as F
 
 from anystereo_tpu_torch.ops.sampling import nearest_resize, nearest_sample
+from anystereo_tpu_torch.parallel import spatial
 
 
 def unfold3x3(x: torch.Tensor) -> torch.Tensor:
     """3x3 patch extraction with zero padding.
 
     x: [B, H, W] or [B, H, W, C] → [B, H, W, 9*C]; tap order is kernel
-    row-major ((ky,kx) = (-1,-1),(-1,0),...,(1,1)), as F.unfold for C=1."""
+    row-major ((ky,kx) = (-1,-1),(-1,0),...,(1,1)), as F.unfold for C=1.
+    A rank that holds a tile of the rows (`parallel/spatial.py`) pads with
+    its neighbours' rows, and zeros only past the frame."""
     if x.dim() == 3:
         x = x[..., None]
     _, h, w, _ = x.shape
-    padded = F.pad(x, (0, 0, 1, 1, 1, 1))
+    ctx = spatial.current()
+    if ctx is None:
+        padded = F.pad(x, (0, 0, 1, 1, 1, 1))
+    else:
+        padded = F.pad(ctx.halo(x, 1, 1, 1), (0, 0, 1, 1))
     patches = [padded[:, ky : ky + h, kx : kx + w] for ky in range(3) for kx in range(3)]
     return torch.cat(patches, dim=-1)
 
@@ -52,6 +59,7 @@ def context_upsample_queries_quarter(
     coords ± half a cell.  disp_low: [B, H, W]; weights: [B, Q, 4] in the
     order of `quarter_shifts`; coords: [B, Q, 2] → [B, Q]."""
     _, h, w = disp_low.shape
+    h = spatial.frame_rows(h)
     taps = [
         nearest_sample(disp_low[..., None], _clamp_coords(coords + coords.new_tensor(shift)))[..., 0]
         for shift in quarter_shifts(h, w)

@@ -1,12 +1,15 @@
-"""Data-parallel training over `torch.distributed` (the data half of the
-JAX package's `parallel/mesh.py`).
+"""The process mesh over `torch.distributed` (the JAX package's
+`parallel/mesh.py`).
 
 The JAX package puts its devices on a mesh with a `data` axis (the batch,
 gradients reduced by the psum XLA inserts) and a `spatial` axis (H-tiling
-for high-resolution inference).  The port has the data axis only: one
-process a card ("rank"), each with the same model and its own slice of the
+for high-resolution inference).  The port runs one process a card ("rank"):
+on the data axis each rank has the same model and its own slice of the
 batch, the gradients summed over the ranks after the backward
-(`train/step.py`).  The spatial axis is not ported yet; `check_mesh` says so.
+(`train/step.py`); on the spatial axis the ranks of a group each hold a tile
+of the frame's rows (`parallel/spatial.py`, inference only).  `make_mesh`
+lays the world out as the JAX package's `make_mesh` lays out its devices:
+rank r sits at (r // spatial, r % spatial) of a data x spatial grid.
 
 Bring-up (`maybe_initialize_distributed`) takes either environment:
 
@@ -21,6 +24,7 @@ process a host, as the JAX contract has it).
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 from typing import Optional, Sequence, Tuple, Union
@@ -98,11 +102,10 @@ def maybe_initialize_distributed(require: bool = False, device: Union[str, torch
 def check_mesh(cfg: Optional[MeshConfig], world: int) -> Tuple[int, int]:
     """(data, spatial) for a world of `world` processes, by the JAX
     package's `make_mesh` rules: `data = 0` means the whole world, and a
-    `data * spatial` other than the world raises `ValueError`.  `spatial > 1`
-    raises `NotImplementedError`: H-tiled spatial inference
-    (`parallel/spatial.py` of the JAX package) is not ported yet.  So does a
-    mesh of several cards in a world of one process: a JAX process drives
-    all its host's devices, a rank of the port drives one card."""
+    `data * spatial` other than the world raises `ValueError`.  A mesh of
+    several cards in a world of one process raises `NotImplementedError`: a
+    JAX process drives all its host's devices, a rank of the port drives
+    one card."""
     cfg = cfg or MeshConfig()
     spatial = max(cfg.spatial, 1)
     data = cfg.data if cfg.data > 0 else world // spatial
@@ -114,10 +117,42 @@ def check_mesh(cfg: Optional[MeshConfig], world: int) -> Tuple[int, int]:
     if data * spatial != world:
         raise ValueError(f"mesh {data}x{spatial} (data x spatial) does not match the world of {world} "
                          "processes; pick data*spatial == world size")
-    if spatial > 1:
-        raise NotImplementedError(f"mesh spatial={spatial}: spatial tiling (the JAX package's "
-                                  "parallel/spatial.py) is not ported yet")
     return data, spatial
+
+
+@dataclasses.dataclass(frozen=True)
+class RankMesh:
+    """This rank's place on the data x spatial grid and its two groups: the
+    ranks that share its spatial tile index (`data_group`, None for data 1)
+    and those that share its batch slice (`spatial_group`, None for
+    spatial 1)."""
+
+    data: int
+    spatial: int
+    data_index: int
+    spatial_index: int
+    data_group: Optional[dist.ProcessGroup]
+    spatial_group: Optional[dist.ProcessGroup]
+
+
+def make_mesh(cfg: Optional[MeshConfig] = None) -> RankMesh:
+    """The mesh of `cfg` over the initialised world (a world of one without
+    a group), laid out as the JAX package's `make_mesh` reshapes its
+    devices to (data, spatial).  Every rank calls it: it makes every
+    group."""
+    world, rank = (dist.get_world_size(), dist.get_rank()) if dist.is_initialized() else (1, 0)
+    data, spatial = check_mesh(cfg, world)
+    grid = [list(range(d * spatial, (d + 1) * spatial)) for d in range(data)]
+    data_group = spatial_group = None
+    if spatial > 1:
+        for ranks in grid:
+            g = dist.new_group(ranks)
+            spatial_group = g if rank in ranks else spatial_group
+    if data > 1:
+        for ranks in zip(*grid):
+            g = dist.new_group(list(ranks))
+            data_group = g if rank in ranks else data_group
+    return RankMesh(data, spatial, rank // spatial, rank % spatial, data_group, spatial_group)
 
 
 def rank_device(device=None) -> torch.device:

@@ -11,8 +11,14 @@ full batch's, and the gradients are summed over the ranks after the
 backward, so every rank clips and applies (or skips) the full batch's
 gradient and takes the same decision.
 
-The JAX package's `split_opt_step`, mesh arguments and buffer donation are
-matters of its compiler and runtime and have no counterpart here.
+Eval over a mesh (`parallel/mesh.make_mesh`): each data group of ranks
+takes its slice of the batch, each spatial group tiles the frame's rows
+(`parallel/spatial.infer_spatial_sharded`), and every rank returns the
+whole batch's result.
+
+The JAX package's `split_opt_step`, the train step's mesh argument and
+buffer donation are matters of its compiler and runtime and have no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -23,7 +29,8 @@ import torch
 
 from anystereo_tpu_torch.config import TrainConfig
 from anystereo_tpu_torch.nn.model import AnyStereo
-from anystereo_tpu_torch.parallel.mesh import all_reduce_sum_
+from anystereo_tpu_torch.parallel.mesh import RankMesh, all_reduce_sum_
+from anystereo_tpu_torch.parallel.spatial import gather_batch, infer_spatial_sharded
 from anystereo_tpu_torch.train.loss import init_disp_loss, low_mask, query_mask, sequence_loss_queries
 from anystereo_tpu_torch.train.state import TrainState
 from anystereo_tpu_torch.utils.device import model_device, process_topology
@@ -98,16 +105,39 @@ def make_train_step(
 
 
 def make_eval_step(
-    model: AnyStereo, valid_iters: int = 32, device=None
+    model: AnyStereo, valid_iters: int = 32, device=None, mesh: Optional[RankMesh] = None
 ) -> Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]:
     """Returns step(left, right, coords, scale) -> the disparity at the
     queried coordinates [B, Q], after `valid_iters` iterations in eval mode
     (no autograd graph).  `model` must lie on `device` (default: the CUDA
-    card; the CPU only when asked for by name), and so must the inputs."""
+    card; the CPU only when asked for by name), and so must the inputs.
+
+    `mesh` (every rank calls the step with the whole batch): with data > 1
+    the rank computes its data index's slice of the batch (B a multiple of
+    data) and the slices are gathered over its data group; with spatial > 1
+    its spatial group tiles the rows.  Every rank returns the whole [B, Q]."""
     model_device(model, device)
 
-    def step(left, right, coords, scale):
+    def forward(left, right, coords, scale):
+        if mesh is not None and mesh.spatial > 1:
+            return infer_spatial_sharded(model, None, left, right, coords, scale, mesh.spatial_group,
+                                         iters=valid_iters)
         return model(left, right, iters=valid_iters, coords=coords, scale=scale,
                      mode="eval").disp_final
+
+    if mesh is None or mesh.data == 1:
+        return forward
+
+    def step(left, right, coords, scale):
+        b = left.shape[0]
+        if b % mesh.data:
+            raise ValueError(f"batch {b} does not split over the mesh's data axis of {mesh.data}")
+        rows = slice(mesh.data_index * b // mesh.data, (mesh.data_index + 1) * b // mesh.data)
+
+        def mine(t):
+            return t[rows] if torch.is_tensor(t) and t.dim() and t.shape[0] == b else t
+
+        out = forward(mine(left), mine(right), mine(coords), mine(scale))
+        return gather_batch(out, mesh.data_group)
 
     return step

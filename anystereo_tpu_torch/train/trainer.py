@@ -135,7 +135,13 @@ def train(
     0).  Auto-resume of the full state from `cfg.train.ckpt_dir` takes
     precedence when that directory already holds steps."""
     rank, world = process_topology()
-    distributed = check_mesh(cfg.mesh, world)[0] > 1
+    data, spatial = check_mesh(cfg.mesh, world)
+    if spatial > 1:
+        raise NotImplementedError(
+            f"train() with mesh spatial={spatial}: the port tiles rows for inference only "
+            "(parallel/spatial.py); the JAX package's train() only replicates the step over that axis "
+            "(its batch is sharded on `data` alone), so train with MeshConfig(spatial=1)")
+    distributed = data > 1
     tcfg = cfg.train
     if state is not None:
         dev = next(state.model.parameters()).device

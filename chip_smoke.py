@@ -126,7 +126,19 @@ Phases (any failure raises, and the exit code is not 0):
            differ, one fp32 `train()` step at full width against one process
            on the batch of two: loss, gradients, parameters, ms per step,
            each rank's launches sent back;
-10. check  fp32 (TF32 off, cuDNN deterministic), 4 iterations: the IGEV and
+10. spatial two ranks on the one card (gloo) tile the rows of a 1504x2016
+           frame (`infer_spatial_sharded`, IGEV `ModelConfig()`, bf16, 32
+           iterations): one warm-up and three dense requests and one at
+           200,000 scattered queries, against the same in one process: ms a
+           request, each rank's peak memory (under 0.7 of the one
+           process's), the collectives a request and their summed time,
+           exact launches (B1 64 a request on each rank, the row gather 3 at
+           the queries), the bf16 outputs within the JAX package's band of
+           its sharded forward (|d| <= 0.05 + 0.05 |ref|; the median under
+           0.2 px, a bound that a planted fault, the rows computed in reverse
+           order, must exceed) and an fp32 check at 384x1248 (4 iterations)
+           within 1e-3 px;
+11. check  fp32 (TF32 off, cuDNN deterministic), 4 iterations: the IGEV and
            RAFT eval forwards through the kernels against the same with every
            lookup forced to its plain version, under each flavor, and the
            flavors against "aligned"; the occlusion mask through the kernel
@@ -353,15 +365,29 @@ def _lookup_shapes():
     """(call, rows, length, levels) of every lookup the main paths make: the
     IGEV pairs (GEV rows of 48, correlation rows of W/4; 2 levels) and the
     RAFT correlation alone (4 levels), at the eval (batch 1, 96x312 cells) and
-    the training size (batch 2, 40x80 cells); and the IGEV pair of the
-    trainer's SceneFlow validation (batch 1, 136x240 cells)."""
+    the training size (batch 2, 40x80 cells); the IGEV pair of the
+    trainer's SceneFlow validation (batch 1, 136x240 cells); and the IGEV
+    pair of the spatial path's larger tile (the first rank's 768 of 1504
+    rows at 2016 columns: 192x504 cells)."""
     h4, w4, groups, d = H // 4, W // 4, 8, 192 // 4
     cells, tw4 = 2 * (TRAIN_H // 4) * (TRAIN_W // 4), TRAIN_W // 4
     sh4, sw4 = _sf_cells()
+    th4, tw4_tile = _tile_cells()
     return (("gev", h4 * w4 * groups, d, IGEV_LEVELS), ("corr", h4 * w4, w4, IGEV_LEVELS),
             ("train_gev", cells * groups, d, IGEV_LEVELS), ("train_corr", cells, tw4, IGEV_LEVELS),
             ("raft_corr", h4 * w4, w4, RAFT_LEVELS), ("raft_train_corr", cells, tw4, RAFT_LEVELS),
-            ("sf_gev", sh4 * sw4 * groups, d, IGEV_LEVELS), ("sf_corr", sh4 * sw4, sw4, IGEV_LEVELS))
+            ("sf_gev", sh4 * sw4 * groups, d, IGEV_LEVELS), ("sf_corr", sh4 * sw4, sw4, IGEV_LEVELS),
+            ("tile_gev", th4 * tw4_tile * groups, d, IGEV_LEVELS),
+            ("tile_corr", th4 * tw4_tile, tw4_tile, IGEV_LEVELS))
+
+
+def _tile_cells():
+    """The correlation cells of the spatial path's larger tile (the first
+    rank's rows of SPATIAL_H over SPATIAL_RANKS ranks), at a quarter."""
+    from anystereo_tpu_torch.parallel.spatial import row_partition
+
+    bounds = row_partition(SPATIAL_H, SPATIAL_RANKS)
+    return (bounds[1] - bounds[0]) // 4, SPATIAL_W // 4
 
 
 def _sf_cells():
@@ -385,15 +411,17 @@ def _positions(torch, gen, rows, length):
 def _path_positions(torch, call, rows):
     """Positions shaped as the main path gives them: a smooth disparity field
     d over the cells (4 to 40 cells; eval 1x96x312, training 2x40x80,
-    SceneFlow validation 1x136x240); the
+    SceneFlow validation 1x136x240, the spatial tile 1x192x504); the
     GEV volume has one x = d for each run of 8 consecutive rows (a cell's
     groups), the correlation x = column - d."""
     import math
 
     if "train" in call:
         batch, h4, w4 = TRAIN_BATCH, TRAIN_H // 4, TRAIN_W // 4
+    elif call.startswith("sf_"):
+        batch, (h4, w4) = 1, _sf_cells()
     else:
-        batch, (h4, w4) = 1, _sf_cells() if call.startswith("sf_") else (H // 4, W // 4)
+        batch, (h4, w4) = 1, _tile_cells() if call.startswith("tile_") else (H // 4, W // 4)
     hh = torch.arange(h4, device=DEVICE, dtype=torch.float32)[:, None] / h4
     ww = torch.arange(w4, device=DEVICE, dtype=torch.float32)[None, :]
     d = torch.stack([22 + 18 * torch.sin(2 * math.pi * (1.5 * ww / w4 + 0.5 * hh + 0.3 * b))
@@ -486,7 +514,8 @@ def _kernels_lookup_fwd(torch):
     # PyTorch call computes this lookup
     return _record("gather_pyramid_aligned", "anystereo_tpu_torch/csrc/lookup_aligned.cu",
                    "anystereo_tpu/ops/pallas/lookup_kernel.py:1103", calls, main=(0, 1),
-                   paths=("eval_igev", "train_igev", "eval_raft", "trainer", "convert", "cli", "ddp"))
+                   paths=("eval_igev", "train_igev", "eval_raft", "trainer", "convert", "cli", "ddp",
+                          "spatial"))
 
 
 def _bound(nbytes, flops):
@@ -782,7 +811,9 @@ def _kernels_hybrid(torch):
 def _kernels_gather(torch):
     """The query row gather and its scatter-add transpose at the training
     tables: the 9-tap disparity rows (fp32) and the two latents (bf16), 51,200
-    queries a sample drawn with duplicates.  The gather is a copy and must be
+    queries a sample drawn with duplicates; and the gather alone at the
+    spatial path's query decode (the larger tile's tables with their halo
+    rows, its share of SPATIAL_QUERIES).  The gather is a copy and must be
     exact.  The scatter sums with atomics, so a row's sum is taken in another
     order than the plain version's: for each (row, channel),
     |diff| <= 1e-5 * (1 + the sum of |g| over the queries that land there)."""
@@ -794,11 +825,11 @@ def _kernels_gather(torch):
         scatter_vec,
     )
 
-    batch, q = 2, TRAIN_H * TRAIN_W
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     fwd, bwd = [], []
-    for n, c, dtype in ((3200, 9, torch.float32), (3200, 184, torch.bfloat16),
-                        (12800, 40, torch.bfloat16)):
+    train = [(2, n, c, dtype, TRAIN_H * TRAIN_W) for n, c, dtype in (
+        (3200, 9, torch.float32), (3200, 184, torch.bfloat16), (12800, 40, torch.bfloat16))]
+    for batch, n, c, dtype, q in train + _tile_tables(torch):
         es = 4 if dtype == torch.float32 else 2
         table = torch.randn(batch, n, c, device=DEVICE, generator=gen).to(dtype)
         idx = torch.randint(0, n, (batch, q), device=DEVICE, generator=gen, dtype=torch.int32)
@@ -838,6 +869,9 @@ def _kernels_gather(torch):
              f"{res['plain_ms']:.4f} ms, indexing {res['library_ms']:.4f} ms, bound "
              f"{res['bound_ms']:.4f} ms ({res['bytes']} B){parent}")
         fwd.append(res)
+        if len(fwd) > len(train):  # the tiles' query decode takes no gradient
+            del table, idx, bad, g, got, got_bad, want
+            continue
 
         got, want = scatter_rows_add(idx, g, n), scatter_rows_add_ref(idx, g, n)
         row_abs = scatter_rows_add_ref(idx, g.abs(), n)  # per element: sum over its queries
@@ -882,10 +916,24 @@ def _kernels_gather(torch):
     paths = ("train_igev", "train_raft", "trainer", "cli", "ddp")
     return [
         _record("gather_rows", src, "anystereo_tpu/ops/pallas/gather_kernel.py:319", fwd,
-                main=(0, 1, 2), paths=paths, library=True),
+                main=(0, 1, 2), paths=paths + ("spatial",), library=True),
         _record("scatter_rows_add", src, "anystereo_tpu/ops/pallas/gather_kernel.py:355", bwd,
                 main=(0, 1, 2), paths=paths, library=True),
     ]
+
+
+def _tile_tables(torch):
+    """(batch, rows, channels, dtype, queries) of the spatial path's query
+    decode on its larger tile: the 9-tap disparity rows (fp32), the 1/4
+    latent (bf16, 184 channels) and the 1/2 latent (bf16, 40 channels), each
+    with GATHER_HALO rows past the tile on both sides, and the tile's share
+    of SPATIAL_QUERIES (the first rank's rows over all)."""
+    from anystereo_tpu_torch.parallel.spatial import GATHER_HALO, row_partition
+
+    bounds = row_partition(SPATIAL_H, SPATIAL_RANKS)
+    share = -(-SPATIAL_QUERIES * (bounds[1] - bounds[0]) // SPATIAL_H)
+    return [(1, (bounds[1] // s + 2 * GATHER_HALO) * (SPATIAL_W // s), c, dtype, share)
+            for s, c, dtype in ((4, 9, torch.float32), (4, 184, torch.bfloat16), (2, 40, torch.bfloat16))]
 
 
 def _level_shapes():
@@ -2200,6 +2248,222 @@ def phase_ddp(torch, kernels, card, root):
 
 # ----------------------------------------------------------------- phase 10
 
+SPATIAL_H, SPATIAL_W, SPATIAL_RANKS = 1504, 2016, 2  # a Middlebury-F-class frame over two ranks
+SPATIAL_QUERIES = 200_000  # the scattered query request, seeded over the frame
+# the bf16 band of the JAX package's sharded forward (tests/test_spatial.py):
+# |tiled - one process| <= atol + rtol * |one process|
+SPATIAL_ATOL = SPATIAL_RTOL = 5e-2
+# and its median under 0.2 px.  The bound lies between two readings the
+# phase takes of the one process's own forward: the tiled arithmetic on a
+# one-rank group, with no split at all (`one_rank`), where a rounding-level
+# change of the bf16 forward compounds over 32 iterations to a median of
+# ~0.14 px at |ref| ~163 px; and a planted fault, the frame's rows computed
+# in reverse order and flipped back (`flipped_rows`), which must read above
+# the bound, or the phase fails
+SPATIAL_MEDIAN_PX = 0.2
+# each rank's peak device memory against one process's: two ranks ideally
+# hold half, plus the replicated weights and the halos
+SPATIAL_PEAK_SHARE = 0.7
+
+
+def _default_precision(torch):
+    """PyTorch's own defaults: TF32 in cuDNN, cuDNN's fastest algorithms."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = False
+
+
+def _spatial_requests(torch, kernels, forward, latents, what):
+    """One warm-up and REQUESTS timed dense requests of the 1504x2016 frame,
+    then one request at SPATIAL_QUERIES seeded queries, each with its exact
+    launches (B1 two an iteration; the query decode one row gather a latent
+    and one for the disparity taps).  `forward(coords, stats)` returns the
+    disparity; the counts are set to 0 just before.  Returns the times, the
+    collectives of each timed request, the launches, the outputs and the
+    peak memory over the requests."""
+    want = dict.fromkeys((k.__name__ for k in kernels), 0)
+    want["gather_pyramid_aligned"] = 2 * ITERS
+    for k in kernels:
+        k.launches = 0
+    times, stats = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(1 + REQUESTS):
+        before, st = _counts(kernels), {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dense = forward(None, st)
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+            stats.append(st)
+        _expect_launches(kernels, before, want, f"{what}, dense request {i}")
+    g = torch.Generator(device=DEVICE).manual_seed(8)
+    coords = torch.rand(1, SPATIAL_QUERIES, 2, device=DEVICE, generator=g) * 2 - 1
+    before, st = _counts(kernels), {}
+    queries = forward(coords, st)
+    _expect_launches(kernels, before, dict(want, gather_rows=latents + 1), f"{what}, query request")
+    torch.cuda.synchronize()
+    for out, shape in ((dense, (1, SPATIAL_H, SPATIAL_W)), (queries, (1, SPATIAL_QUERIES))):
+        if tuple(out.shape) != shape or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{what}: disparity {tuple(out.shape)} not finite {list(shape)}")
+    return {"ms": times, "stats": stats, "query_stats": st, "peak": torch.cuda.max_memory_allocated(),
+            "launches": {k.__name__: k.launches for k in kernels}, "dense": dense.cpu(), "queries": queries.cpu()}
+
+
+def _spatial_side(torch, kernels, forward_of, what, floor=False):
+    """The bf16 requests (`_spatial_requests`) of a model at `ModelConfig()`
+    built from seed 0, and the fp32 check: the 1x384x1248 pair, CHECK_ITERS
+    iterations, TF32 off, cuDNN deterministic.  `forward_of(model, left,
+    right, iters)` gives `forward(coords, stats)`.  `floor`: also the median
+    |Δ| of the dense request from the same frame in a batch of two, from a
+    spatial context of one rank, and from the row-flipped frame flipped
+    back (a planted fault)."""
+    from anystereo_tpu_torch.nn.model import build_model
+    from anystereo_tpu_torch.parallel.spatial import infer_spatial_sharded
+
+    _default_precision(torch)
+    base = torch.cuda.memory_allocated()
+    model = build_model(_config("igev"), device=DEVICE, seed=0)
+    left, right = _spatial_images(torch)
+    res = _spatial_requests(torch, kernels, forward_of(model, left, right, ITERS), len(model.liif.posencs), what)
+    res["peak"] -= base
+    if floor:
+        # the one process's own noise: the same frame in a batch of two; and
+        # the tiled arithmetic with no split: a spatial context of one rank
+        pair = forward_of(model, torch.cat([left, left]), torch.cat([right, right]), ITERS)(None, {})
+        res["floor"] = float((pair[:1].cpu() - res["dense"]).abs().median())
+        del pair
+        flipped = forward_of(model, left.flip(1), right.flip(1), ITERS)(None, {}).flip(1)
+        res["flipped_rows"] = float((flipped.cpu() - res["dense"]).abs().median())
+        del flipped
+        torch.distributed.init_process_group(DDP_BACKEND, init_method=f"tcp://127.0.0.1:{_free_port()}",
+                                             world_size=1, rank=0)
+        try:
+            one_rank = infer_spatial_sharded(model, None, left, right, None, None, None, iters=ITERS)
+        finally:
+            torch.distributed.destroy_process_group()
+        res["one_rank"] = float((one_rank.cpu() - res["dense"]).abs().median())
+    del model, left, right
+    torch.cuda.empty_cache()
+    _fp32_deterministic(torch)
+    model = build_model(_config("igev", compute_dtype="float32"), device=DEVICE, seed=0)
+    left, right = _images(torch, 1)
+    res["check"] = forward_of(model, left, right, CHECK_ITERS)(None, {}).cpu()
+    return res
+
+
+def _spatial_images(torch):
+    g = torch.Generator(device=DEVICE).manual_seed(4)
+    left = torch.rand(1, SPATIAL_H, SPATIAL_W, 3, device=DEVICE, generator=g) * 255
+    return left, torch.roll(left, shifts=-24, dims=2)
+
+
+def _spatial_rank(rank, port, root):
+    """One rank of the spatial phase, in its own process on the one card:
+    `infer_spatial_sharded` over the group of both ranks (gloo)."""
+    import torch
+
+    from anystereo_tpu_torch.parallel.spatial import infer_spatial_sharded
+
+    torch.distributed.init_process_group(DDP_BACKEND, init_method=f"tcp://127.0.0.1:{port}",
+                                         world_size=SPATIAL_RANKS, rank=rank)
+    try:
+        def forward_of(model, left, right, iters):
+            return lambda coords, stats: infer_spatial_sharded(model, None, left, right, coords, None, None,
+                                                               iters=iters, stats=stats)
+
+        res = _spatial_side(torch, _launch_counters(), forward_of, f"spatial rank {rank}")
+        torch.save(res, os.path.join(root, f"spatial_rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def phase_spatial(torch, kernels, card, root):
+    """H-tiled spatial inference: SPATIAL_RANKS ranks on the one card
+    (`torch.multiprocessing`, gloo: NCCL refuses two ranks on one device)
+    run `infer_spatial_sharded` on the IGEV model at `ModelConfig()`, bf16,
+    ITERS iterations, at the SPATIAL_H x SPATIAL_W frame (one warm-up and
+    REQUESTS dense requests, then one at SPATIAL_QUERIES scattered queries),
+    and the same in one process: ms per request, each rank's peak memory
+    against the one process's (under SPATIAL_PEAK_SHARE), the collectives of
+    a request and their summed time, exact launches (B1 64 a request, the
+    row gather once a latent and once for the disparity taps at the
+    queries).  The bf16 outputs within the JAX package's band of its own
+    sharded forward and a median under SPATIAL_MEDIAN_PX, beside the one
+    process's own median |Δ| from a batch of two, from a one-rank spatial
+    context (the tiled arithmetic with no split) and from the planted
+    row-flip fault (which must exceed the bound), and an fp32 check (1x384x1248,
+    CHECK_ITERS iterations, TF32 off, cuDNN deterministic) within
+    MODEL_CHECK_ATOL px."""
+    from anystereo_tpu_torch.parallel.spatial import row_partition
+
+    def forward_of(model, left, right, iters):
+        return lambda coords, stats: model(left, right, iters=iters, coords=coords).disp_final
+
+    want = _spatial_side(torch, kernels, forward_of, "spatial, one process", floor=True)
+    torch.cuda.empty_cache()
+    ctx = torch.multiprocessing.get_context("spawn")
+    port = _free_port()
+    procs = [ctx.Process(target=_spatial_rank, args=(r, port, root)) for r in range(SPATIAL_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(600)
+    wall = time.perf_counter() - t0
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * SPATIAL_RANKS:
+        raise AssertionError(f"spatial ranks exited {codes}")
+    ranks = [torch.load(os.path.join(root, f"spatial_rank{r}.pt"), weights_only=True) for r in range(SPATIAL_RANKS)]
+    fails, lines = [], []
+    for r, res in enumerate(ranks):
+        check = float((res["check"] - want["check"]).abs().max())
+        diffs = {}
+        for key in ("dense", "queries"):
+            d, ref = (res[key] - want[key]).abs(), want[key].abs()
+            diffs[key] = (float(d.median()), float(d.max()), float((d - SPATIAL_RTOL * ref).max()))
+        share = res["peak"] / want["peak"]
+        mean = {k: sum(st[k] for st in res["stats"]) / len(res["stats"]) for k in res["stats"][0]}
+        lines.append(
+            f"rank {r}: {', '.join(f'{t:.2f}' for t in res['ms'])} ms a request, peak "
+            f"{res['peak'] / 2**30:.2f} GiB ({share:.3f} of one process), a request's collectives "
+            f"{ {k: round(v, 2) for k, v in mean.items()} } (ms summed on the host clock), the query "
+            f"request's {res['query_stats']}; fp32 check max |d| {check:.3g} px (bound {MODEL_CHECK_ATOL}); "
+            f"bf16 |d| median / max / max(|d| - {SPATIAL_RTOL}|ref|): dense "
+            f"{', '.join(f'{v:.3g}' for v in diffs['dense'])}, queries "
+            f"{', '.join(f'{v:.3g}' for v in diffs['queries'])}; launches "
+            f"{ {k: v for k, v in res['launches'].items() if v} }")
+        if check > MODEL_CHECK_ATOL:
+            fails.append(f"rank {r} fp32 check {check}")
+        for key, (median, _, over) in diffs.items():
+            if median >= SPATIAL_MEDIAN_PX or over > SPATIAL_ATOL:
+                fails.append(f"rank {r} bf16 {key}: median {median}, |d| - rtol|ref| {over}")
+        if share >= SPATIAL_PEAK_SHARE:
+            fails.append(f"rank {r} peak {share:.3f} of one process's")
+    if want["flipped_rows"] <= SPATIAL_MEDIAN_PX:
+        fails.append(f"the planted row-flip fault's median {want['flipped_rows']} px does not exceed the bound "
+                     f"{SPATIAL_MEDIAN_PX} px")
+    launches = {name: want["launches"][name] + sum(r["launches"][name] for r in ranks) for name in want["launches"]}
+    _keep("spatial", f"[spatial] IGEV ModelConfig(), bf16, {ITERS} iters, 1x{SPATIAL_H}x{SPATIAL_W} over "
+          f"{SPATIAL_RANKS} ranks ({DDP_BACKEND}, one card), rows "
+          f"{row_partition(SPATIAL_H, SPATIAL_RANKS)}, B1 {2 * ITERS} a request on every side (held request by "
+          f"request): one process {', '.join(f'{t:.2f}' for t in want['ms'])} ms a request, peak "
+          f"{want['peak'] / 2**30:.2f} GiB, launches { {k: v for k, v in want['launches'].items() if v} }, "
+          f"|ref| median {float(want['dense'].abs().median()):.2f} px, its own median |d| in a batch of two "
+          f"{want['floor']:.3g} px, through a one-rank spatial context (one_rank) {want['one_rank']:.3g} px and "
+          f"on the row-flipped frame (flipped_rows, a planted fault) {want['flipped_rows']:.3g} px; median bound "
+          f"{SPATIAL_MEDIAN_PX} px; "
+          + "; ".join(lines) + f" ({wall:.1f} s for the ranks' processes in all); {card}")
+    if fails:
+        raise AssertionError("spatial inference against one process: " + "; ".join(fails))
+    return launches
+
+
+# ----------------------------------------------------------------- phase 11
+
 
 @contextlib.contextmanager
 def _all_plain(lookups_only=False):
@@ -2745,6 +3009,8 @@ def main(argv) -> int:
         by_path["cli"] = phase_cli(torch, kernels, card, root, sf, kitti, converted)
         torch.cuda.empty_cache()
         by_path["ddp"] = phase_ddp(torch, kernels, card, root)
+        torch.cuda.empty_cache()
+        by_path["spatial"] = phase_spatial(torch, kernels, card, root)
     torch.cuda.empty_cache()
     phase_check(torch, kernels)
     if "--spread" in argv:

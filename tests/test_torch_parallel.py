@@ -369,12 +369,14 @@ def test_only_rank_zero_writes_the_checkpoint(two_ranks):
 @pytest.mark.parametrize("data,spatial,world,want", [
     (0, 1, 4, (4, 1)), (2, 1, 2, (2, 1)), (1, 1, 1, (1, 1)),
     (0, 3, 8, ValueError), (4, 1, 2, ValueError), (3, 2, 8, ValueError),
-    (0, 2, 8, NotImplementedError), (2, 1, 1, NotImplementedError),
+    (0, 2, 8, (4, 2)), (2, 1, 1, NotImplementedError),
 ])
 def test_check_mesh(data, spatial, world, want):
     """The JAX package's mesh rules (`tests/test_parallel.py`): data 0 is
     the whole world, a product other than the world raises ValueError;
-    spatial tiling, and several cards in one process, are not ported."""
+    several cards in one process are not ported (a rank drives one card).
+    The spatial axis is accepted (`train()` refuses it itself:
+    `tests/test_torch_spatial.py`)."""
     cfg = MeshConfig(data=data, spatial=spatial)
     if isinstance(want, tuple):
         assert mesh.check_mesh(cfg, world) == want
