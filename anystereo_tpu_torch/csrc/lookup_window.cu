@@ -60,9 +60,22 @@
 //     call is then bound by bytes (its fp32 taps alone are 17 MB); 32-row
 //     tiles, 128-entry chunks and the hint each won in the eval paths on
 //     the H100 (`PERF.md` §6);
-//   - layout 1 (B5, `window_t_fwd`): adjacent threads take adjacent r of one
-//     level and walk their windows; the loads of bases_t and the stores to
-//     the transposed out coalesce along R;
+//   - layout 1 (B5, `window_t_fwd`): the same volume, so the same fault: a
+//     thread a (row, level) walking its window at a stride of R floats took
+//     70.1 us at the eval GEV shape and 59.3 at the RAFT one against bounds
+//     of 19.0 and 11.3 (NVIDIA H100 80GB HBM3 at 700 W).  So it runs layout
+//     0's staged walk (`pm_walk`, one device function for both); only the
+//     store differs.  Out is [levels*taps, R] and a warp is 32 rows of one
+//     level, so tap k of a warp is one 128-byte line of `out`, stored as it
+//     is formed: no tap stage, 16.6 KB of shared memory at most, any
+//     taps.  It reads what layout 0 reads, so it takes about layout 0's time:
+//     33.7 / 23.1 / 31.2 us at the eval GEV, corr and RAFT shapes (69.9 /
+//     26.2 / 59.0 before), 23.6 / 12.6 / 17.8 at path-shaped positions
+//     (NVIDIA H100 80GB HBM3 at 700 W, `PERF.md` §6).  At random positions a
+//     correlation tile's windows lie far apart, so its walk takes a chunk's
+//     round trip for a few rows' windows at a time, as layout 0's
+//     does.  Staging the taps to store whole lines after the walk was faster
+//     at random positions and slower at path-shaped ones;
 //   - the [L, R] backward (B4 and B5, `window_t_bwd`; the "classify"
 //     training step's lookup gradient): a thread a row and 16 entries
 //     reloaded and re-floored its row's bases for every 16 entries, and read
@@ -94,8 +107,35 @@
 //     lost at 29,952 rows, 8 warps a block at 239,616; `PERF.md` §6).
 //     Tables over 227 KB (levels*taps beyond ~890) take the walk of a thread
 //     a row (`window_t_bwd_walk`);
-//   - [R, L] volumes (layout 2, B6): a thread per (row, level) forward, a
-//     warp per row backward with lanes striding over L (coalesced stores).
+//   - [R, L] volumes (layout 2, B6): a thread per (row, level) forward;
+//   - the [R, L] backward (B6, `window_rows_bwd`): a warp a row with lanes
+//     striding over L ran a dependent chain (bases, window starts, then each
+//     entry's slots formed anew for each level and up to two cotangent
+//     values a level read from device memory) for a useful store of 192
+//     bytes a warp at L = 48, whose second pass used 16 of its 32 lanes:
+//     95.8 us at the eval GEV shape against a bound of 19.5
+//     (NVIDIA H100 80GB HBM3 at 700 W).  It is the arithmetic of the [L, R]
+//     backward on [R, L] operands, so it takes that kernel's table: a block
+//     of kRowsBwdThreads threads owns a tile of consecutive rows, copies the
+//     tile's cotangent (rows*levels*taps contiguous floats, 16 bytes a copy
+//     from its own offset within 16 bytes) and bases into shared memory by
+//     cp.async, every copy in flight at once, and a thread a (row, level)
+//     forms its window start and its taps+2 slot coefficients once, scaled,
+//     into [row][level][slot] with slot taps+1 and the dead cells zero.  The
+//     tile's dvol is one contiguous range of rows*L floats: the block walks
+//     it four entries a thread (no division: each thread steps its (row, j)
+//     by the block's stride) and stores 16-byte vectors between a scalar
+//     head and tail.  Where L % 4 == 0 a group of four lies in one row from a
+//     multiple of 4, so a level-1 coefficient is read once for two entries
+//     and a deeper one once for four.  An entry of the tail j >= (L >> lvl)
+//     << lvl falls in the dead cell L >> lvl.  Tiles of 64 rows, halved (to
+//     8) while they give the card fewer than 8 blocks an SM (the
+//     correlation's 29,952 rows: 16), and 128 threads won a sweep of the
+//     eval shapes: 27.0 / 18.3 / 18.8 us at the eval GEV, corr and RAFT
+//     shapes against bounds of 19.5 / 11.9 / 12.6 (NVIDIA H100 80GB HBM3 at
+//     700 W, `PERF.md` §6).  A table formed a slot a thread (a division each)
+//     and a walk entry by entry were slower at every eval shape.  Tables over
+//     227 KB keep the warp a row (`window_rows_bwd_walk`).
 // The backward finds an entry's slot by index arithmetic (one subtraction a
 // level) and forms only that slot's coefficient: no loop over taps per entry,
 // no atomics, and every entry of dvol is written (zeros included), so the
@@ -129,7 +169,12 @@ constexpr int kBwdRows = 32;     // rows of a tile of the [L, R] backward: lane 
 constexpr int kBwdStride = kBwdRows + 1;  // its staged cotangent's row stride (odd)
 constexpr int kBwdWarps = 4;     // warps of its block
 constexpr int kBwdBlocksPerSM = 4;  // blocks its split of L over grid.y gives each SM at least
+constexpr int kRowsBwdThreads = 128;  // threads of a block of the [R, L] backward
+constexpr int kRowsBwdTile = 64;      // rows of its tile, at most
+constexpr int kRowsBwdMinTile = 8;    // and at least
+constexpr int kRowsBwdBlocksPerSM = 8;  // blocks its tiles give each SM, where rows allow
 static_assert(kPmRows % 32 == 0, "a warp of the pixel-major forward is rows of one level");
+static_assert(kRowsBwdMinTile % 4 == 0, "a tile of the [R, L] backward keeps dvol's 16-byte grid");
 static_assert(kBwdRows == 32, "a lane of the [L, R] backward is a row of its tile");
 
 // Shared memory of the [L, R] backward in 4-byte words: the tile's
@@ -152,12 +197,22 @@ __host__ __device__ constexpr int pm_chunk(int length) {
   return (length + 15) / 16 * 16 < kPmSpan ? (length + 15) / 16 * 16 : kPmSpan;
 }
 
-// Shared memory of the pixel-major forward: the staged chunk
-// [chunk][kPmRows], the tile's taps [kPmRows][levels*taps], each row's
-// entry hull (first, end), the tile's span (lo, hi) and the next chunk's
-// start (two slots), all 4-byte words.
-__host__ __device__ constexpr int pm_shared_bytes(int chunk, int levels, int taps) {
-  return 4 * (chunk * kPmRows + kPmRows * levels * taps + 2 * kPmRows + 4);
+// Shared memory of the [L, R] forward: the staged chunk [chunk][kPmRows],
+// layout 0's tile of taps [kPmRows][chans] (chans = levels*taps; 0 for
+// layout 1, which stores its taps as it forms them), each row's entry hull
+// (first, end), the tile's span (lo, hi) and the next chunk's start (two
+// slots), all 4-byte words.
+__host__ __device__ constexpr int pm_shared_bytes(int chunk, int chans) {
+  return 4 * (chunk * kPmRows + kPmRows * chans + 2 * kPmRows + 4);
+}
+
+// Shared memory of the [R, L] backward in 4-byte words, for a tile of
+// `tile` rows: the tile's cotangent (tile*levels*taps, and 4 words for its
+// offset within 16 bytes), its bases and each (row, level)'s i0
+// (tile*levels each), and the slot coefficients [tile][levels][taps + 2].
+// 64-bit: a window too wide for it takes the walk.
+__host__ __device__ constexpr int64_t rows_bwd_words(int tile, int levels, int64_t taps) {
+  return tile * levels * (2 * taps + 4) + 4;
 }
 
 // A loop index known at compile time, usable on the device.
@@ -243,31 +298,20 @@ __device__ __forceinline__ float entry_grad(int j, int length, int taps, int lev
 
 // ---- [L, R] volumes: layouts 0 (pixel-major out) and 1 (transposed out) ----
 
-__global__ void __launch_bounds__(kThreads)
-window_t_fwd(const float* __restrict__ vol_t, const float* __restrict__ bases_t,
-             float* __restrict__ out, int64_t rows, int length, int taps,
-             int levels) {
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= rows * levels) return;
-  const int lvl = (int)(t / rows);  // adjacent threads: adjacent r, same level
-  const int64_t r = t - (int64_t)lvl * rows;
-  level_taps(vol_t + r, rows, __ldg(bases_t + (int64_t)lvl * rows + r), length,
-             taps, lvl, out + (int64_t)(lvl * taps) * rows + r, rows);
-}
-
-// blockDim = kPmRows * levels: thread t takes row t % kPmRows of the tile
-// at level t / kPmRows, so a warp is the tile's rows at one level.
-// `chunk` = pm_chunk(length); `vec`: R % 4 == 0 and vol_t on a 16-byte
-// boundary (16-byte copies).
-__global__ void window_pm_fwd(const float* __restrict__ vol_t,
-                              const float* __restrict__ bases_t,
-                              float* __restrict__ out, int64_t rows, int length,
-                              int taps, int levels, int chunk, int vec) {
-  extern __shared__ __align__(16) float smem[];
-  const int chans = levels * taps;
-  float* span = smem;                              // [chunk][kPmRows]
-  float* stage = span + chunk * kPmRows;           // [kPmRows][chans]
-  int* first = reinterpret_cast<int*>(stage + kPmRows * chans);  // [kPmRows]
+// The staged walk of the [L, R] forward over a tile of kPmRows rows, shared
+// by layouts 0 and 1.  blockDim = kPmRows * levels: thread t takes row
+// t % kPmRows of the tile at level t / kPmRows, so a warp is the tile's rows
+// at one level.  `chunk` = pm_chunk(length); `vec`: R % 4 == 0 and vol_t on
+// a 16-byte boundary (16-byte copies).  `span` holds [chunk][kPmRows] floats,
+// `hulls` 2 * kPmRows + 4 ints.  Calls put(k, tap) for the taps k = 0 ..
+// taps-1 of the thread's (row, level) in ascending order, none for a row
+// past the tile's end.
+template <typename Put>
+__device__ __forceinline__ void pm_walk(const float* __restrict__ vol_t,
+                                        const float* __restrict__ bases_t, int64_t rows,
+                                        int length, int taps, int levels, int chunk, int vec,
+                                        float* span, int* hulls, Put&& put) {
+  int* first = hulls;                              // [kPmRows]
   int* end = first + kPmRows;                      // [kPmRows]
   int* tile_span = end + kPmRows;                  // lo, hi
   int* next = tile_span + 2;                       // the next chunk's start, by parity
@@ -301,7 +345,6 @@ __global__ void window_pm_fwd(const float* __restrict__ vol_t,
   const int lo = tile_span[0] & -top, hi = tile_span[1];
   const uint64_t policy = evict_first();
   const float omf = __fsub_rn(1.0f, f);
-  float* o = stage + row * chans + lvl * taps;
   float prev = 0.0f;
   int m = 0;  // the next of the window's taps+1 cells
   for (int j0 = lo, k = 0; j0 < hi; ++k) {
@@ -345,7 +388,7 @@ __global__ void window_pm_fwd(const float* __restrict__ vol_t,
         for (int t = 1; t < width; ++t) s = __fadd_rn(s, p[t * kPmRows]);
         s = __fmul_rn(s, 1.0f / (float)width);
       }
-      if (m > 0) o[m - 1] = __fadd_rn(__fmul_rn(omf, prev), __fmul_rn(f, s));
+      if (m > 0) put(m - 1, __fadd_rn(__fmul_rn(omf, prev), __fmul_rn(f, s)));
       prev = s;
     }
     const int following = next[k & 1];
@@ -355,9 +398,28 @@ __global__ void window_pm_fwd(const float* __restrict__ vol_t,
   // the cells past the last chunk are zero (outside [0, n_lvl), or the whole
   // window where it has no live cell)
   for (; m <= taps && row < nrows; ++m) {
-    if (m > 0) o[m - 1] = __fadd_rn(__fmul_rn(omf, prev), __fmul_rn(f, 0.0f));
+    if (m > 0) put(m - 1, __fadd_rn(__fmul_rn(omf, prev), __fmul_rn(f, 0.0f)));
     prev = 0.0f;
   }
+}
+
+// Layout 0: the tile's taps are collected in shared memory
+// ([kPmRows][levels*taps], after the span and the hulls' words) and written
+// as 16-byte vectors, since they are contiguous in `out`.
+__global__ void window_pm_fwd(const float* __restrict__ vol_t,
+                              const float* __restrict__ bases_t,
+                              float* __restrict__ out, int64_t rows, int length,
+                              int taps, int levels, int chunk, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  const int chans = levels * taps;
+  float* span = smem;                              // [chunk][kPmRows]
+  float* stage = span + chunk * kPmRows;           // [kPmRows][chans]
+  int* hulls = reinterpret_cast<int*>(stage + kPmRows * chans);
+  const int64_t r0 = (int64_t)blockIdx.x * kPmRows;
+  const int nrows = rows - r0 < kPmRows ? (int)(rows - r0) : kPmRows;
+  float* o = stage + (threadIdx.x % kPmRows) * chans + (threadIdx.x / kPmRows) * taps;
+  pm_walk(vol_t, bases_t, rows, length, taps, levels, chunk, vec, span, hulls,
+          [&](int k, float tap) { o[k] = tap; });
   __syncthreads();
   // the tile's taps are contiguous in `out`: 16-byte stores, then the tail
   const int total = nrows * chans;
@@ -369,6 +431,21 @@ __global__ void window_pm_fwd(const float* __restrict__ vol_t,
     done = total & ~3;
   }
   for (int i = done + threadIdx.x; i < total; i += blockDim.x) dst[i] = stage[i];
+}
+
+// Layout 1: out [levels*taps, R], so a warp's tap k (32 rows of one level)
+// is one 128-byte line of `out`, stored as it is formed; no tap stage.
+__global__ void window_t_fwd(const float* __restrict__ vol_t,
+                             const float* __restrict__ bases_t,
+                             float* __restrict__ out, int64_t rows, int length,
+                             int taps, int levels, int chunk, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  float* span = smem;                              // [chunk][kPmRows]
+  int* hulls = reinterpret_cast<int*>(span + chunk * kPmRows);
+  float* o = out + (int64_t)(threadIdx.x / kPmRows) * taps * rows +
+             (int64_t)blockIdx.x * kPmRows + threadIdx.x % kPmRows;
+  pm_walk(vol_t, bases_t, rows, length, taps, levels, chunk, vec, span, hulls,
+          [&](int k, float tap) { o[(int64_t)k * rows] = tap; });
 }
 
 // grid (tiles of kBwdRows rows, ranges of `span` entries of L), kBwdWarps
@@ -534,10 +611,141 @@ window_rows_fwd(const float* __restrict__ vol, const float* __restrict__ bases,
              out + r * (int64_t)(levels * taps) + lvl * taps, 1);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// grid: tiles of `tile` rows (a multiple of 4), kRowsBwdThreads threads.
+// Copies the tile's cotangent and bases into shared memory, forms each
+// (row, level)'s window start and slot coefficients once, then walks the
+// tile's dvol, tile*L contiguous entries, four entries a thread at a time.
+template <int LEVELS>
+__global__ void __launch_bounds__(kRowsBwdThreads)
 window_rows_bwd(const float* __restrict__ bases, const float* __restrict__ g,
-                float* __restrict__ dvol, int64_t rows, int length, int taps,
-                int levels) {
+                float* __restrict__ dvol, int64_t rows, int length, int taps, int tile) {
+  extern __shared__ __align__(16) float smem[];
+  const int chans = LEVELS * taps, slots = taps + 2;
+  const int64_t r0 = (int64_t)blockIdx.x * tile;
+  const int nrows = rows - r0 < tile ? (int)(rows - r0) : tile;
+  const int pairs = nrows * LEVELS;
+  // the cotangent keeps its offset within 16 bytes in gs, so that its
+  // 16-byte copies land on 16-byte boundaries: element i is gs[shift + i]
+  const float* src = g + r0 * chans;
+  const int shift = (int)((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
+  float* gs = smem;                                                   // [tile*chans + 4]
+  float* s_base = gs + tile * chans + 4;                              // [tile][LEVELS]
+  int* s_i0 = reinterpret_cast<int*>(s_base + tile * LEVELS);         // [tile][LEVELS]
+  float* coef = reinterpret_cast<float*>(s_i0 + tile * LEVELS);       // [tile][LEVELS][slots]
+  // one round trip: every copy of the tile's cotangent and bases in flight
+  const uint64_t policy = evict_first();
+  const int n = nrows * chans;
+  const int head = min(n, (4 - shift) & 3);
+  const int vecs = (n - head) / 4;
+  for (int i = threadIdx.x; i < vecs; i += blockDim.x)
+    copy_async16(gs + shift + head + 4 * i, src + head + 4 * i, policy);
+  for (int i = threadIdx.x; i < n - 4 * vecs; i += blockDim.x) {  // the head, then the tail
+    const int e = i < head ? i : 4 * vecs + i;
+    copy_async4(gs + shift + e, src + e, policy);
+  }
+  for (int i = threadIdx.x; i < pairs; i += blockDim.x)
+    copy_async4(s_base + i, bases + r0 * LEVELS + i, policy);
+  copy_async_wait();
+  __syncthreads();
+  // slot m of pair p = row*LEVELS + lvl is cell i0 + m: its coefficient
+  // ((1 - f)*g_m + f*g_{m-1}) * 2^-lvl, zero for a cell outside [0, n_lvl)
+  // and for slot taps + 1.  The pair's cotangent is gs[shift + p*taps ...].
+  for (int p = threadIdx.x; p < pairs; p += blockDim.x) {
+    const int lvl = p % LEVELS;
+    const int n_lvl = length >> lvl;
+    int i0;
+    float f;
+    window_start(s_base[p], n_lvl, taps, i0, f);
+    s_i0[p] = i0;
+    const float omf = __fsub_rn(1.0f, f), scale = 1.0f / (float)(1 << lvl);
+    const float* gp = gs + shift + p * taps;
+    float* cp = coef + p * slots;
+    for (int m = 0; m < slots; ++m) {
+      const int cell = i0 + m;
+      float c = 0.0f;
+      if (m <= taps && cell >= 0 && cell < n_lvl) {
+        if (m < taps) c = __fmul_rn(omf, gp[m]);
+        if (m >= 1) c = __fadd_rn(c, __fmul_rn(f, gp[m - 1]));
+        c = __fmul_rn(c, scale);
+      }
+      cp[m] = c;
+    }
+  }
+  __syncthreads();
+  // entry j of a row: per level, the coefficient of slot (j >> lvl) - i0,
+  // clamped to the zero slot taps + 1, levels ascending.  An entry of the
+  // tail j >= (L >> lvl) << lvl lies in cell L >> lvl, which is dead.
+  auto entry = [&](int row, int j) {
+    const int* i0r = s_i0 + row * LEVELS;
+    const float* cr = coef + row * LEVELS * slots;
+    float acc = 0.0f;
+    static_for<LEVELS>([&](auto lvl) {
+      const unsigned m = min((unsigned)((j >> lvl) - i0r[lvl]), (unsigned)(taps + 1));
+      acc = __fadd_rn(acc, cr[lvl * slots + m]);
+    });
+    return acc;
+  };
+  // the tile's dvol is contiguous: a scalar head up to a 16-byte boundary,
+  // 16-byte stores, a scalar tail.  A thread steps its (row, j) by the
+  // block's stride, so no entry takes a division.
+  const int total = nrows * length;
+  float* dst = dvol + r0 * length;
+  const int lead = min(total, (int)((16 - (reinterpret_cast<uintptr_t>(dst) & 15)) & 15) / 4);
+  const int nvec = (total - lead) / 4;
+  if (threadIdx.x < lead) dst[threadIdx.x] = entry(threadIdx.x / length, threadIdx.x % length);
+  const int step = 4 * blockDim.x, step_rows = step / length, step_j = step - step_rows * length;
+  int row = (lead + 4 * threadIdx.x) / length, j = lead + 4 * threadIdx.x - row * length;
+  float4* dv = reinterpret_cast<float4*>(dst + lead);
+  if (length % 4 == 0 && lead == 0) {
+    // every group of 4 entries lies in one row from a j that is a multiple
+    // of 4: a level-1 cell holds two of them and a deeper one all four, so
+    // a coefficient is read once a cell
+    for (int v = threadIdx.x; v < nvec; v += blockDim.x) {
+      const int* i0r = s_i0 + row * LEVELS;
+      const float* cr = coef + row * LEVELS * slots;
+      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      static_for<LEVELS>([&](auto lvl) {
+        constexpr int cells = decltype(lvl)::value == 0 ? 4 : decltype(lvl)::value == 1 ? 2 : 1;
+        const int first = (j >> lvl) - i0r[lvl];
+        static_for<cells>([&](auto c) {
+          const float k = cr[lvl * slots + min((unsigned)(first + c), (unsigned)(taps + 1))];
+          static_for<4 / cells>([&](auto t) {
+            acc[c * (4 / cells) + t] = __fadd_rn(acc[c * (4 / cells) + t], k);
+          });
+        });
+      });
+      dv[v] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+      row += step_rows;
+      j += step_j;
+      if (j >= length) j -= length, ++row;
+    }
+  } else {
+    for (int v = threadIdx.x; v < nvec; v += blockDim.x) {
+      float out[4];
+      int rr = row, jj = j;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        out[q] = entry(rr, jj);
+        if (++jj == length) jj = 0, ++rr;
+      }
+      dv[v] = make_float4(out[0], out[1], out[2], out[3]);
+      row += step_rows;
+      j += step_j;
+      if (j >= length) j -= length, ++row;
+    }
+  }
+  for (int e = lead + 4 * nvec + threadIdx.x; e < total; e += blockDim.x)
+    dst[e] = entry(e / length, e % length);
+}
+
+// Tiles that do not fit a block (levels*taps beyond ~450 at 64 rows and
+// ~3,600 at 8, wider than any model's): a warp a row, its lanes striding
+// over L, each entry's slots found from the row's starts and its cotangent
+// read from device memory.
+__global__ void __launch_bounds__(kThreads)
+window_rows_bwd_walk(const float* __restrict__ bases, const float* __restrict__ g,
+                     float* __restrict__ dvol, int64_t rows, int length, int taps,
+                     int levels) {
   const int lane = threadIdx.x & 31;
   const int64_t r = (int64_t)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
   if (r >= rows) return;
@@ -554,6 +762,30 @@ window_rows_bwd(const float* __restrict__ bases, const float* __restrict__ g,
   float* drow = dvol + r * length;
   for (int j = lane; j < length; j += 32)
     drow[j] = entry_grad(j, length, taps, levels, i0, f, grow, 1);
+}
+
+// Rows of a tile of the [R, L] backward: kRowsBwdTile, halved (to
+// kRowsBwdMinTile at the least) while the tiles give the card's `sms` SMs
+// fewer than kRowsBwdBlocksPerSM blocks each.
+inline int rows_bwd_tile(int64_t rows, int sms) {
+  int tile = kRowsBwdTile;
+  while (tile > kRowsBwdMinTile && (rows + tile - 1) / tile < (int64_t)kRowsBwdBlocksPerSM * sms)
+    tile /= 2;
+  return tile;
+}
+
+template <int LEVELS>
+cudaError_t launch_rows_bwd(const float* bases, const float* g, float* dvol, int64_t rows,
+                            int length, int taps, int tile, cudaStream_t s) {
+  auto kernel = window_rows_bwd<LEVELS>;
+  const int shared = (int)(4 * rows_bwd_words(tile, LEVELS, taps));
+  if (shared > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<(unsigned)((rows + tile - 1) / tile), kRowsBwdThreads, shared, s>>>(
+      bases, g, dvol, rows, length, taps, tile);
+  return cudaSuccess;
 }
 
 // Entries of L a block of the [L, R] backward covers: all of L, or, where
@@ -598,30 +830,33 @@ extern "C" int anystereo_gather_pyramid_window(const void* vol, const void* base
     return (int)cudaErrorInvalidValue;
   const int64_t n = (int64_t)rows * levels;
   if (n == 0) return (int)cudaGetLastError();
-  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
   cudaStream_t s = (cudaStream_t)stream;
   if (layout == 2) {
+    const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
     window_rows_fwd<<<blocks, kThreads, 0, s>>>((const float*)vol, (const float*)bases,
                                                 (float*)out, rows, length, taps, levels);
-  } else if (layout == 1) {
-    window_t_fwd<<<blocks, kThreads, 0, s>>>((const float*)vol, (const float*)bases,
-                                             (float*)out, rows, length, taps, levels);
-  } else {
-    // 16-byte copies need every volume row (R floats) on a 16-byte boundary
-    const int vec = rows % 4 == 0 && (reinterpret_cast<uintptr_t>(vol) & 15) == 0;
-    const int chunk = pm_chunk(length);
-    const int shared = taps <= kMaxShared / (4 * kPmRows * levels)
-                           ? pm_shared_bytes(chunk, levels, taps) : kMaxShared + 1;
-    // taps beyond 337 at 5 levels (rows of 128 entries or more) do not fit
-    if (shared > kMaxShared) return (int)cudaErrorInvalidValue;
-    if (shared > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          window_pm_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
-      if (err != cudaSuccess) return (int)err;
-    }
-    window_pm_fwd<<<(unsigned)((rows + kPmRows - 1) / kPmRows), kPmRows * levels, shared, s>>>(
-        (const float*)vol, (const float*)bases, (float*)out, rows, length, taps, levels, chunk, vec);
+    return (int)cudaGetLastError();
   }
+  // 16-byte copies need every volume row (R floats) on a 16-byte boundary
+  const int vec = rows % 4 == 0 && (reinterpret_cast<uintptr_t>(vol) & 15) == 0;
+  const int chunk = pm_chunk(length);
+  const unsigned blocks = (unsigned)((rows + kPmRows - 1) / kPmRows);
+  if (layout == 1) {  // no tap stage: at most 16.6 KB
+    window_t_fwd<<<blocks, kPmRows * levels, pm_shared_bytes(chunk, 0), s>>>(
+        (const float*)vol, (const float*)bases, (float*)out, rows, length, taps, levels, chunk, vec);
+    return (int)cudaGetLastError();
+  }
+  const int shared = taps <= kMaxShared / (4 * kPmRows * levels)
+                         ? pm_shared_bytes(chunk, levels * taps) : kMaxShared + 1;
+  // taps beyond 337 at 5 levels (rows of 128 entries or more) do not fit
+  if (shared > kMaxShared) return (int)cudaErrorInvalidValue;
+  if (shared > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        window_pm_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+    if (err != cudaSuccess) return (int)err;
+  }
+  window_pm_fwd<<<blocks, kPmRows * levels, shared, s>>>(
+      (const float*)vol, (const float*)bases, (float*)out, rows, length, taps, levels, chunk, vec);
   return (int)cudaGetLastError();
 }
 
@@ -636,25 +871,33 @@ extern "C" int anystereo_gather_pyramid_window_bwd(const void* bases, const void
     return (int)cudaErrorInvalidValue;
   if (rows == 0 || length == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
+  const float *b = (const float*)bases, *gg = (const float*)g;
+  float* d = (float*)dvol;
+  int device, sms;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
   if (layout == 2) {
-    const int rows_per_block = kThreads / 32;
-    const unsigned blocks = (unsigned)((rows + rows_per_block - 1) / rows_per_block);
-    window_rows_bwd<<<blocks, kThreads, 0, s>>>((const float*)bases, (const float*)g,
-                                                (float*)dvol, rows, length, taps, levels);
+    const int tile = rows_bwd_tile(rows, sms);
+    if (4 * rows_bwd_words(tile, levels, taps) > kMaxShared || (int64_t)tile * length > INT_MAX) {
+      const int rows_per_block = kThreads / 32;
+      const unsigned blocks = (unsigned)((rows + rows_per_block - 1) / rows_per_block);
+      window_rows_bwd_walk<<<blocks, kThreads, 0, s>>>(b, gg, d, rows, length, taps, levels);
+      return (int)cudaGetLastError();
+    }
+    switch (levels) {
+      case 1: err = launch_rows_bwd<1>(b, gg, d, rows, length, taps, tile, s); break;
+      case 2: err = launch_rows_bwd<2>(b, gg, d, rows, length, taps, tile, s); break;
+      case 3: err = launch_rows_bwd<3>(b, gg, d, rows, length, taps, tile, s); break;
+      case 4: err = launch_rows_bwd<4>(b, gg, d, rows, length, taps, tile, s); break;
+      default: err = launch_rows_bwd<5>(b, gg, d, rows, length, taps, tile, s); break;
+    }
   } else if (4 * t_bwd_words(levels, taps) > kMaxShared) {
     const dim3 grid((unsigned)((rows + kThreads - 1) / kThreads),
                     (unsigned)((length + kChunk - 1) / kChunk));
-    window_t_bwd_walk<<<grid, kThreads, 0, s>>>((const float*)bases, (const float*)g,
-                                                (float*)dvol, rows, length, taps, levels,
-                                                layout == 0);
+    window_t_bwd_walk<<<grid, kThreads, 0, s>>>(b, gg, d, rows, length, taps, levels, layout == 0);
   } else {
-    int device, sms;
-    cudaError_t err = cudaGetDevice(&device);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return (int)err;
     const int pm = layout == 0;
-    const float *b = (const float*)bases, *gg = (const float*)g;
-    float* d = (float*)dvol;
     switch (levels) {
       case 1: err = launch_t_bwd<1>(b, gg, d, rows, length, taps, pm, sms, s); break;
       case 2: err = launch_t_bwd<2>(b, gg, d, rows, length, taps, pm, sms, s); break;
@@ -662,7 +905,7 @@ extern "C" int anystereo_gather_pyramid_window_bwd(const void* bases, const void
       case 4: err = launch_t_bwd<4>(b, gg, d, rows, length, taps, pm, sms, s); break;
       default: err = launch_t_bwd<5>(b, gg, d, rows, length, taps, pm, sms, s); break;
     }
-    if (err != cudaSuccess) return (int)err;
   }
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -50,8 +50,9 @@ Phases (any failure raises, and the exit code is not 0):
            RAFT shapes at 4), the window-pyramid lookups in their three
            layouts, forward and backward, held to their plain versions bit
            for bit and to each other (the pixel-major forward and its
-           backward, the "classify" flavor's, also at path-shaped positions,
-           with `floor_ms` and the read-flush time), the query row gather and its
+           backward, the "classify" flavor's, the transposed forward and the
+           row-major backward also at path-shaped positions, with
+           `floor_ms` and the read-flush time), the query row gather and its
            scatter-add transpose (the 9-tap disparity table and both latent
            tables, 51,200 queries a sample), `gather_rows_hybrid`, and the
            single-level linear lookups, forward and backward, bit for bit:
@@ -702,6 +703,23 @@ def _kernels_window(torch):
                        path=(lambda: tw.gather_pyramid_window_pm_bwd(starts["path"], cot, length, TAPS),
                              lambda: tw.gather_pyramid_window_pm_bwd_ref(starts["path"], cot, length, TAPS),
                              calls["gather_pyramid_window_pm_bwd"][-1]["bytes"]))
+        # B5's forward (B4's staged walk, each tap stored as it is formed)
+        # and B6's backward (tiles of rows, dvol contiguous), the same way
+        _kernel_beside(torch, calls["gather_pyramid_window_t"][-1], "gather_pyramid_window_t",
+                       lambda: tw.gather_pyramid_window_t(vol_t, starts["main"], TAPS),
+                       lambda: tw.gather_pyramid_window_t(vol_t, starts["check"], TAPS),
+                       lambda: tw.gather_pyramid_window_t(v1, b1, TAPS),
+                       path=(lambda: tw.gather_pyramid_window_t(vol_t, starts["path"], TAPS),
+                             lambda: tw.gather_pyramid_window_t_ref(vol_t, starts["path"], TAPS),
+                             _window_cost(torch, bases_path, length, True)[0]))
+        rb1 = bases_main[:1].contiguous()
+        _kernel_beside(torch, calls["gather_pyramid_window_bwd"][-1], "gather_pyramid_window_bwd",
+                       lambda: tw.gather_pyramid_window_bwd(bases_main, cot, length, TAPS),
+                       lambda: tw.gather_pyramid_window_bwd(bases, cot, length, TAPS),
+                       lambda: tw.gather_pyramid_window_bwd(rb1, cot1, length, TAPS),
+                       path=(lambda: tw.gather_pyramid_window_bwd(bases_path, cot, length, TAPS),
+                             lambda: tw.gather_pyramid_window_bwd_ref(bases_path, cot, length, TAPS),
+                             calls["gather_pyramid_window_bwd"][-1]["bytes"]))
         del vol, vol_t, cot, results
     order = [c[0] for c in shapes]
     records = []
@@ -717,7 +735,8 @@ def _kernels_window(torch):
 
 
 def _kernel_beside(torch, res, what, fn, check, one, path=None):
-    """A redesigned kernel (B4's and B7's forward and backward, B8's) beyond
+    """A redesigned kernel (B4's and B7's forward and backward, B8's, B5's
+    forward and B6's backward) beyond
     the common timing: `fn()` launches it at the timing's inputs, `check()`
     at the check's (far positions and collisions), `one()` on one row;
     `path`, where given, is (a launch at path-shaped inputs, its plain
@@ -2852,6 +2871,8 @@ def _beside_parent_line(records):
             "gather_rows": ("B3", lambda c: f"C={c['table'][2]}", common + clean + ("library_ms",)),
             "gather_pyramid_window_pm": ("B4", lambda c: c["call"], common + path + ("ms_clean",)),
             "gather_pyramid_window_pm_bwd": ("B4 bwd", lambda c: c["call"], common + path + ("ms_clean",)),
+            "gather_pyramid_window_t": ("B5", lambda c: c["call"], common + path + ("ms_clean",)),
+            "gather_pyramid_window_bwd": ("B6 bwd", lambda c: c["call"], common + path + ("ms_clean",)),
             "gather_window_linear": ("B7", lambda c: c["call"], common + path + (
                 "ms_clean", "library_ms", "library_err")),
             "gather_window_linear_bwd": ("B7 bwd", lambda c: c["call"], common + clean + library),

@@ -610,6 +610,81 @@ def test_window_t_backward_other_taps(card, taps, levels):
     _t_backwards(card, bases, cot, 130, taps)
 
 
+def test_window_t_forward_takes_windows_wider_than_the_pm_stage(card):
+    """B5's forward stores each tap as it forms it, so it keeps no tap stage
+    and takes 347 taps at 5 levels, one more than B4's forward holds."""
+    g = torch.Generator(device=card).manual_seed(347)
+    vol_t = torch.randn(80, 1001, device=card, generator=g)
+    bases = _pm_bases(card, torch.rand(1001, device=card, generator=g) * 120 - 20, 5)
+    before = tw.gather_pyramid_window_t.launches
+    got = tw.gather_pyramid_window_t(vol_t, bases, 347)
+    want = tw.gather_pyramid_window_t_ref(vol_t, bases, 347)
+    torch.cuda.synchronize()
+    assert tw.gather_pyramid_window_t.launches == before + 1
+    assert got.shape == want.shape and torch.equal(got, want) and not got[:, :4].any()  # +-1e6, +-3e9
+
+
+# (rows, length, levels): the [R, L] backward's tiles on a card of 132 SMs:
+# 32 rows from 33,761 rows on (1,056 tiles, 8 an SM), 16 from 16,881, 8
+# below; the eval GEV and corr shapes and the RAFT one; ragged tiles, L % 4
+# != 0 (rows off the 16-byte grid), L 1, 2 and 5 at up to 5 levels
+_RB_CASES = [(239616, 48, 2), (239616 + 3, 48, 2), (29952, 312, 2), (29952, 312, 4),
+             (33761, 48, 2), (33760, 48, 2), (16881, 80, 3), (16880, 80, 3), (6400, 80, 4),
+             (1001, 39, 3), (777, 41, 5), (33, 1, 1), (70, 2, 2), (70, 5, 5), (1, 313, 5)]
+
+
+def _rows_backward(card, bases, cot, length, taps, offset=0):
+    """The [R, L] backward on a cotangent placed `offset` floats past a
+    16-byte boundary, held to its plain version bit for bit with one
+    launch."""
+    flat = torch.empty(offset + cot.numel(), device=card)
+    g = flat[offset:].view(cot.shape).copy_(cot)
+    assert g.is_contiguous() and g.data_ptr() % 16 == 4 * offset
+    before = tw.gather_pyramid_window_bwd.launches
+    got = tw.gather_pyramid_window_bwd(bases, g, length, taps)
+    want = tw.gather_pyramid_window_bwd_ref(bases, g, length, taps)
+    torch.cuda.synchronize()
+    assert tw.gather_pyramid_window_bwd.launches == before + 1
+    assert got.shape == (bases.shape[0], length) and torch.equal(got, want)
+    return got
+
+
+@pytest.mark.parametrize("rows,length,levels", _RB_CASES)
+@pytest.mark.parametrize("positions", ["random", "path"])
+def test_window_rows_backward_tiles(card, rows, length, levels, positions):
+    """The redesigned [R, L] backward (a block a tile of rows, the cotangent
+    and bases staged once, slot coefficients formed once, the tile's dvol
+    walked as 16-byte vectors) equals its plain version bit for bit at
+    random and path-shaped bases, far bases as zero rows, on an aligned
+    cotangent and on one 4 bytes past a 16-byte boundary."""
+    g = torch.Generator(device=card).manual_seed(rows + length + levels)
+    if positions == "random":
+        x = torch.rand(rows, device=card, generator=g) * (length + 40) - 20
+    else:
+        x = _smooth_positions(card, rows, length, 8 if length == 48 else 1)
+    far = rows >= len(_FAR)
+    bases = _pm_bases(card, x, levels, far=far).t().contiguous()
+    cot = torch.randn(rows, levels * 9, device=card, generator=g)
+    for offset in (0, 1):
+        got = _rows_backward(card, bases, cot, length, 9, offset)
+        if far:
+            assert not got[: len(_FAR)].any()
+
+
+@pytest.mark.parametrize("taps,levels", [(1, 2), (17, 4), (400, 5), (1000, 5), (3000, 1)])
+def test_window_rows_backward_other_taps(card, taps, levels):
+    """Taps other than 9: the tile's shared memory grows with levels*taps
+    (past 48 KB the launch asks for more; 3,000 taps at one level still
+    fit a tile of 8 rows), and a tile too large for a block (1,000 taps at 5
+    levels) takes the walk of a warp a row; both bit for bit the plain
+    version."""
+    g = torch.Generator(device=card).manual_seed(taps + levels)
+    x = torch.rand(3001, device=card, generator=g) * 170 - 20
+    bases = _pm_bases(card, x, levels).t().contiguous()
+    cot = torch.randn(3001, levels * taps, device=card, generator=g)
+    _rows_backward(card, bases, cot, 130, taps)
+
+
 # (rows, length): the eval GEV shapes (tiles of 32 rows a warp), the
 # training GEV's (16 rows), the eval and training correlation's (a thread a
 # tap), ragged last tiles and blocks, and the edges of the tile heights on a

@@ -16,6 +16,16 @@ from anystereo_tpu_torch.ops.kernels.lookup import (
 )
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads for this module (a parallel test run puts
+    several test processes on the same cores); the count is restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("levels", [1, 2, 3, 4, 5])
 @pytest.mark.parametrize("length", [5, 45, 48, 80, 312])
 def test_deepest_window_span_covers_every_tap(levels, length):
@@ -150,12 +160,17 @@ def _pm_starts(bases, n_lvl, taps):
     return np.clip(f0, np.float32(-(taps + 1)), np.float32(n_lvl)).astype(np.int64), bases - f0
 
 
-def _mirror_window_pm(vol_t, bases_t, taps):
-    """(out [R, levels*taps], chunks staged, entries copied) of the kernel's
-    rule, in numpy fp32."""
+def _mirror_window_pm(vol_t, bases_t, taps, transposed=False):
+    """(out, chunks staged, entries copied) of the kernel's rule, in numpy
+    fp32: out [R, levels*taps] through the tile's tap stage (layout 0), or
+    with `transposed` out [levels*taps, R] stored tap by tap as formed
+    (layout 1), NaN where nothing was stored; with `transposed` also the
+    count of stores to each output."""
     length, rows = vol_t.shape
     levels = bases_t.shape[0]
     out = np.full((rows, levels * taps), np.nan, np.float32)
+    out_t = np.full((levels * taps, rows), np.nan, np.float32)
+    stores = np.zeros((levels * taps, rows), np.int64)
     vec = rows % 4 == 0
     chunks = copied = 0
     for r0 in range(0, rows, PM_ROWS):
@@ -182,7 +197,12 @@ def _mirror_window_pm(vol_t, bases_t, taps):
         def emit(p, s):
             lvl, row, _, f, _, _, prev, m = p
             if m > 0:
-                stage[row, lvl * taps + m - 1] = np.float32(np.float32(1) - f) * prev + f * s
+                tap = np.float32(np.float32(1) - f) * prev + f * s
+                if transposed:  # straight to out[lvl*taps + k, r0 + row]
+                    out_t[lvl * taps + m - 1, r0 + row] = tap
+                    stores[lvl * taps + m - 1, r0 + row] += 1
+                else:
+                    stage[row, lvl * taps + m - 1] = tap
             p[6], p[7] = s, m + 1
 
         j0 = lo
@@ -220,6 +240,8 @@ def _mirror_window_pm(vol_t, bases_t, taps):
             while p[7] <= taps:
                 emit(p, np.float32(0))
         out[r0:r0 + nrows] = stage[:nrows]
+    if transposed:
+        return out_t, chunks, copied, stores
     return out, chunks, copied
 
 
@@ -282,6 +304,44 @@ def test_window_pm_staging_rule_reads_only_what_it_copied(rows, length, levels, 
         assert chunks <= 2 * tiles
     if length == 48 and positions == "path":
         assert chunks == tiles and copied < 0.75 * vol_t.size  # about the windows, not whole rows
+
+
+def _window_bases(rng, rows, length, levels, taps, positions):
+    """[levels, R] fp32 window starts x * 2^-lvl - taps // 2 at random or
+    path-shaped x, with the first rows at +-1e6 and +-3e9."""
+    if positions == "random":
+        x = rng.uniform(-20, length + 20, rows).astype(np.float32)
+    else:
+        x = _smooth_x(rows, length, 8 if length == 48 else 1)
+    scales = np.array([2.0 ** -lvl for lvl in range(levels)], np.float32)
+    bases = (x[None, :] * scales[:, None] - np.float32(taps // 2)).astype(np.float32)
+    bases[:, :4] = np.array([-1e6, 1e6, -3e9, 3e9], np.float32)[None, :]
+    return bases
+
+
+@pytest.mark.parametrize("rows,length,levels,taps,positions", [
+    (205, 48, 2, 9, "random"), (256, 48, 2, 9, "path"),  # the eval GEV rows
+    (205, 312, 2, 9, "random"), (133, 312, 4, 9, "random"),  # the correlations: several chunks
+    (130, 80, 1, 9, "random"), (97, 80, 3, 9, "path"), (70, 80, 5, 9, "random"),
+    (75, 39, 2, 9, "random"), (75, 41, 3, 17, "random"),  # L % 4 != 0, wider windows
+    (70, 5, 3, 9, "random"), (70, 5, 5, 17, "random"),  # L shorter than a deepest cell
+    (64, 312, 2, 17, "path"),
+])
+def test_window_t_forward_stores_each_tap_once(rows, length, levels, taps, positions):
+    """B5's forward (`window_t_fwd`: B4's staged walk, each tap stored to
+    out [levels*taps, R] as it is formed), mirrored in numpy fp32 into a
+    NaN-filled output, stores every tap once and equals the plain version
+    bit for bit, far bases (+-1e6, +-3e9) as zero columns, ragged tiles."""
+    from anystereo_tpu_torch.ops.kernels.lookup_window import gather_pyramid_window_t_ref
+
+    rng = np.random.default_rng(rows * length + levels * taps + 1)
+    vol_t = rng.standard_normal((length, rows)).astype(np.float32)
+    bases = _window_bases(rng, rows, length, levels, taps, positions)
+    got, _, _, stores = _mirror_window_pm(vol_t, bases, taps, transposed=True)
+    want = gather_pyramid_window_t_ref(torch.from_numpy(vol_t), torch.from_numpy(bases), taps).numpy()
+    assert (stores == 1).all()
+    np.testing.assert_array_equal(got, want)
+    assert not got[:, :4].any()
 
 
 # ------------------------------------- the window-pyramid backward (B4, B5)
@@ -425,6 +485,145 @@ def test_window_t_backward_tiles_match_plain(rows, length, levels, taps, positio
         assert ranges == (1 if sms == 1 else 3)
     if rows >= BWD_BLOCKS_PER_SM * BWD_ROWS * sms:
         assert ranges == 1
+
+
+# ------------------------------------------ the row-major window backward (B6)
+#
+# `csrc/lookup_window.cu:window_rows_bwd`: a block of ROWS_BWD_THREADS
+# threads owns a tile of consecutive rows (a multiple of 4).  It copies the
+# tile's cotangent, rows*levels*taps contiguous floats, into shared memory at
+# its own offset within 16 bytes (4-byte copies up to a 16-byte boundary,
+# 16-byte copies, a 4-byte tail) and the tile's bases, forms each (row,
+# level)'s i0 and its taps + 2 slot coefficients [row][level][slot] (slot
+# taps + 1 and cells outside [0, L >> lvl) zero), then walks the tile's dvol,
+# rows*L contiguous entries: a scalar head up to a 16-byte boundary, four
+# entries a thread at a time stored as one 16-byte vector, each thread
+# stepping its (row, j) by the block's stride, and a scalar tail.  An entry
+# sums, levels ascending, the coefficient of slot min((j >> lvl) - i0,
+# taps + 1) as unsigned.  Where L % 4 == 0 and there is no head, a group of
+# four starts at a j that is a multiple of 4 and reads cell (j >> lvl) +
+# (q >> lvl) for its entry q, once a cell.  The mirror stages into NaN-filled
+# arrays and writes a NaN-filled dvol, counting copies and stores.
+
+ROWS_BWD_THREADS = 128
+
+
+def _mirror_window_rows_bwd(bases, g, length, taps, tile, g_off=0, d_off=0):
+    """(dvol [R, L], stores [R*L]) of the kernel's tiles, staging, table and
+    store order, in numpy fp32, for a cotangent and a dvol that start
+    `g_off` and `d_off` floats past a 16-byte boundary."""
+    rows, levels = bases.shape
+    chans, slots = levels * taps, taps + 2
+    gflat = g.reshape(-1)
+    dvol = np.full(rows * length, np.nan, np.float32)
+    stores = np.zeros(rows * length, np.int64)
+    one = np.float32(1)
+    for r0 in range(0, rows, tile):
+        nrows = min(tile, rows - r0)
+        pairs = nrows * levels
+        # the staged cotangent: element i at gs[shift + i]
+        shift = (g_off + r0 * chans) % 4
+        gs = np.full(tile * chans + 4, np.nan, np.float32)
+        copies = np.zeros(tile * chans + 4, np.int64)
+        n = nrows * chans
+        head = min(n, (4 - shift) % 4)
+        vecs = (n - head) // 4
+        for i in range(vecs):
+            a = head + 4 * i
+            assert (shift + a) % 4 == 0 and (g_off + r0 * chans + a) % 4 == 0  # both ends aligned
+            gs[shift + a:shift + a + 4] = gflat[r0 * chans + a:r0 * chans + a + 4]
+            copies[shift + a:shift + a + 4] += 1
+        for e in [*range(head), *range(head + 4 * vecs, n)]:
+            gs[shift + e] = gflat[r0 * chans + e]
+            copies[shift + e] += 1
+        assert (copies[shift:shift + n] == 1).all()
+        base = np.full(tile * levels, np.nan, np.float32)
+        base[:pairs] = bases[r0:r0 + nrows].reshape(-1)
+        i0s = np.full(tile * levels, INT_MIN, np.int64)
+        coef = np.full(tile * levels * slots, np.nan, np.float32)
+        for i in range(pairs * slots):
+            p, m = divmod(i, slots)
+            lvl = p % levels
+            n_lvl = length >> lvl
+            i0, f = _pm_starts(base[p:p + 1], n_lvl, taps)
+            i0, f = int(i0[0]), f[0]
+            if m == 0:
+                i0s[p] = i0
+            c = np.float32(0)
+            if m <= taps and 0 <= i0 + m < n_lvl:
+                gp = gs[shift + p * taps:]
+                if m < taps:
+                    c = (one - f) * gp[m]
+                if m >= 1:
+                    c = np.float32(c + f * gp[m - 1])
+                c = np.float32(c * np.float32(1.0 / 2 ** lvl))
+            coef[i] = c
+        # the walk: which thread stores which entries, in the kernel's steps
+        total, dst = nrows * length, r0 * length
+        lead = min(total, (4 - (d_off + dst) % 4) % 4)
+        nvec = (total - lead) // 4
+        fast = length % 4 == 0 and lead == 0  # groups read once a cell
+        where = list(range(lead))  # tile-relative entries, in store order
+        group = [(e, 0) for e in where]  # (the first entry of its group of four, its place)
+        step = 4 * ROWS_BWD_THREADS
+        step_rows, step_j = divmod(step, length)
+        for tid in range(ROWS_BWD_THREADS):
+            row, j = divmod(lead + 4 * tid, length)
+            for v in range(tid, nvec, ROWS_BWD_THREADS):
+                assert (d_off + dst + lead + 4 * v) % 4 == 0  # a 16-byte store
+                rr, jj = row, j
+                for q in range(4):
+                    assert rr * length + jj == lead + 4 * v + q
+                    where.append(rr * length + jj)
+                    group.append((j, q) if fast else (jj, 0))
+                    jj += 1
+                    if jj == length:
+                        jj, rr = 0, rr + 1
+                row, j = row + step_rows, j + step_j
+                if j >= length:
+                    j, row = j - length, row + 1
+        where += list(range(lead + 4 * nvec, total))
+        group += [(e % length, 0) for e in range(lead + 4 * nvec, total)]
+        e = np.array(where, np.int64)
+        row = e // length
+        j0, q = np.array(group, np.int64).T
+        acc = np.zeros(e.shape, np.float32)
+        for lvl in range(levels):
+            cell = (j0 >> lvl) + (q >> lvl)
+            m = np.minimum((cell - i0s[row * levels + lvl]).astype(np.uint32), np.uint32(taps + 1))
+            acc = acc + coef[(row * levels + lvl) * slots + m.astype(np.int64)]
+        dvol[dst + e] = acc
+        np.add.at(stores, dst + e, 1)
+    return dvol.reshape(rows, length), stores
+
+
+@pytest.mark.parametrize("rows,length,levels,taps,positions", [
+    (75, 48, 2, 9, "path"), (77, 48, 2, 9, "random"),   # the eval GEV row
+    (37, 312, 2, 9, "random"), (41, 312, 4, 9, "path"),  # the correlations, ragged tiles
+    (70, 80, 1, 9, "random"), (70, 80, 3, 17, "random"), (45, 80, 5, 9, "random"),
+    (53, 39, 2, 9, "random"), (51, 41, 3, 17, "random"),  # L % 4 != 0: rows off the 16-byte grid
+    (40, 5, 3, 9, "random"), (40, 5, 5, 17, "random"),   # L shorter than a deepest cell
+    (35, 2, 2, 9, "random"), (33, 1, 1, 9, "random"), (29, 21, 5, 1, "random"),
+])
+@pytest.mark.parametrize("tile,g_off,d_off", [(8, 0, 0), (16, 1, 0), (32, 3, 2), (64, 2, 0)])
+def test_window_rows_backward_tiles_match_plain(rows, length, levels, taps, positions, tile, g_off, d_off):
+    """B6's backward, mirrored in numpy fp32 (the staged cotangent with its
+    16-byte head and tail, the coefficient table, the clamped slot lookup,
+    the vector walk with a scalar head and tail), stores every entry once
+    and equals the plain version bit for bit, far bases (+-1e6, +-3e9) as
+    zero rows; tiles of 8 to 64 rows (a ragged last one), cotangent and
+    dvol at each offset within 16 bytes (a dvol off the 16-byte grid, or L
+    % 4 != 0, takes the walk entry by entry; the others read once a cell)."""
+    from anystereo_tpu_torch.ops.kernels.lookup_window import gather_pyramid_window_bwd_ref
+
+    rng = np.random.default_rng(rows * length + levels * taps)
+    bases = np.ascontiguousarray(_window_bases(rng, rows, length, levels, taps, positions).T)
+    g = rng.standard_normal((rows, levels * taps)).astype(np.float32)
+    want = gather_pyramid_window_bwd_ref(torch.from_numpy(bases), torch.from_numpy(g), length, taps).numpy()
+    got, stores = _mirror_window_rows_bwd(bases, g, length, taps, tile, g_off, d_off)
+    assert (stores == 1).all()
+    np.testing.assert_array_equal(got, want)
+    assert not got[:4].any()
 
 
 # ------------------------------------------------ the rows linear forward (B8)

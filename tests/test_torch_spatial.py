@@ -253,8 +253,17 @@ def _jax_references(models):
 
 
 def _port_references(out):
-    """The port's unsharded forwards on the ranks' inputs."""
+    """The port's unsharded forwards on the ranks' inputs, on two intra-op
+    threads (the test process's own count is restored after)."""
+    n = torch.get_num_threads()
     torch.set_num_threads(2)
+    try:
+        return _port_forwards(out)
+    finally:
+        torch.set_num_threads(n)
+
+
+def _port_forwards(out):
     ref = {}
     with torch.no_grad():
         for core in CORES.values():
