@@ -107,7 +107,36 @@
 //     lost at 29,952 rows, 8 warps a block at 239,616; `PERF.md` §6).
 //     Tables over 227 KB (levels*taps beyond ~890) take the walk of a thread
 //     a row (`window_t_bwd_walk`);
-//   - [R, L] volumes (layout 2, B6): a thread per (row, level) forward;
+//   - [R, L] volumes (layout 2, B6, `window_rows_fwd`): a thread a (row,
+//     level) walked its own window one 4-byte load at a time, 192 bytes
+//     (GEV) to 1,248 (correlation) from its neighbours', and stored its taps
+//     36 bytes apart: 67.6 us at the eval GEV shape against a bound of 10.85
+//     (NVIDIA H100 80GB HBM3 at 700 W).  So a block of kRowsThreads threads
+//     owns a tile of consecutive rows (B6 bwd's rule: 64, halved to 8 while
+//     the tiles give fewer than 8 blocks an SM).  A thread a row forms the
+//     row's hull, the entries of the live cells of its windows at every
+//     level (none where all are dead), and groups of kRowsFwdLanes threads
+//     copy each hull by cp.async (16-byte groups where L % 4 == 0 and the
+//     volume is aligned, 4-byte entries where not; evict-first), every copy
+//     in flight at once, into the row's slot: rows_fwd_slot entries, the
+//     deepest window and its rounding, fixed by taps and levels.  The main
+//     path's windows nest (every level's base is x * 2^-lvl - c), so a hull
+//     fits; a row whose levels' windows lie apart reads its cells from device
+//     memory instead.  A thread a (level, row), level-major, forms each cell
+//     once from the slot and its taps into a tap stage, which the block
+//     stores as 16-byte vectors between a scalar head and tail.  24.0 / 11.4
+//     / 15.2 us at the eval GEV, corr and RAFT shapes, 60.9 / 14.9 at the
+//     spatial tile's (parent 67.6 / 15.3 / 22.7, 181.9 / 32.9), 19.0 us at
+//     the GEV shape after a read flush, where a PyTorch copy of as many whole
+//     sectors takes 22.3 and 18.1: the kernel moves its bytes at about a
+//     copy's rate (NVIDIA H100 80GB HBM3 at 700 W, `PERF.md` §6).  In a
+//     sweep a stage of whole rows lost at every shape (a tile's rows of 504
+//     entries fill 33 KB, so few blocks fit an SM), copies by a thread a row
+//     with its neighbours' 192 bytes away lost at the GEV shapes, copies over
+//     the tile's units in order lost at the correlations, and a persistent
+//     block pipelining one tile's copies under another's taps, more threads,
+//     other tiles and a 32-register cap won nothing.  Windows too wide for a
+//     block of 8 rows keep the old walk (`window_rows_fwd_walk`);
 //   - the [R, L] backward (B6, `window_rows_bwd`): a warp a row with lanes
 //     striding over L ran a dependent chain (bases, window starts, then each
 //     entry's slots formed anew for each level and up to two cotangent
@@ -116,7 +145,7 @@
 //     95.8 us at the eval GEV shape against a bound of 19.5
 //     (NVIDIA H100 80GB HBM3 at 700 W).  It is the arithmetic of the [L, R]
 //     backward on [R, L] operands, so it takes that kernel's table: a block
-//     of kRowsBwdThreads threads owns a tile of consecutive rows, copies the
+//     of kRowsThreads threads owns a tile of consecutive rows, copies the
 //     tile's cotangent (rows*levels*taps contiguous floats, 16 bytes a copy
 //     from its own offset within 16 bytes) and bases into shared memory by
 //     cp.async, every copy in flight at once, and a thread a (row, level)
@@ -169,12 +198,14 @@ constexpr int kBwdRows = 32;     // rows of a tile of the [L, R] backward: lane 
 constexpr int kBwdStride = kBwdRows + 1;  // its staged cotangent's row stride (odd)
 constexpr int kBwdWarps = 4;     // warps of its block
 constexpr int kBwdBlocksPerSM = 4;  // blocks its split of L over grid.y gives each SM at least
-constexpr int kRowsBwdThreads = 128;  // threads of a block of the [R, L] backward
-constexpr int kRowsBwdTile = 64;      // rows of its tile, at most
-constexpr int kRowsBwdMinTile = 8;    // and at least
-constexpr int kRowsBwdBlocksPerSM = 8;  // blocks its tiles give each SM, where rows allow
+constexpr int kRowsThreads = 128;     // threads of a block of the [R, L] forward and backward
+constexpr int kRowsTile = 64;         // rows of a tile of either, at most
+constexpr int kRowsMinTile = 8;       // and at least
+constexpr int kRowsBlocksPerSM = 8;   // blocks their tiles give each SM, where rows allow
+constexpr int kRowsFwdLanes = 8;      // threads that copy a row's hull together in the forward
 static_assert(kPmRows % 32 == 0, "a warp of the pixel-major forward is rows of one level");
-static_assert(kRowsBwdMinTile % 4 == 0, "a tile of the [R, L] backward keeps dvol's 16-byte grid");
+static_assert(kRowsMinTile % 4 == 0, "a tile of the [R, L] backward keeps dvol's 16-byte grid");
+static_assert(kRowsThreads % kRowsFwdLanes == 0, "the [R, L] forward copies a row with kRowsFwdLanes threads");
 static_assert(kBwdRows == 32, "a lane of the [L, R] backward is a row of its tile");
 
 // Shared memory of the [L, R] backward in 4-byte words: the tile's
@@ -213,6 +244,24 @@ __host__ __device__ constexpr int pm_shared_bytes(int chunk, int chans) {
 // 64-bit: a window too wide for it takes the walk.
 __host__ __device__ constexpr int64_t rows_bwd_words(int tile, int levels, int64_t taps) {
   return tile * levels * (2 * taps + 4) + 4;
+}
+
+// Entries of a row's slot in the stage of the [R, L] forward: the deepest
+// level's window of (taps + 1) << (levels - 1) entries, which holds the
+// others where they share a position (a base of x * 2^-lvl - c at every
+// level), and 6 more for its ends rounded out to 16-byte groups, a multiple
+// of 4.  A row whose hull is wider is read from device memory.  64-bit: a
+// slot too wide for a block takes the walk.
+__host__ __device__ constexpr int64_t rows_fwd_slot(int levels, int64_t taps) {
+  return (((taps + 1) << (levels - 1)) + 6 + 3) / 4 * 4;
+}
+
+// Shared memory of the [R, L] forward in 4-byte words for a tile of `tile`
+// rows: a slot a row, its taps (tile*levels*taps, and 4 words for their
+// offset within 16 bytes in `out`), its bases (tile*levels) and hulls
+// (2*tile).
+__host__ __device__ constexpr int64_t rows_fwd_words(int tile, int levels, int64_t taps) {
+  return tile * (rows_fwd_slot(levels, taps) + levels * taps + levels + 2) + 4;
 }
 
 // A loop index known at compile time, usable on the device.
@@ -599,10 +648,142 @@ window_t_bwd_walk(const float* __restrict__ bases_t, const float* __restrict__ g
 
 // ---- [R, L] volumes: layout 2 ----
 
-__global__ void __launch_bounds__(kThreads)
+// The taps of one (row, level) of the [R, L] forward into o[0 .. taps-1];
+// at(j) is entry j of the row.
+template <int LVL, typename At>
+__device__ __forceinline__ void row_level_taps(At&& at, float base, int length, int taps, float* o) {
+  constexpr int width = 1 << LVL;
+  const int n_lvl = length >> LVL;
+  int i0;
+  float f;
+  window_start(base, n_lvl, taps, i0, f);
+  const float omf = __fsub_rn(1.0f, f);
+  auto cell = [&](int c) {
+    if (c < 0 || c >= n_lvl) return 0.0f;
+    float s = at(c * width);
+#pragma unroll
+    for (int t = 1; t < width; ++t) s = __fadd_rn(s, at(c * width + t));
+    return __fmul_rn(s, 1.0f / (float)width);
+  };
+  float prev = cell(i0);
+  for (int k = 0; k < taps; ++k) {
+    const float cur = cell(i0 + k + 1);
+    o[k] = __fadd_rn(__fmul_rn(omf, prev), __fmul_rn(f, cur));
+    prev = cur;
+  }
+}
+
+// grid: tiles of `tile` rows, kRowsThreads threads; `slot` =
+// rows_fwd_slot(levels, taps); `vec`: L % 4 == 0 and vol on a 16-byte
+// boundary (16-byte copies).  A thread a row forms the row's hull from its
+// bases; groups of kRowsFwdLanes threads copy each hull that fits a slot
+// into it; a thread a (level, row) forms the taps, from the slot or, for a
+// row whose hull does not fit, from device memory, into the tap stage, which
+// the block writes to `out` as 16-byte vectors between a scalar head and
+// tail.
+template <int LEVELS>
+__global__ void __launch_bounds__(kRowsThreads)
 window_rows_fwd(const float* __restrict__ vol, const float* __restrict__ bases,
-                float* __restrict__ out, int64_t rows, int length, int taps,
-                int levels) {
+                float* __restrict__ out, int64_t rows, int length, int taps, int tile, int slot,
+                int vec) {
+  extern __shared__ __align__(16) float smem[];
+  const int chans = LEVELS * taps;
+  const int64_t r0 = (int64_t)blockIdx.x * tile;
+  const int nrows = rows - r0 < tile ? (int)(rows - r0) : tile;
+  // the taps keep their offset within 16 bytes in `out`, so that the
+  // 16-byte stores read 16-byte aligned vectors: tap i is ts[shift + i]
+  float* dst = out + r0 * chans;
+  const int shift = (int)((reinterpret_cast<uintptr_t>(dst) >> 2) & 3);
+  float* stage = smem;                                         // [tile][slot]
+  float* ts = stage + tile * slot;                             // [tile*chans + 4]
+  float* s_base = ts + tile * chans + 4;                       // [tile][LEVELS]
+  int* s_lo = reinterpret_cast<int*>(s_base + tile * LEVELS);  // [tile]
+  int* s_hi = s_lo + tile;                                     // [tile]
+  // each row's hull, the entries [lo, hi) of the live cells of its windows
+  // at every level, in copy units (16-byte groups where `vec`): empty where
+  // every window is dead, so that a far base reads nothing, and marked
+  // unstaged (hi = -1) where it does not fit a slot
+  for (int r = threadIdx.x; r < nrows; r += blockDim.x) {
+    const float* b = bases + (r0 + r) * LEVELS;
+    int lo = length, hi = 0;
+    static_for<LEVELS>([&](auto lvl) {
+      const float base = __ldg(b + lvl);
+      s_base[r * LEVELS + lvl] = base;
+      const int n_lvl = length >> lvl;
+      int i0;
+      float f;
+      window_start(base, n_lvl, taps, i0, f);
+      const int c0 = max(i0, 0), c1 = min(i0 + taps + 1, n_lvl);
+      if (c0 < c1) lo = min(lo, c0 << lvl), hi = max(hi, c1 << lvl);
+    });
+    if (vec) lo >>= 2, hi = (hi + 3) >> 2;
+    s_lo[r] = lo;
+    s_hi[r] = hi - lo > (vec ? slot >> 2 : slot) ? -1 : hi;
+  }
+  __syncthreads();
+  // one round trip: every copy of the tile in flight at once.  Groups of
+  // kRowsFwdLanes consecutive threads take a row's hull, consecutive
+  // threads on consecutive units, so that a warp's copies fall on the lines
+  // of a few rows and a row's copies are as many as its hull needs
+  {
+    const uint64_t policy = evict_first();
+    const int lane = threadIdx.x % kRowsFwdLanes;
+    for (int r = threadIdx.x / kRowsFwdLanes; r < nrows; r += blockDim.x / kRowsFwdLanes) {
+      const int lo = s_lo[r], hi = s_hi[r];
+      const float* src = vol + (r0 + r) * length;
+      float* st = stage + r * slot;
+      if (vec) {
+        for (int q = lo + lane; q < hi; q += kRowsFwdLanes)
+          copy_async16(st + 4 * (q - lo), src + 4 * q, policy);
+      } else {
+        for (int j = lo + lane; j < hi; j += kRowsFwdLanes) copy_async4(st + j - lo, src + j, policy);
+      }
+    }
+  }
+  copy_async_wait();
+  __syncthreads();
+  // a thread a (level, row), level-major so that the rows of a warp share
+  // their level (tiles of 32 rows and more) and its cell width is a
+  // constant: each cell once, its entries summed in ascending order and
+  // scaled; a dead cell is zero, not a load
+  for (int p = threadIdx.x; p < LEVELS * tile; p += blockDim.x) {
+    const int lvl = p / tile, r = p - lvl * tile;
+    if (r >= nrows) continue;
+    const int first = vec ? 4 * s_lo[r] : s_lo[r];  // the row's first staged entry
+    const float* st = stage + r * slot;
+    const float* row = vol + (r0 + r) * length;
+    const bool staged = s_hi[r] >= 0;
+    static_for<LEVELS>([&](auto l) {
+      if (lvl != l) return;
+      constexpr int L = decltype(l)::value;
+      float* o = ts + shift + r * chans + l * taps;
+      const float base = s_base[r * LEVELS + l];
+      if (staged)
+        row_level_taps<L>([&](int j) { return st[j - first]; }, base, length, taps, o);
+      else
+        row_level_taps<L>([&](int j) { return __ldg(row + j); }, base, length, taps, o);
+    });
+  }
+  __syncthreads();
+  // the tile's taps are contiguous in `out`: a scalar head up to a 16-byte
+  // boundary, 16-byte stores, a scalar tail
+  const int total = nrows * chans;
+  const int lead = min(total, (4 - shift) & 3);
+  const int nvec = (total - lead) / 4;
+  if ((int)threadIdx.x < lead) dst[threadIdx.x] = ts[shift + threadIdx.x];
+  const float4* sv = reinterpret_cast<const float4*>(ts + shift + lead);
+  float4* dv = reinterpret_cast<float4*>(dst + lead);
+  for (int v = threadIdx.x; v < nvec; v += blockDim.x) dv[v] = sv[v];
+  for (int e = lead + 4 * nvec + threadIdx.x; e < total; e += blockDim.x) dst[e] = ts[shift + e];
+}
+
+// Tiles that do not fit a block (windows wider than any model's: at one
+// level, taps beyond ~3,600): a thread a (row, level) walking its window in
+// device memory.
+__global__ void __launch_bounds__(kThreads)
+window_rows_fwd_walk(const float* __restrict__ vol, const float* __restrict__ bases,
+                     float* __restrict__ out, int64_t rows, int length, int taps,
+                     int levels) {
   const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= rows * levels) return;
   const int64_t r = t / levels;
@@ -611,12 +792,12 @@ window_rows_fwd(const float* __restrict__ vol, const float* __restrict__ bases,
              out + r * (int64_t)(levels * taps) + lvl * taps, 1);
 }
 
-// grid: tiles of `tile` rows (a multiple of 4), kRowsBwdThreads threads.
+// grid: tiles of `tile` rows (a multiple of 4), kRowsThreads threads.
 // Copies the tile's cotangent and bases into shared memory, forms each
 // (row, level)'s window start and slot coefficients once, then walks the
 // tile's dvol, tile*L contiguous entries, four entries a thread at a time.
 template <int LEVELS>
-__global__ void __launch_bounds__(kRowsBwdThreads)
+__global__ void __launch_bounds__(kRowsThreads)
 window_rows_bwd(const float* __restrict__ bases, const float* __restrict__ g,
                 float* __restrict__ dvol, int64_t rows, int length, int taps, int tile) {
   extern __shared__ __align__(16) float smem[];
@@ -764,14 +945,38 @@ window_rows_bwd_walk(const float* __restrict__ bases, const float* __restrict__ 
     drow[j] = entry_grad(j, length, taps, levels, i0, f, grow, 1);
 }
 
-// Rows of a tile of the [R, L] backward: kRowsBwdTile, halved (to
-// kRowsBwdMinTile at the least) while the tiles give the card's `sms` SMs
-// fewer than kRowsBwdBlocksPerSM blocks each.
-inline int rows_bwd_tile(int64_t rows, int sms) {
-  int tile = kRowsBwdTile;
-  while (tile > kRowsBwdMinTile && (rows + tile - 1) / tile < (int64_t)kRowsBwdBlocksPerSM * sms)
+// Rows of a tile of the [R, L] kernels: kRowsTile, halved (to
+// kRowsMinTile at the least) while the tiles give the card's `sms` SMs
+// fewer than kRowsBlocksPerSM blocks each.
+inline int rows_tile(int64_t rows, int sms) {
+  int tile = kRowsTile;
+  while (tile > kRowsMinTile && (rows + tile - 1) / tile < (int64_t)kRowsBlocksPerSM * sms)
     tile /= 2;
   return tile;
+}
+
+// The forward's: halved further while a block cannot hold it (windows
+// wider than any model's).
+inline int rows_fwd_tile(int64_t rows, int taps, int levels, int sms) {
+  int tile = rows_tile(rows, sms);
+  while (tile > kRowsMinTile && 4 * rows_fwd_words(tile, levels, taps) > kMaxShared) tile /= 2;
+  return tile;
+}
+
+template <int LEVELS>
+cudaError_t launch_rows_fwd(const float* vol, const float* bases, float* out, int64_t rows,
+                            int length, int taps, int tile, cudaStream_t s) {
+  auto kernel = window_rows_fwd<LEVELS>;
+  const int shared = (int)(4 * rows_fwd_words(tile, LEVELS, taps));
+  if (shared > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+    if (err != cudaSuccess) return err;
+  }
+  // 16-byte copies need every volume row (L floats) on a 16-byte boundary
+  const int vec = length % 4 == 0 && (reinterpret_cast<uintptr_t>(vol) & 15) == 0;
+  kernel<<<(unsigned)((rows + tile - 1) / tile), kRowsThreads, shared, s>>>(
+      vol, bases, out, rows, length, taps, tile, (int)rows_fwd_slot(LEVELS, taps), vec);
+  return cudaSuccess;
 }
 
 template <int LEVELS>
@@ -783,7 +988,7 @@ cudaError_t launch_rows_bwd(const float* bases, const float* g, float* dvol, int
     const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
     if (err != cudaSuccess) return err;
   }
-  kernel<<<(unsigned)((rows + tile - 1) / tile), kRowsBwdThreads, shared, s>>>(
+  kernel<<<(unsigned)((rows + tile - 1) / tile), kRowsThreads, shared, s>>>(
       bases, g, dvol, rows, length, taps, tile);
   return cudaSuccess;
 }
@@ -832,9 +1037,26 @@ extern "C" int anystereo_gather_pyramid_window(const void* vol, const void* base
   if (n == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
   if (layout == 2) {
-    const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
-    window_rows_fwd<<<blocks, kThreads, 0, s>>>((const float*)vol, (const float*)bases,
-                                                (float*)out, rows, length, taps, levels);
+    const float *v = (const float*)vol, *b = (const float*)bases;
+    float* o = (float*)out;
+    int device, sms;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return (int)err;
+    const int tile = rows_fwd_tile(rows, taps, levels, sms);
+    if (4 * rows_fwd_words(tile, levels, taps) > kMaxShared) {
+      const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
+      window_rows_fwd_walk<<<blocks, kThreads, 0, s>>>(v, b, o, rows, length, taps, levels);
+      return (int)cudaGetLastError();
+    }
+    switch (levels) {
+      case 1: err = launch_rows_fwd<1>(v, b, o, rows, length, taps, tile, s); break;
+      case 2: err = launch_rows_fwd<2>(v, b, o, rows, length, taps, tile, s); break;
+      case 3: err = launch_rows_fwd<3>(v, b, o, rows, length, taps, tile, s); break;
+      case 4: err = launch_rows_fwd<4>(v, b, o, rows, length, taps, tile, s); break;
+      default: err = launch_rows_fwd<5>(v, b, o, rows, length, taps, tile, s); break;
+    }
+    if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
   }
   // 16-byte copies need every volume row (R floats) on a 16-byte boundary
@@ -878,7 +1100,7 @@ extern "C" int anystereo_gather_pyramid_window_bwd(const void* bases, const void
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
   if (layout == 2) {
-    const int tile = rows_bwd_tile(rows, sms);
+    const int tile = rows_tile(rows, sms);
     if (4 * rows_bwd_words(tile, levels, taps) > kMaxShared || (int64_t)tile * length > INT_MAX) {
       const int rows_per_block = kThreads / 32;
       const unsigned blocks = (unsigned)((rows + rows_per_block - 1) / rows_per_block);

@@ -336,11 +336,14 @@ def _lookup_cost(torch, x, length, out_itemsize, levels):
     return nbytes, _lookup_flops(rows, levels)
 
 
-def _window_cost(torch, bases, length, transposed):
+def _window_cost(torch, bases, length, transposed, sectors=False):
     """The same for the window lookups, from the window starts `bases`
     [R, levels]: bases and the fp32 output once, and of the volume the
     entries inside some window; in the [L, R] layout whole 32-byte sectors
-    (8 neighbouring rows of one entry), the least the card can fetch."""
+    (8 neighbouring rows of one entry), the least the card can fetch.  In
+    the [R, L] layout 4 bytes an entry, or with `sectors` whole sectors
+    there too (8 neighbouring entries of the flattened volume, which starts
+    on a sector)."""
     rows, levels = bases.shape
     starts = torch.floor(bases).clamp(-(TAPS + 1), length).long()
     need = _window_need(torch, starts, length, levels)
@@ -348,6 +351,10 @@ def _window_cost(torch, bases, length, transposed):
         pad = (-rows) % 8
         need = torch.nn.functional.pad(need.to(torch.uint8), (0, 0, 0, pad))
         vol_bytes = 32 * int(need.reshape(-1, 8, length).any(dim=1).sum())
+    elif sectors:
+        flat = need.reshape(-1).to(torch.uint8)
+        flat = torch.nn.functional.pad(flat, (0, (-flat.numel()) % 8))
+        vol_bytes = 32 * int(flat.reshape(-1, 8).any(dim=1).sum())
     else:
         vol_bytes = 4 * int(need.sum())
     return vol_bytes + 4 * rows * levels + 4 * rows * levels * TAPS, _lookup_flops(rows, levels)
@@ -670,9 +677,23 @@ def _kernels_window(torch):
                 res["ms"] = _time_ms(torch, fn)
                 res["plain_ms"] = _time_ms(torch, plain, reps=5)
                 res["bound_ms"], res["bound_by"] = _bound(nbytes, flops)
+                sectors = ""
+                if not vol_t and not tag:  # B6's forward: its bound in whole sectors as well,
+                    # and a PyTorch copy that reads and writes as many bytes in all,
+                    # after either flush
+                    res["bytes_sectors"] = _window_cost(torch, bases_main, length, False, sectors=True)[0]
+                    res["bound_ms_sectors"] = _bound(res["bytes_sectors"], flops)[0]
+                    copy_in = torch.empty(res["bytes_sectors"] // 8, device=DEVICE)
+                    copy_out = torch.empty_like(copy_in)
+                    res["copy_ms"] = _time_ms(torch, lambda: copy_out.copy_(copy_in))
+                    res["copy_ms_clean"] = _time_ms(torch, lambda: copy_out.copy_(copy_in), read_flush=True)
+                    del copy_in, copy_out
+                    sectors = (f"; in whole sectors {res['bound_ms_sectors']:.4f} ms ({res['bytes_sectors']} B; "
+                               f"a copy of as many bytes {res['copy_ms']:.4f} ms, read flush "
+                               f"{res['copy_ms_clean']:.4f} ms)")
                 _log(f"[kernels] {name}{tag} {call} R={rows} L={length} levels={levels}: exact; "
                      f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, bound "
-                     f"{res['bound_ms']:.4f} ms ({nbytes} B)")
+                     f"{res['bound_ms']:.4f} ms ({nbytes} B){sectors}")
                 calls[name + tag].append(res)
         base_out, base_grad = results["gather_pyramid_window_pm"]
         for name, (o, d) in results.items():
@@ -704,7 +725,8 @@ def _kernels_window(torch):
                              lambda: tw.gather_pyramid_window_pm_bwd_ref(starts["path"], cot, length, TAPS),
                              calls["gather_pyramid_window_pm_bwd"][-1]["bytes"]))
         # B5's forward (B4's staged walk, each tap stored as it is formed)
-        # and B6's backward (tiles of rows, dvol contiguous), the same way
+        # and B6's forward and backward (tiles of rows, the hulls staged; dvol
+        # contiguous), the same way
         _kernel_beside(torch, calls["gather_pyramid_window_t"][-1], "gather_pyramid_window_t",
                        lambda: tw.gather_pyramid_window_t(vol_t, starts["main"], TAPS),
                        lambda: tw.gather_pyramid_window_t(vol_t, starts["check"], TAPS),
@@ -712,7 +734,17 @@ def _kernels_window(torch):
                        path=(lambda: tw.gather_pyramid_window_t(vol_t, starts["path"], TAPS),
                              lambda: tw.gather_pyramid_window_t_ref(vol_t, starts["path"], TAPS),
                              _window_cost(torch, bases_path, length, True)[0]))
-        rb1 = bases_main[:1].contiguous()
+        rb1, rv1 = bases_main[:1].contiguous(), vol[:1].contiguous()
+        b6 = calls["gather_pyramid_window"][-1]
+        _kernel_beside(torch, b6, "gather_pyramid_window",
+                       lambda: tw.gather_pyramid_window(vol, bases_main, TAPS),
+                       lambda: tw.gather_pyramid_window(vol, bases, TAPS),
+                       lambda: tw.gather_pyramid_window(rv1, rb1, TAPS),
+                       path=(lambda: tw.gather_pyramid_window(vol, bases_path, TAPS),
+                             lambda: tw.gather_pyramid_window_ref(vol, bases_path, TAPS),
+                             _window_cost(torch, bases_path, length, False)[0]))
+        b6["bytes_path_sectors"] = _window_cost(torch, bases_path, length, False, sectors=True)[0]
+        b6["bound_ms_path_sectors"] = _bound(b6["bytes_path_sectors"], b6["flops"])[0]
         _kernel_beside(torch, calls["gather_pyramid_window_bwd"][-1], "gather_pyramid_window_bwd",
                        lambda: tw.gather_pyramid_window_bwd(bases_main, cot, length, TAPS),
                        lambda: tw.gather_pyramid_window_bwd(bases, cot, length, TAPS),
@@ -731,12 +763,14 @@ def _kernels_window(torch):
             records.append(_record(
                 name + tag, src, f"anystereo_tpu/ops/pallas/lookup_kernel.py:{line}", calls[name + tag],
                 main=(order.index(main_call),), paths=paths if system else ("op",)))
+            if not vol_t and not tag:
+                records[-1]["bound_ms_sectors"] = calls[name][order.index(main_call)]["bound_ms_sectors"]
     return records
 
 
 def _kernel_beside(torch, res, what, fn, check, one, path=None):
-    """A redesigned kernel (B4's and B7's forward and backward, B8's, B5's
-    forward and B6's backward) beyond
+    """A redesigned kernel (B4's, B6's and B7's forward and backward, B8's,
+    B5's forward) beyond
     the common timing: `fn()` launches it at the timing's inputs, `check()`
     at the check's (far positions and collisions), `one()` on one row;
     `path`, where given, is (a launch at path-shaped inputs, its plain
@@ -2872,6 +2906,8 @@ def _beside_parent_line(records):
             "gather_pyramid_window_pm": ("B4", lambda c: c["call"], common + path + ("ms_clean",)),
             "gather_pyramid_window_pm_bwd": ("B4 bwd", lambda c: c["call"], common + path + ("ms_clean",)),
             "gather_pyramid_window_t": ("B5", lambda c: c["call"], common + path + ("ms_clean",)),
+            "gather_pyramid_window": ("B6", lambda c: c["call"], common + path + (
+                "ms_clean", "bound_ms_sectors", "bound_ms_path_sectors", "copy_ms", "copy_ms_clean")),
             "gather_pyramid_window_bwd": ("B6 bwd", lambda c: c["call"], common + path + ("ms_clean",)),
             "gather_window_linear": ("B7", lambda c: c["call"], common + path + (
                 "ms_clean", "library_ms", "library_err")),

@@ -685,6 +685,88 @@ def test_window_rows_backward_other_taps(card, taps, levels):
     _rows_backward(card, bases, cot, 130, taps)
 
 
+# (rows, length, levels): the [R, L] forward's tiles on a card of 132 SMs:
+# 64 rows from 67,521 rows on, 32 from 33,761, 16 from 16,881, 8 below; the
+# eval GEV and corr shapes, the RAFT one and the spatial tile's correlation
+# (rows of 504 entries); ragged tiles, L % 4 != 0 (4-byte copies), L 1, 2
+# and 5 at up to 5 levels, rows of 8,000 entries
+_RF_CASES = [(239616, 48, 2), (239616 + 3, 48, 2), (29952, 312, 2), (29952, 312, 4),
+             (67521, 48, 2), (67520, 48, 2), (96768, 504, 2), (16881, 80, 3), (6400, 80, 4),
+             (1001, 39, 3), (777, 45, 5), (33, 1, 1), (70, 2, 2), (70, 5, 5), (1, 313, 5),
+             (3001, 8000, 2)]
+
+
+def _rows_forward(card, vol, bases, taps, offset=0):
+    """The [R, L] forward on a volume placed `offset` floats past a 16-byte
+    boundary, held to its plain version bit for bit with one launch."""
+    flat = torch.empty(offset + vol.numel(), device=card)
+    v = flat[offset:].view(vol.shape).copy_(vol)
+    assert v.is_contiguous() and v.data_ptr() % 16 == 4 * offset
+    before = tw.gather_pyramid_window.launches
+    got, want = tw.gather_pyramid_window(v, bases, taps), tw.gather_pyramid_window_ref(v, bases, taps)
+    torch.cuda.synchronize()
+    assert tw.gather_pyramid_window.launches == before + 1
+    assert got.shape == (vol.shape[0], bases.shape[1] * taps) and torch.equal(got, want)
+    return got
+
+
+@pytest.mark.parametrize("rows,length,levels", _RF_CASES)
+@pytest.mark.parametrize("positions", ["random", "path", "apart"])
+def test_window_rows_forward_tiles(card, rows, length, levels, positions):
+    """The redesigned [R, L] forward (a block a tile of rows, each row's hull
+    staged once by cp.async into a slot of the row, the taps formed from
+    shared memory and stored as 16-byte vectors) equals its plain version
+    and the pixel-major kernel bit for bit at random and path-shaped bases
+    and with each level's window apart from the others (hulls wider than a
+    slot, read from device memory), far bases as zero rows, on an aligned
+    volume (16-byte copies where L % 4 == 0) and on one 4 bytes past a
+    16-byte boundary (4-byte copies)."""
+    g = torch.Generator(device=card).manual_seed(rows + length + levels)
+    vol = torch.randn(rows, length, device=card, generator=g)
+    if positions == "path":
+        x = _smooth_positions(card, rows, length, 8 if length == 48 else 1)
+    else:
+        x = torch.rand(rows, device=card, generator=g) * (length + 40) - 20
+    far = rows >= len(_FAR)
+    bases_t = _pm_bases(card, x, levels, far=far)
+    if positions == "apart":
+        for lvl in range(levels):
+            n = length >> lvl
+            bases_t[lvl, len(_FAR):] = torch.rand(max(rows - len(_FAR), 0), device=card,
+                                                  generator=g) * max(n - 15, 1) + 3
+    bases = bases_t.t().contiguous()
+    for offset in (0, 1):
+        got = _rows_forward(card, vol, bases, 9, offset)
+        if far:
+            assert not got[: len(_FAR)].any()
+    assert torch.equal(got, tw.gather_pyramid_window_pm(vol.t().contiguous(), bases_t, 9))
+
+
+@pytest.mark.parametrize("taps,levels", [(1, 2), (17, 4), (100, 5), (3000, 1)])
+def test_window_rows_forward_other_taps(card, taps, levels):
+    """Taps other than 9: the slots and the tap stage grow with the window
+    (past 48 KB the launch asks for more shared memory: 3,000 taps at one
+    level still fit a tile of 8 rows); bit for bit the plain version."""
+    g = torch.Generator(device=card).manual_seed(taps + levels)
+    vol = torch.randn(3001, 130, device=card, generator=g)
+    x = torch.rand(3001, device=card, generator=g) * 170 - 20
+    bases = _pm_bases(card, x, levels).t().contiguous()
+    _rows_forward(card, vol, bases, taps)
+
+
+@pytest.mark.parametrize("rows,length,levels,taps", [(501, 130, 1, 7300), (300, 130, 5, 400)])
+def test_window_rows_forward_walk(card, rows, length, levels, taps):
+    """A tile of 8 rows that does not fit a block (7,300 taps at one level,
+    400 at five) takes the walk of a thread a (row, level): bit for bit the
+    plain version, one launch."""
+    g = torch.Generator(device=card).manual_seed(length + taps)
+    vol = torch.randn(rows, length, device=card, generator=g)
+    x = torch.rand(rows, device=card, generator=g) * (length + 40) - 20
+    bases = _pm_bases(card, x, levels).t().contiguous()
+    got = _rows_forward(card, vol, bases, taps)
+    assert not got[:4].any()  # +-1e6, +-3e9
+
+
 # (rows, length): the eval GEV shapes (tiles of 32 rows a warp), the
 # training GEV's (16 rows), the eval and training correlation's (a thread a
 # tap), ragged last tiles and blocks, and the edges of the tile heights on a

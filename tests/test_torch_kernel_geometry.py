@@ -626,6 +626,159 @@ def test_window_rows_backward_tiles_match_plain(rows, length, levels, taps, posi
     assert not got[:4].any()
 
 
+# ------------------------------------------- the row-major window forward (B6)
+#
+# `csrc/lookup_window.cu:window_rows_fwd`: a block owns a tile of
+# consecutive rows (8 to 64).  A thread a row forms the row's hull, the
+# entries [lo, hi) of the live cells of its windows at every level (empty
+# where every window is dead), in copy units: 16-byte groups where L % 4 == 0
+# and the volume starts on a 16-byte boundary, entries where not.  A hull
+# that fits the row's slot of rows_fwd_slot(levels, taps) entries (the
+# deepest window and 6 more, a multiple of 4) is copied into it from its
+# first unit, ROWS_FWD_LANES consecutive threads a row; a wider one (the
+# levels' windows apart) is not copied, and that row's cells are read from
+# the volume.  A thread a (level, row) forms each cell of its window once (a
+# dead cell is zero and reads nothing) and its taps into a tap stage at their
+# offset within 16 bytes in `out`, which the block stores as a scalar head,
+# 16-byte vectors and a scalar tail.  The mirror stages into NaN-filled
+# slots and writes a NaN-filled output, counting copies and stores.
+
+ROWS_FWD_LANES = 8
+
+
+def _rows_fwd_slot(levels, taps):
+    return ((taps + 1 << levels - 1) + 6 + 3) // 4 * 4
+
+
+def _mirror_window_rows_fwd(vol, bases, taps, tile, vol_off=0, out_off=0):
+    """(out [R, levels*taps], copies [R, L], stores [R*levels*taps],
+    unstaged rows) of the kernel's tiles, hulls, slots, taps and store order
+    in numpy fp32, for a volume and an output that start `vol_off` and
+    `out_off` floats past a 16-byte boundary."""
+    rows, length = vol.shape
+    levels = bases.shape[1]
+    chans, slot = levels * taps, _rows_fwd_slot(levels, taps)
+    vec, unit = (True, 4) if length % 4 == 0 and vol_off == 0 else (False, 1)
+    out = np.full(rows * chans, np.nan, np.float32)
+    stores = np.zeros(rows * chans, np.int64)
+    copies = np.zeros((rows, length), np.int64)
+    unstaged = np.zeros(rows, bool)
+    one = np.float32(1)
+    for r0 in range(0, rows, tile):
+        nrows = min(tile, rows - r0)
+        stage = np.full((tile, slot), np.nan, np.float32)
+        starts = [_pm_starts(bases[r0:r0 + nrows, lvl], length >> lvl, taps) for lvl in range(levels)]
+        first = np.zeros(nrows, np.int64)
+        for row in range(nrows):
+            lo, hi = length, 0
+            for lvl, (i0, _) in enumerate(starts):
+                c0, c1 = max(i0[row], 0), min(i0[row] + taps + 1, length >> lvl)
+                if c0 < c1:
+                    lo, hi = min(lo, c0 << lvl), max(hi, c1 << lvl)
+            if vec:
+                lo, hi = lo >> 2, (hi + 3) >> 2
+            first[row] = unit * lo
+            if hi - lo > slot // unit:
+                unstaged[r0 + row] = True
+                continue
+            for lane in range(ROWS_FWD_LANES if lo < hi else 0):
+                u = np.arange(lo + lane, hi, ROWS_FWD_LANES)
+                assert (unit * u + unit <= length).all()  # inside the row
+                j = (unit * u[:, None] + np.arange(unit)).ravel()
+                stage[row, j - first[row]] = vol[r0 + row, j]
+                np.add.at(copies[r0 + row], j, 1)
+        # the taps, a (level, row) at a time in the kernel; here a level at a time
+        shift = (out_off + r0 * chans) % 4
+        ts = np.full(tile * chans + 4, np.nan, np.float32)
+        rr = np.arange(nrows)
+        staged = ~unstaged[r0:r0 + nrows]
+        for lvl, (i0, f) in enumerate(starts):
+            width, n_lvl = 2 ** lvl, length >> lvl
+
+            def at(rows_, j):
+                got = vol[r0 + rows_, j]  # the rows read from the volume
+                inside = staged[rows_]
+                got[inside] = stage[rows_[inside], j[inside] - first[rows_[inside]]]
+                return got
+
+            def cell(c):
+                live = (c >= 0) & (c < n_lvl)
+                e = c[live] * width
+                acc = at(rr[live], e)
+                for t in range(1, width):
+                    acc = acc + at(rr[live], e + t)
+                s = np.zeros(nrows, np.float32)
+                s[live] = acc * np.float32(1.0 / width)
+                return s
+
+            prev = cell(i0)
+            for k in range(taps):
+                cur = cell(i0 + k + 1)
+                ts[shift + rr * chans + lvl * taps + k] = (one - f) * prev + f * cur
+                prev = cur
+        total, dst = nrows * chans, r0 * chans
+        lead = min(total, (4 - shift) % 4)
+        nvec = (total - lead) // 4
+        if nvec:
+            assert (out_off + dst + lead) % 4 == 0 and (shift + lead) % 4 == 0  # 16-byte stores
+        for a, b in ((0, lead), (lead, lead + 4 * nvec), (lead + 4 * nvec, total)):
+            out[dst + a:dst + b] = ts[shift + a:shift + b]
+            stores[dst + a:dst + b] += 1
+    return out.reshape(rows, chans), copies, stores, unstaged
+
+
+@pytest.mark.parametrize("rows,length,levels,taps,positions", [
+    (75, 48, 2, 9, "path"), (77, 48, 2, 9, "random"),   # the eval GEV row
+    (37, 312, 2, 9, "random"), (41, 312, 4, 9, "path"),  # the correlations, ragged tiles
+    (70, 80, 1, 9, "random"), (70, 80, 3, 17, "random"), (45, 80, 5, 9, "random"),
+    (53, 45, 2, 9, "random"), (51, 45, 3, 17, "path"),  # L % 4 != 0: 4-byte copies
+    (40, 5, 3, 9, "random"), (40, 5, 5, 17, "random"),   # L shorter than a deepest cell
+    (29, 21, 5, 1, "random"), (33, 48, 3, 1, "path"),
+    (67, 312, 2, 9, "apart"), (39, 80, 4, 1, "apart"),   # hulls wider than a slot
+])
+@pytest.mark.parametrize("tile,vol_off,out_off", [(8, 0, 0), (16, 1, 3), (32, 3, 2), (64, 0, 1)])
+def test_window_rows_forward_staging_matches_plain(rows, length, levels, taps, positions, tile,
+                                                   vol_off, out_off):
+    """B6's forward, mirrored in numpy fp32 (each row's hull copied into a
+    NaN-filled slot by 16-byte groups or entry by entry, or read from the
+    volume where it does not fit, the taps from there, the tap stage stored
+    with a scalar head and tail), copies each staged entry once, stores
+    every output once and equals the plain version bit for bit, far bases
+    (+-1e6, +-3e9) as zero rows that read nothing; tiles of 8 to 64 rows (a
+    ragged last one), a volume off the 16-byte grid (4-byte copies), an
+    output at each offset, each level's window apart from the others."""
+    from anystereo_tpu_torch.ops.kernels.lookup_window import gather_pyramid_window_ref
+
+    rng = np.random.default_rng(rows * length + levels * taps + tile)
+    if positions == "apart":  # each level its own start
+        bases = np.stack([rng.uniform(-3, (length >> lvl) + 3, rows) for lvl in range(levels)], 1)
+        bases = bases.astype(np.float32)
+        bases[:4] = np.array([-1e6, 1e6, -3e9, 3e9], np.float32)[:, None]
+    else:
+        bases = np.ascontiguousarray(_window_bases(rng, rows, length, levels, taps, positions).T)
+    vol = rng.standard_normal((rows, length)).astype(np.float32)
+    want = gather_pyramid_window_ref(torch.from_numpy(vol), torch.from_numpy(bases), taps).numpy()
+    got, copies, stores, unstaged = _mirror_window_rows_fwd(vol, bases, taps, tile, vol_off, out_off)
+    assert (stores == 1).all() and (copies <= 1).all()
+    np.testing.assert_array_equal(got, want)
+    assert not got[:4].any() and not copies[:4].any()  # far bases: zeros, nothing read
+    # what is copied is the hull of the entries some window of the row needs
+    # (rounded out to 16-byte groups where the copies are whole groups), or
+    # nothing where that does not fit the slot
+    starts = np.floor(bases).clip(-(taps + 1), length).astype(np.int64)
+    j = np.arange(length)
+    lo, hi = np.full(rows, length), np.zeros(rows, np.int64)
+    for lvl in range(levels):
+        n = length >> lvl
+        a, b = starts[:, lvl].clip(0, n) << lvl, (starts[:, lvl] + taps + 1).clip(0, n) << lvl
+        lo, hi = np.where(a < b, np.minimum(lo, a), lo), np.where(a < b, np.maximum(hi, b), hi)
+    if length % 4 == 0 and vol_off == 0:
+        lo, hi = lo & -4, np.where(hi > lo, (hi + 3) & -4, hi)
+    hull = (j >= lo[:, None]) & (j < hi[:, None]) & ~unstaged[:, None]
+    np.testing.assert_array_equal(copies, hull)
+    assert unstaged.any() == (positions == "apart")  # the main path's windows nest
+
+
 # ------------------------------------------------ the rows linear forward (B8)
 #
 # `csrc/lookup_linear.cu:rows_linear_fwd`: a block owns a row and a range of
