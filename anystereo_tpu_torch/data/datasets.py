@@ -231,15 +231,59 @@ class StereoDataset:
         out.extra_info = v * self.extra_info
         return out
 
-    def __add__(self, other: "StereoDataset") -> "StereoDataset":
-        out = copy.copy(self)
-        out.image_list = self.image_list + other.image_list
-        out.disparity_list = self.disparity_list + other.disparity_list
-        out.extra_info = self.extra_info + other.extra_info
-        return out
+    def __add__(self, other) -> "ConcatStereoDataset":
+        return ConcatStereoDataset([self, other])
 
     def __len__(self) -> int:
         return len(self.image_list)
+
+
+class ConcatStereoDataset:
+    """Datasets one after the other, each sample made by the dataset it comes
+    from (its ground-truth reader, sparsity and augmentor), as the
+    reference's `a + b` (`torch.utils.data.ConcatDataset`) makes it.  The
+    JAX package's `StereoDataset.__add__` instead copies the first dataset
+    with the lists joined, so a mix reads every sample with the first
+    dataset's reader (SceneFlow's `read_gen` takes FallingThings' depth PNG
+    for its disparity)."""
+
+    def __init__(self, parts: Sequence):
+        self.parts = [q for p in parts for q in (p.parts if isinstance(p, ConcatStereoDataset) else [p])]
+        self.ends = np.cumsum([len(p) for p in self.parts])
+
+    def _locate(self, index: int):
+        index = int(index) % len(self)
+        k = int(np.searchsorted(self.ends, index, side="right"))
+        return self.parts[k], index - (int(self.ends[k - 1]) if k else 0)
+
+    @property
+    def image_list(self) -> List[List[str]]:
+        return [e for p in self.parts for e in p.image_list]
+
+    @property
+    def disparity_list(self) -> List[str]:
+        return [e for p in self.parts for e in p.disparity_list]
+
+    @property
+    def extra_info(self) -> List:
+        return [e for p in self.parts for e in p.extra_info]
+
+    def _load_raw(self, index: int):
+        part, i = self._locate(index)
+        return part._load_raw(i)
+
+    def __getitem__(self, index: int, rng: Optional[np.random.RandomState] = None):
+        part, i = self._locate(index)
+        return part.__getitem__(i, rng=rng)
+
+    def __add__(self, other) -> "ConcatStereoDataset":
+        return ConcatStereoDataset([self, other])
+
+    def __mul__(self, v: int) -> "ConcatStereoDataset":
+        return ConcatStereoDataset(self.parts * v)
+
+    def __len__(self) -> int:
+        return int(self.ends[-1]) if len(self.ends) else 0
 
 
 # ------------------------------------------------------------------ #

@@ -5,9 +5,12 @@ occlusion mask, FallingThings' depth turned into disparity by the camera's
 focal length, TartanAir's depth (.npy, disparity = 80 / depth), and
 Middlebury's PFM with its non-occluded mask.
 
-PNG and PPM are decoded by the port itself (`data/png.py`, `read_ppm`), with
-no OpenCV or PIL.  JPEG (FallingThings) is read through PIL where PIL is
-installed; without it `read_gen` raises an `ImportError` naming the file.
+Images are decoded by the port itself, with no OpenCV or PIL: PNG by
+`data/png.py` (its unfilter in the port's own C, `csrc/png_unfilter.c`; the
+numpy walk there is the plain version), JPEG (FallingThings) by
+`data/jpeg.py` (the port's own baseline decoder in C,
+`csrc/jpeg_decode.c`), both built at first use by the host C compiler into
+`build/kernels/`, and PPM by `read_ppm`.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from typing import Optional, Tuple, Union
 
 import numpy as np
 
+from anystereo_tpu_torch.data.jpeg import read_jpeg
 from anystereo_tpu_torch.data.png import read_png
 
 
@@ -104,14 +108,6 @@ def read_ppm(path: str) -> np.ndarray:
     return img[..., 0] if ch == 1 else img
 
 
-def _read_jpeg(path: str) -> np.ndarray:
-    try:
-        from PIL import Image
-    except ImportError as e:
-        raise ImportError(f"{path}: reading JPEG needs PIL, which is not installed") from e
-    return np.array(Image.open(path))
-
-
 def _imread(path: str) -> np.ndarray:
     ext = splitext(path)[1].lower()
     if ext == ".png":
@@ -119,7 +115,7 @@ def _imread(path: str) -> np.ndarray:
     if ext == ".ppm":
         return read_ppm(path)
     if ext in (".jpg", ".jpeg"):
-        return _read_jpeg(path)
+        return read_jpeg(path)
     raise ValueError(f"{path}: not an image format the readers know")
 
 

@@ -10,18 +10,24 @@ of 16-bit colour), and for a palette image the [H, W] indices, as PIL's
 mode "P" does.  Bit depths 1, 2 and 4 and interlaced files raise
 `NotImplementedError`.
 
-Unfiltering: a byte's predictor reads the byte one pixel to its left, the
-byte above and the byte above-left, so a row cannot be unfiltered along its
-length in one vector step, but every pixel on one anti-diagonal (row r,
-pixel t - r) depends only on the two anti-diagonals before it.  The image is
-laid out skewed, [t, r, byte], and walked one anti-diagonal at a time, all
-five filter types at once: H + W numpy steps over at most H pixels each.
-Files whose rows use only None, Sub and Up (as `write_png`'s do) are
-unfiltered a row at a time.
+Unfiltering runs in the port's own C, `csrc/png_unfilter.c`, built at
+first use by the host C compiler into `build/kernels/`
+(`ops/kernels/build.py`; no fallback: a missing compiler raises).  The
+inflate is the standard library's `zlib`.
+
+The plain version, `read_png(path, impl="numpy")`, unfilters in numpy: a
+byte's predictor reads the byte one pixel to its left, the byte above and
+the byte above-left, so a row cannot be unfiltered along its length in one
+vector step, but every pixel on one anti-diagonal (row r, pixel t - r)
+depends only on the two anti-diagonals before it.  The image is laid out
+skewed, [t, r, byte], and walked one anti-diagonal at a time, all five
+filter types at once: H + W numpy steps over at most H pixels each.  Files
+whose rows use only None, Sub and Up are unfiltered a row at a time.
 """
 
 from __future__ import annotations
 
+import ctypes
 import struct
 import zlib
 
@@ -85,9 +91,10 @@ def _unfilter_diagonals(kind: np.ndarray, filt: np.ndarray, bpp: int) -> np.ndar
     return skewed[r_idx + p_idx + 2, r_idx + 1].astype(np.uint8).reshape(filt.shape)
 
 
-def _unfilter(raw: np.ndarray, h: int, row_bytes: int, bpp: int) -> np.ndarray:
+def _unfilter_numpy(raw: np.ndarray, h: int, row_bytes: int, bpp: int) -> np.ndarray:
     """raw: the decompressed stream, h rows of (filter byte, row_bytes
-    bytes).  Returns the unfiltered [h, row_bytes] uint8."""
+    bytes).  Returns the unfiltered [h, row_bytes] uint8 (the plain version
+    of `_unfilter_c`)."""
     rows = raw.reshape(h, row_bytes + 1)
     kind, filt = rows[:, 0], rows[:, 1:]
     if kind.max(initial=0) > 4:
@@ -97,8 +104,36 @@ def _unfilter(raw: np.ndarray, h: int, row_bytes: int, bpp: int) -> np.ndarray:
     return _unfilter_diagonals(kind, filt, bpp)
 
 
-def read_png(path: str) -> np.ndarray:
-    """Decode the PNG at `path` (see the module docstring for the array)."""
+def _unfilter_lib() -> ctypes.CDLL:
+    from anystereo_tpu_torch.ops.kernels import build
+
+    lib = build.load_library("png_unfilter")
+    fn = lib.png_unfilter
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int64] * 3
+        fn.restype = ctypes.c_int64
+    return lib
+
+
+def _unfilter_c(raw: np.ndarray, h: int, row_bytes: int, bpp: int) -> np.ndarray:
+    if raw.dtype != np.uint8 or raw.size != h * (row_bytes + 1) or not raw.flags.c_contiguous or bpp < 1:
+        raise ValueError(f"PNG unfilter: {raw.dtype} stream of {raw.size} bytes for {h} rows of "
+                         f"{row_bytes} bytes, {bpp} a pixel")
+    out = np.empty((h, row_bytes), np.uint8)
+    bad = _unfilter_lib().png_unfilter(raw.ctypes.data, out.ctypes.data, h, row_bytes, bpp)
+    if bad >= 0:
+        raise ValueError(f"PNG filter type {int(raw[bad * (row_bytes + 1)])} is not one of 0-4")
+    return out
+
+
+_UNFILTER = {"c": _unfilter_c, "numpy": _unfilter_numpy}
+
+
+def read_png(path: str, impl: str = "c") -> np.ndarray:
+    """Decode the PNG at `path` (see the module docstring for the array).
+    `impl="numpy"` unfilters with the plain version instead of the C one."""
+    if impl not in _UNFILTER:
+        raise ValueError(f"read_png: impl {impl!r} is not one of {sorted(_UNFILTER)}")
     with open(path, "rb") as f:
         data = f.read()
     header, idat, palette = None, [], None
@@ -125,7 +160,7 @@ def read_png(path: str) -> np.ndarray:
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     if raw.size != h * (w * bpp + 1):
         raise ValueError(f"{path}: PNG image data of {raw.size} bytes, expected {h * (w * bpp + 1)}")
-    img = _unfilter(raw, h, w * bpp, bpp)
+    img = _UNFILTER[impl](raw, h, w * bpp, bpp)
     if depth == 16:
         img = img.view(">u2").astype(np.uint16)
     img = img.reshape(h, w, ch)

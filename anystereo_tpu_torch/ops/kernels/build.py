@@ -1,10 +1,15 @@
-"""Build and load the port's CUDA sources.
+"""Build and load the port's native sources.
 
 Each `anystereo_tpu_torch/csrc/<name>.cu` is compiled by `nvcc` for Hopper
 (`sm_90a`) into a shared library with a plain C interface, which is loaded
-with `ctypes`.  Libraries go to `build/kernels/` beside the package, keyed
-by a digest of the source, the shared headers (`csrc/*.cuh`) and the flags,
-so an edited source or header is rebuilt and an unchanged one is reused.  Nothing here runs at import time.
+with `ctypes`.  Each `csrc/<name>.c` is host C (the image readers' PNG
+unfilter and JPEG decoder), compiled by the host C compiler (`$CC`, else
+`cc`, else `gcc`) with `C_FLAGS`.  Libraries go to `build/kernels/` beside
+the package, keyed by a digest of the source, the shared headers
+(`csrc/*.cuh`, for CUDA sources), the compiler's path and the flags, so an
+edited source or header is rebuilt and an unchanged one is reused.  A
+library is loaded with `ctypes.CDLL`, so its calls release the GIL.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional
@@ -24,8 +30,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+C_FLAGS = ("-std=c11", "-O2", "-fPIC", "-shared")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()  # one build a source at a time in this process (the loader's threads)
 BUILD_LOGS: Dict[str, str] = {}
 
 
@@ -44,16 +52,44 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
+def _cc(source: Path) -> str:
+    """The host C compiler for `source`: `$CC` where it is set, else `cc`,
+    else `gcc`."""
+    names = [os.environ["CC"]] if os.environ.get("CC") else ["cc", "gcc"]
+    for name in names:
+        found = shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError(f"no host C compiler to build {source} (searched {', '.join(names)}; "
+                       "set CC to one)")
+
+
+def _is_c(name: str) -> bool:
+    return (CSRC / f"{name}.c").exists()
+
+
 def library_path(name: str) -> Path:
-    text = (CSRC / f"{name}.cu").read_bytes()
-    text += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    if _is_c(name):
+        text = (CSRC / f"{name}.c").read_bytes()
+        flags = " ".join((_cc(CSRC / f"{name}.c"),) + C_FLAGS)
+    else:
+        text = (CSRC / f"{name}.cu").read_bytes()
+        text += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+        flags = " ".join(NVCC_FLAGS)
+    digest = hashlib.sha256(text + flags.encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def _command(name: str, tmp: Path) -> List[str]:
+    if _is_c(name):
+        src = CSRC / f"{name}.c"
+        return [_cc(src), *C_FLAGS, "-o", str(tmp), str(src)]
+    return [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     """Compile the named sources (default: every `csrc/*.cu`) that are not
-    built yet, one `nvcc` process per source, all started together.
+    built yet, one compiler process per source, all started together.
     Returns the wall seconds each build took; raises on any failure."""
     if names is None:
         names = sorted(p.stem for p in CSRC.glob("*.cu"))
@@ -64,26 +100,32 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         out = library_path(name)
         if out.exists():
             continue
+        # a name of its own for each process, since several may build the
+        # same source at once; the rename below is atomic
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs.append((name, out, tmp, subprocess.Popen(
+        cmd = _command(name, tmp)
+        procs.append((name, out, tmp, cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     seconds = {}
-    for name, out, tmp, proc in procs:
+    for name, out, tmp, cmd, proc in procs:
         log, _ = proc.communicate()
         BUILD_LOGS[name] = log
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+            raise RuntimeError(f"{cmd[0]} failed for {cmd[-1]}:\n{log}")
         os.replace(tmp, out)
         seconds[name] = time.perf_counter() - t0
     return seconds
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """The loaded library for `csrc/<name>.cu`, built on first use."""
+    """The loaded library for `csrc/<name>.cu` or `csrc/<name>.c`, built on
+    first use."""
     lib = _LIBS.get(name)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        _LIBS[name] = lib
+        with _LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                build([name])
+                lib = ctypes.CDLL(str(library_path(name)))
+                _LIBS[name] = lib
     return lib

@@ -38,8 +38,9 @@
 
 Phases (any failure raises, and the exit code is not 0):
 
-1. build   every `anystereo_tpu_torch/csrc/*.cu` with nvcc for sm_90a, all
-           sources at once;
+1. build   every `anystereo_tpu_torch/csrc/*.cu` with nvcc for sm_90a and
+           the readers' host C sources (`csrc/*.c`: the PNG unfilter and
+           the JPEG decoder) with the host C compiler, all sources at once;
 2. kernels each kernel against its plain PyTorch version on the card, at the
            shapes the main paths give it, with its time (CUDA events, L2
            flushed before each launch), the plain version's time, the time
@@ -94,7 +95,15 @@ Phases (any failure raises, and the exit code is not 0):
 6. trainer training from dataset files: a SceneFlow tree (8 + 2 pairs of
            540x960 PNGs with left and right PFM disparities) and a KITTI
            2015 tree (2 frames of 375x1242, 16-bit disparity PNGs) written
-           by the port's writers; `fetch_dataset(["sceneflow"])` in
+           by the port's writers, and a FallingThings tree (3 frames, each
+           the committed 540x960 JPEG pair of `tests/data/jpeg/` and a
+           16-bit depth PNG); first the readers line: the C PNG unfilter
+           beside the plain numpy one on both PNG kinds, None- and
+           Paeth-filtered, the C JPEG decode of the committed 540x960 file,
+           every committed JPEG held to its recorded PIL digest, and the
+           host compiler's version; then `fetch_dataset(["sceneflow",
+           "falling_things"])` (FallingThings x 5, every image decoded by
+           the C readers inside the loader's threads) in
            multi-scale mode at `TrainConfig()` defaults, `PrefetchLoader`
            (batch 2, 4 workers, seed 1234), `train()` for 4 steps with a
            checkpoint and a 2-frame SceneFlow validation every 2 steps, a
@@ -104,10 +113,10 @@ Phases (any failure raises, and the exit code is not 0):
            and `run_validation` of the checkpoint on SceneFlow (within 1e-3
            px of the last in-training EPE) and KITTI 2015; exact launches
            per step (B1 32 + 32, gather 48, scatter 48) and per validation
-           frame (B1 64, B8 1 on SceneFlow); `read_png` times of both frame
-           kinds, unfiltered and Paeth-filtered; the loader's samples/s with
-           2 and with 4 samples in flight, and one sample alone; the trees
-           stay for the next three phases;
+           frame (B1 64, B8 1 on SceneFlow); the JPEGs and PNGs `train()`
+           decoded; the loader's samples/s with 2 and with 4 samples in
+           flight, and one SceneFlow and one FallingThings sample alone; the
+           trees stay for the next three phases;
 7. convert a seeded reference-format IGEV checkpoint at `ModelConfig()`
            widths (keys and shapes from `tests/data/reference_keys_igev.json`,
            `module.` prefix, `{"model": ...}` wrapper) through `python -m
@@ -223,14 +232,17 @@ def phase_build(parent=None):
         procs.append((name, out, subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, "-o", str(out), src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    seconds = build.build()
+    # the CUDA sources and the readers' host C sources, all started together
+    seconds = build.build(sorted(p.stem for p in build.CSRC.glob("*.cu")) +
+                          sorted(p.stem for p in build.CSRC.glob("*.c")))
     for name, out, proc in procs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for the parent's {name}.cu:\n{log}")
         PARENT[name] = ctypes.CDLL(str(out))
     for name, log in build.BUILD_LOGS.items():
-        _log(f"[build] {name}.cu ptxas:\n{log.strip()}")
+        if log.strip():
+            _log(f"[build] {name} compiler output:\n{log.strip()}")
     _log(f"[build] {sorted(seconds)} built in {time.perf_counter() - t0:.2f} s "
          f"(per source: {json.dumps({k: round(v, 2) for k, v in seconds.items()})})")
 
@@ -1545,6 +1557,10 @@ def phase_train(torch, kernels, core, flavor, steps=TRAIN_STEPS):
 
 SF_H, SF_W, SF_TRAIN, SF_TEST = 540, 960, 8, 2  # SceneFlow's frame size; pairs of the tree
 KITTI_FRAMES = 2
+FT_NAMES = ("kitchen_0/000000", "kitchen_0/000001", "temple_4/000000")  # FallingThings frames
+FT_FX = 768.1605  # FallingThings' left camera, _camera_settings.json
+JPEG_FIXTURES = os.path.join("tests", "data", "jpeg")  # committed JPEGs and PIL's digests of them
+READER_REPS = 5
 TRAINER_STEPS, TRAINER_RESUMED, TRAINER_CKPT_EVERY, TRAINER_VAL_FRAMES = 4, 6, 2, 2
 TRAINER_WORKERS = 4
 LOADER_BATCHES = 8  # batches the loader makes alone, timed
@@ -1574,9 +1590,9 @@ def _stereo_pair(np, rng, h, w, dmin, dmax):
 
 def _write_trees(np, root):
     """A SceneFlow tree (frames_finalpass and disparity, left and right views,
-    SF_TRAIN + SF_TEST pairs at 540x960) and a KITTI 2015 tree of
+    SF_TRAIN + SF_TEST pairs at 540x960), a KITTI 2015 tree of
     KITTI_FRAMES frames at 375x1242 with 16-bit disp_occ_0 / disp_noc_0,
-    written by the port's own writers."""
+    written by the port's own writers, and a FallingThings tree (`_write_ft`)."""
     from anystereo_tpu_torch.data.frame_utils import write_pfm
     from anystereo_tpu_torch.data.png import write_png
 
@@ -1602,34 +1618,126 @@ def _write_trees(np, root):
             d = os.path.join(kitti, "training", sub)
             os.makedirs(d, exist_ok=True)
             write_png(os.path.join(d, f"{i:06d}_10.png"), img)
-    return sf, kitti
+    return sf, kitti, _write_ft(np, root)
 
 
-def _read_png_ms(np, root, sf, kitti, card):
-    """A line of `read_png`'s times on a SceneFlow frame and a KITTI 16-bit
-    disparity, as the tree's writer filters them (None) and with every row
-    Paeth-filtered."""
+def _write_ft(np, root):
+    """A FallingThings tree: `filenames.txt`, each frame's left and right
+    views a copy of the committed 540x960 JPEG pair (`JPEG_FIXTURES`, made
+    by `_stereo_pair` at the seed in its `digests.json`), its 16-bit
+    `*.left.depth.png` the pair's disparity turned into FallingThings' depth
+    (fx * 600 / d, written by `write_png`), and `_camera_settings.json`
+    beside them."""
+    import shutil
+
+    from anystereo_tpu_torch.data.png import write_png
+
+    with open(os.path.join(JPEG_FIXTURES, "digests.json")) as f:
+        record = json.load(f)
+    pair, (h, w, _) = record["stereo"], record["files"]["stereo.left.jpg"]["shape"]
+    _, _, disp = _stereo_pair(np, np.random.RandomState(pair["seed"]), h, w, pair["dmin"], pair["dmax"])
+    depth = np.round(FT_FX * 6.0 * 100 / disp).astype(np.uint16)
+    ft = os.path.join(root, "falling_things")
+    for name in FT_NAMES:
+        d = os.path.join(ft, os.path.dirname(name))
+        os.makedirs(d, exist_ok=True)
+        for view in ("left", "right"):
+            shutil.copy(os.path.join(JPEG_FIXTURES, f"stereo.{view}.jpg"),
+                        os.path.join(ft, f"{name}.{view}.jpg"))
+        write_png(os.path.join(ft, f"{name}.left.depth.png"), depth)
+        with open(os.path.join(d, "_camera_settings.json"), "w") as f:
+            json.dump({"camera_settings": [{"intrinsic_settings": {"fx": FT_FX}}]}, f)
+    with open(os.path.join(ft, "filenames.txt"), "w") as f:
+        f.write("".join(f"{name}.left.jpg\n" for name in FT_NAMES))
+    return ft
+
+
+def _ms(fn, reps=READER_REPS):
+    """Best and median host ms of `fn()` over `reps` calls, after one call
+    (the first builds the C library); and the last result."""
+    out = fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    return times[0], times[len(times) // 2], out
+
+
+def _readers_line(np, root, sf, kitti, card):
+    """A line of the readers' times on the card's host, the C decode beside
+    the plain version (`read_png(..., impl="numpy")`) on the same files: a
+    SceneFlow frame and a KITTI 16-bit disparity as the tree's writer
+    filters them (None) and with every row Paeth-filtered, and the committed
+    540x960 JPEG (no plain version: its reference is PIL, whose digests of
+    every committed JPEG the C decodes must give); the host compiler's
+    version."""
+    import hashlib
+
+    from anystereo_tpu_torch.data.jpeg import read_jpeg
     from anystereo_tpu_torch.data.png import read_png, write_png
+    from anystereo_tpu_torch.ops.kernels import build
 
+    with open(os.path.join(JPEG_FIXTURES, "digests.json")) as f:
+        record = json.load(f)
+    for name, want in record["files"].items():
+        got = read_jpeg(os.path.join(JPEG_FIXTURES, name))
+        if list(got.shape) != want["shape"] or hashlib.sha256(got.tobytes()).hexdigest() != want["sha256"]:
+            raise AssertionError(f"the C decode of {name} is not PIL's (shape {list(got.shape)}, "
+                                 f"recorded {want['shape']})")
     frames = {f"{SF_H}x{SF_W} RGB": os.path.join(sf, "frames_finalpass", "TRAIN", "A", "0000", "left",
                                                   "0000.png"),
               f"{EVAL_H}x{EVAL_W} 16-bit": os.path.join(kitti, "training", "disp_occ_0", "000000_10.png")}
-    out = {}
+    parts = []
     for kind, path in frames.items():
-        img = read_png(path)
+        img = read_png(path, impl="numpy")
         paeth = os.path.join(root, "paeth.png")
         write_png(paeth, img, filter_type=4)
         for filt, p in (("None", path), ("Paeth", paeth)):
-            times = []
-            for _ in range(3):
-                t0 = time.perf_counter()
-                got = read_png(p)
-                times.append((time.perf_counter() - t0) * 1e3)
-            if not np.array_equal(got, img):
-                raise AssertionError(f"read_png of the {filt}-filtered {kind} file disagrees")
-            out[f"{kind}, {filt}"] = min(times)
-    return ("[trainer] read_png ms (best of 3, on the card's host): " +
-            ", ".join(f"{k} {v:.1f}" for k, v in out.items()) + f"; {card}")
+            c_best, c_med, got = _ms(lambda: read_png(p))
+            n_best, n_med, plain = _ms(lambda: read_png(p, impl="numpy"))
+            if not (np.array_equal(got, img) and np.array_equal(plain, img)):
+                raise AssertionError(f"read_png of the {filt}-filtered {kind} file: the C decode and "
+                                     f"the plain one disagree")
+            parts.append(f"{kind} {filt}: C {c_best:.2f} (median {c_med:.2f}), numpy {n_best:.2f} "
+                         f"(median {n_med:.2f})")
+    jpg = os.path.join(JPEG_FIXTURES, "stereo.left.jpg")
+    j_best, j_med, decoded = _ms(lambda: read_jpeg(jpg))
+    parts.append(f"{decoded.shape[0]}x{decoded.shape[1]} JPEG ({os.path.getsize(jpg)} bytes, PIL quality 75, "
+                 f"4:2:0): C {j_best:.2f} (median {j_med:.2f})")
+    cc = build._cc(build.CSRC / "jpeg_decode.c")
+    version = subprocess.run([cc, "--version"], capture_output=True, text=True,
+                             timeout=60).stdout.splitlines()[0]
+    return (f"[trainer] readers ms (best of {READER_REPS}, on the card's host): " + "; ".join(parts) +
+            f"; {len(record['files'])} committed JPEGs decode to PIL's digests; compiler {cc}: "
+            f"{version}; {card}")
+
+
+@contextlib.contextmanager
+def _counted_reads():
+    """Counts of the image decodes the readers make inside the block, by
+    format (the loader's threads included)."""
+    import threading
+
+    from anystereo_tpu_torch.data import frame_utils
+
+    counts = {"jpeg": 0, "png": 0}
+    own = {"jpeg": frame_utils.read_jpeg, "png": frame_utils.read_png}
+    lock = threading.Lock()
+
+    def counted(kind):
+        def read(path, *a, **kw):
+            with lock:
+                counts[kind] += 1
+            return own[kind](path, *a, **kw)
+        return read
+
+    frame_utils.read_jpeg, frame_utils.read_png = counted("jpeg"), counted("png")
+    try:
+        yield counts
+    finally:
+        frame_utils.read_jpeg, frame_utils.read_png = own["jpeg"], own["png"]
 
 
 def _igev_step_launches(kernels):
@@ -1684,19 +1792,21 @@ def phase_trainer(torch, kernels, card, root):
     per_frame = _sceneflow_frame_launches(kernels)
 
     t0 = time.perf_counter()
-    sf, kitti = _write_trees(np, root)
-    lines = [f"[trainer] wrote the SceneFlow tree ({SF_TRAIN} + {SF_TEST} pairs of {SF_H}x{SF_W}) "
-             f"and the KITTI 2015 tree ({KITTI_FRAMES} frames of {EVAL_H}x{EVAL_W}) in "
-             f"{time.perf_counter() - t0:.1f} s",
-             _read_png_ms(np, root, sf, kitti, card)]
+    sf, kitti, ft = _write_trees(np, root)
+    lines = [f"[trainer] wrote the SceneFlow tree ({SF_TRAIN} + {SF_TEST} pairs of {SF_H}x{SF_W}), "
+             f"the KITTI 2015 tree ({KITTI_FRAMES} frames of {EVAL_H}x{EVAL_W}) and the FallingThings "
+             f"tree ({len(FT_NAMES)} JPEG pairs of 540x960) in {time.perf_counter() - t0:.1f} s",
+             _readers_line(np, root, sf, kitti, card)]
     ckpt_dir = os.path.join(root, "ckpt")
     cfg = Config(train=TrainConfig(ckpt_dir=ckpt_dir, ckpt_every=TRAINER_CKPT_EVERY))
     tcfg = cfg.train
     aug = AugmentorConfig(crop_size=tcfg.inp_size, yjitter=cfg.data.yjitter)
-    ds = fetch_dataset(["sceneflow"], {"sceneflow": sf}, aug, multi_scale=tcfg.multi_scale,
-                       scale_min=tcfg.scale_min, scale_max=tcfg.scale_max, inp_size=tcfg.inp_size)
-    if len(ds) != SF_TRAIN:
-        raise AssertionError(f"fetch_dataset found {len(ds)} SceneFlow training pairs, not {SF_TRAIN}")
+    ds = fetch_dataset(["sceneflow", "falling_things"], {"sceneflow": sf, "falling_things": ft}, aug,
+                       multi_scale=tcfg.multi_scale, scale_min=tcfg.scale_min, scale_max=tcfg.scale_max,
+                       inp_size=tcfg.inp_size)
+    if len(ds) != SF_TRAIN + 5 * len(FT_NAMES):
+        raise AssertionError(f"fetch_dataset found {len(ds)} training samples, not {SF_TRAIN} SceneFlow "
+                             f"pairs and FallingThings' {len(FT_NAMES)} x 5")
     inner_validate = make_train_validate_fn(cfg.model, "sceneflow", sf,
                                             max_images=TRAINER_VAL_FRAMES)
     schedule = one_cycle_schedule(tcfg.lr, tcfg.num_steps, tcfg.warmup_frac)
@@ -1716,7 +1826,7 @@ def phase_trainer(torch, kernels, card, root):
     for k in kernels:
         k.launches = 0
     runs = []
-    with _recorded_steps(torch, kernels, per_step, log, "trainer"):
+    with _recorded_steps(torch, kernels, per_step, log, "trainer"), _counted_reads() as reads:
         for max_steps in (TRAINER_STEPS, TRAINER_RESUMED):
             log.update(first=None, wait=[])
             loader = PrefetchLoader(ds, tcfg.batch_size, num_workers=TRAINER_WORKERS, seed=tcfg.seed)
@@ -1748,6 +1858,9 @@ def phase_trainer(torch, kernels, card, root):
     if [s for s, _, _ in log["val"]] != list(range(TRAINER_CKPT_EVERY, TRAINER_RESUMED + 1,
                                                     TRAINER_CKPT_EVERY)):
         raise AssertionError(f"validations at steps {[s for s, _, _ in log['val']]}")
+    if not (reads["jpeg"] and reads["png"]):
+        raise AssertionError(f"train() decoded {reads} images: FallingThings' JPEGs and depth PNGs "
+                             f"are in its mix")
     state = runs[1]["state"]
     # the loader alone: LOADER_BATCHES batches, the start of its threads included
     t0 = time.perf_counter()
@@ -1763,6 +1876,10 @@ def phase_trainer(torch, kernels, card, root):
     for i in range(LOADER_SERIAL):
         ds.__getitem__(i, rng=np.random.RandomState(i))
     serial_ms = (time.perf_counter() - t0) * 1e3 / LOADER_SERIAL
+    t0 = time.perf_counter()
+    for i in range(SF_TRAIN, SF_TRAIN + LOADER_SERIAL):  # FallingThings samples
+        ds.__getitem__(i, rng=np.random.RandomState(i))
+    ft_serial_ms = (time.perf_counter() - t0) * 1e3 / LOADER_SERIAL
     wide_batches = LOADER_BATCHES * tcfg.batch_size // TRAINER_WORKERS
     t0 = time.perf_counter()
     it_ = iter(PrefetchLoader(ds, TRAINER_WORKERS, num_workers=TRAINER_WORKERS, seed=tcfg.seed + 2))
@@ -1839,7 +1956,9 @@ def phase_trainer(torch, kernels, card, root):
          f"({TRAINER_WORKERS} workers, {LOADER_BATCHES} batches of {tcfg.batch_size}, so {tcfg.batch_size} samples "
          f"in flight; thread start included), {wide_rate:.2f} with {TRAINER_WORKERS} in flight ({wide_batches} "
          f"batches of {TRAINER_WORKERS}), one sample alone on one thread {serial_ms:.1f} ms "
-         f"({1e3 / serial_ms:.2f} samples/s); {card}")
+         f"({1e3 / serial_ms:.2f} samples/s) for SceneFlow and {ft_serial_ms:.1f} ms for FallingThings; "
+         f"train() decoded {reads['jpeg']} JPEGs and {reads['png']} PNGs (the mix: {SF_TRAIN} "
+         f"SceneFlow pairs and {len(FT_NAMES)} FallingThings pairs x 5); {card}")
     lines.append(f"[trainer] checkpoint {mb:.1f} MB: save {save_ms:.1f} ms, restore {restore_ms:.1f} ms; "
          f"validation {sum(v[2] for v in log['val']) / len(log['val']) / TRAINER_VAL_FRAMES:.2f} ms/frame "
          f"in training, run_validation {sf_ms:.2f} ms/frame; EPE at steps "

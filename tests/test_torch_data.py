@@ -58,7 +58,8 @@ def _texture(rng, shape, dtype=np.uint8):
 
 @pytest.mark.parametrize("filter_type", range(5))
 @pytest.mark.parametrize("kind", ["gray8", "rgb8", "gray16", "rgb16"])
-def test_png_filter_types(tmp_path, filter_type, kind):
+@pytest.mark.parametrize("impl", ["c", "numpy"])
+def test_png_filter_types(tmp_path, filter_type, kind, impl):
     rng = np.random.RandomState(filter_type)
     shape = (23, 37) if kind.startswith("gray") else (23, 37, 3)
     arr = _texture(rng, shape, np.uint8 if kind.endswith("8") else np.uint16)
@@ -69,7 +70,7 @@ def test_png_filter_types(tmp_path, filter_type, kind):
     raw = zlib.decompress(data[data.index(b"IDAT") + 4:data.index(b"IEND") - 8])
     row = raw[:len(raw) // arr.shape[0]]
     assert row[0] == filter_type  # the file really carries the chosen filter
-    got = read_png(p)
+    got = read_png(p, impl=impl)
     assert got.dtype == arr.dtype and got.shape == arr.shape
     np.testing.assert_array_equal(got, arr)
     if kind == "rgb16":  # PIL keeps the high byte of 16-bit colour; OpenCV all of it
@@ -241,10 +242,14 @@ def test_pfm_and_flo_writers_round_trip(tmp_path):
     np.testing.assert_array_equal(jfu.read_flo(str(tmp_path / "a.flo")), uv)
 
 
-def test_jpeg_without_pil_names_the_file(reader_files, monkeypatch):
+def test_jpeg_without_pil(reader_files, monkeypatch):
+    """With PIL masked, the port still reads the JPEG to the array the JAX
+    reader (PIL) gives: its decoder is its own C."""
+    want = jfu.read_gen(reader_files["jpg"])
     monkeypatch.setitem(sys.modules, "PIL", None)
-    with pytest.raises(ImportError, match="img.jpg"):
-        tfu.read_gen(reader_files["jpg"])
+    got = tfu.read_gen(reader_files["jpg"])
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
 
 
 # ------------------------------------------------------- colour and resize
@@ -448,6 +453,32 @@ def test_fetch_dataset_names_match_jax(tree):
         assert got.image_list == want.image_list and got.disparity_list == want.disparity_list, name
     with pytest.raises(ValueError):
         tds.fetch_dataset(["nope"], roots, taug.AugmentorConfig())
+
+
+def test_fetch_dataset_mix_reads_each_sample_with_its_own_reader(tree):
+    """A mix of datasets makes each sample with the dataset it came from, as
+    the reference's `a + b` (`ConcatDataset`) does: FallingThings' samples
+    of ["sceneflow", "falling_things"] take their disparity from the depth
+    PNG through FallingThings' reader (fx * 600 / depth).  The JAX package's
+    mix reads them with SceneFlow's `read_gen`, which gives the raw depth;
+    the port does not copy that fault."""
+    roots = {"sceneflow": tree, "falling_things": os.path.join(tree, "falling")}
+    mix = tds.fetch_dataset(["sceneflow", "falling_things"], roots, taug.AugmentorConfig())
+    jmix = jds.fetch_dataset(["sceneflow", "falling_things"], roots, jaug.AugmentorConfig())
+    assert mix.image_list == jmix.image_list and mix.disparity_list == jmix.disparity_list
+    n_sf, ft = len(jds.SceneFlowDataset(tree)), jds.FallingThings(roots["falling_things"])
+    assert len(mix) == len(jmix) == n_sf + 5 * len(ft) and len(ft) > 0
+    for i, (want, j) in {0: (jds.SceneFlowDataset(tree), 0), n_sf: (ft, 0),
+                         len(mix) - 1: (ft, len(ft) - 1)}.items():
+        for g, w in zip(mix._load_raw(i), want._load_raw(j)):
+            np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+    assert not np.array_equal(jmix._load_raw(n_sf)[2], ft._load_raw(0)[2])  # the JAX mix's fault
+    own = tds.FallingThings(roots["falling_things"], taug.AugmentorConfig())
+    got = mix.__getitem__(n_sf, rng=np.random.RandomState(3))
+    want = own.__getitem__(0, rng=np.random.RandomState(3))
+    assert got.keys() == want.keys()
+    for k in got:
+        np.testing.assert_array_equal(got[k], want[k])
 
 
 SAMPLE_MODES = {
