@@ -41,3 +41,19 @@ def process_topology() -> Tuple[int, int]:
     if torch.distributed.is_available() and torch.distributed.is_initialized():
         return torch.distributed.get_rank(), torch.distributed.get_world_size()
     return 0, 1
+
+
+def describe_device(device: Union[str, torch.device]) -> str:
+    """The card's name and power limit as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` prints them for a
+    CUDA device (e.g. "NVIDIA H100 80GB HBM3, 700.00 W"), else the device's
+    type ("cpu"): what a measurement is written beside."""
+    import subprocess
+
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return dev.type
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+                          "-i", str(index)], capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]

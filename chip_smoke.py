@@ -148,7 +148,22 @@ Phases (any failure raises, and the exit code is not 0):
            0.2 px, a bound that a planted fault, the rows computed in reverse
            order, must exceed) and an fp32 check at 384x1248 (4 iterations)
            within 1e-3 px;
-11. check  fp32 (TF32 off, cuDNN deterministic), 4 iterations: the IGEV and
+11. tools  the port's tools as a user runs them (`anystereo_tpu_torch/tools/`,
+           each `main` in this process): `make_synthetic_datasets` writes
+           the SceneFlow, KITTI, Middlebury and ETH3D trees at seed 0 (nine
+           protocols resolve); `check_datasets --smoke` on them (an eval
+           smoke, a 20-step CLI train smoke in a subprocess); `e2e_demo` at
+           the JAX gate's recipe (150 steps at lr 2e-4, `supervise_init`)
+           must print E2E PASS, a held-out EPE under 2.1 px, with its ms a
+           step; `overfit_sanity` (400 steps on one batch) must print
+           LEARNED; `reproduce_baseline` rehearses the 100k-step recipe for
+           20 steps and writes a row for each of the nine protocols naming
+           the card; `scaling_bench --devices 1`; exact launches stage by
+           stage (per step B1 2 + 2, gather 3, scatter 3 an iteration; B1 2
+           an iteration a frame); its line also goes to
+           `chiprun_out/tools.txt` and each tool's output to
+           `chiprun_out/tools_<name>.txt`;
+12. check  fp32 (TF32 off, cuDNN deterministic), 4 iterations: the IGEV and
            RAFT eval forwards through the kernels against the same with every
            lookup forced to its plain version, under each flavor, and the
            flavors against "aligned"; the occlusion mask through the kernel
@@ -206,10 +221,10 @@ def _log(*a):
 
 
 def _card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
+    """The card's name and power limit as nvidia-smi prints them."""
+    from anystereo_tpu_torch.utils.device import describe_device
+
+    return describe_device("cuda:0")
 
 
 # ----------------------------------------------------------------- phase 1
@@ -535,7 +550,7 @@ def _kernels_lookup_fwd(torch):
     return _record("gather_pyramid_aligned", "anystereo_tpu_torch/csrc/lookup_aligned.cu",
                    "anystereo_tpu/ops/pallas/lookup_kernel.py:1103", calls, main=(0, 1),
                    paths=("eval_igev", "train_igev", "eval_raft", "trainer", "convert", "cli", "ddp",
-                          "spatial"))
+                          "spatial", "tools"))
 
 
 def _bound(nbytes, flops):
@@ -625,7 +640,7 @@ def _kernels_lookup_bwd(torch):
         calls.append(res)
     return _record("gather_pyramid_aligned_bwd", "anystereo_tpu_torch/csrc/lookup_aligned.cu",
                    "anystereo_tpu/ops/pallas/lookup_kernel.py:965", calls, main=(0, 1),
-                   paths=("train_igev", "trainer", "cli", "ddp"))
+                   paths=("train_igev", "trainer", "cli", "ddp", "tools"))
 
 
 def _kernels_window(torch):
@@ -978,7 +993,7 @@ def _kernels_gather(torch):
     src = "anystereo_tpu_torch/csrc/gather_rows.cu"
     # per decode all three tables go through the gather forward and the
     # scatter backward
-    paths = ("train_igev", "train_raft", "trainer", "cli", "ddp")
+    paths = ("train_igev", "train_raft", "trainer", "cli", "ddp", "tools")
     return [
         _record("gather_rows", src, "anystereo_tpu/ops/pallas/gather_kernel.py:319", fwd,
                 main=(0, 1, 2), paths=paths + ("spatial",), library=True),
@@ -2636,6 +2651,150 @@ def phase_spatial(torch, kernels, card, root):
 
 # ----------------------------------------------------------------- phase 11
 
+# the JAX gate's recipe for the end-to-end demo (tests/test_train_gate.py)
+TOOLS_E2E = ("--steps", "150", "--lr", "2e-4", "--epe-target", "2.1")
+TOOLS_E2E_ITERS, TOOLS_E2E_VAL_FRAMES, TOOLS_E2E_VAL_ITERS = 4, 4, 8
+TOOLS_OVERFIT_STEPS = 400
+TOOLS_SMOKE_FRAMES, TOOLS_SMOKE_ITERS = 4, 4  # check_datasets' eval smoke: the SceneFlow TEST pairs
+TOOLS_REHEARSAL_STEPS, TOOLS_REHEARSAL_FRAMES = 20, 2
+TOOLS_REHEARSAL_VAL_ITERS = 32  # reproduce_baseline's --valid-iters
+
+
+def _tool_main(name, argv):
+    """`anystereo_tpu_torch.tools.<name>.main(argv)` in this process, its
+    standard output captured, echoed and kept in OUT_DIR/tools_<name>.txt;
+    (rc, output, seconds)."""
+    import importlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = importlib.import_module(f"anystereo_tpu_torch.tools.{name}").main(list(argv))
+    seconds = time.perf_counter() - t0
+    text = buf.getvalue()
+    _log(text.rstrip())
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, f"tools_{name}.txt"), "w") as f:
+        f.write(text)
+    return rc, text, seconds
+
+
+def _tools_launches(kernels, steps, iters, frames, frame_iters):
+    """The launches of `steps` IGEV training steps at `iters` iterations
+    ("aligned": B1 2 + 2, gather 3, scatter 3 an iteration) and `frames`
+    dense validation frames at `frame_iters` (B1 2 an iteration), nothing
+    else."""
+    return {**dict.fromkeys((k.__name__ for k in kernels), 0),
+            "gather_pyramid_aligned": 2 * iters * steps + 2 * frame_iters * frames,
+            "gather_pyramid_aligned_bwd": 2 * iters * steps, "gather_rows": 3 * iters * steps,
+            "scatter_rows_add": 3 * iters * steps}
+
+
+def phase_tools(torch, kernels, card, root):
+    """The port's tools as a user runs them (`python -m
+    anystereo_tpu_torch.tools.<name>`, here each `main` in this process):
+    `make_synthetic_datasets` writes every tree at seed 0 (its nine
+    protocols must resolve); `check_datasets --smoke` on it must exit 0 (its
+    20-step train smoke is a CLI subprocess); `e2e_demo` at the JAX gate's
+    recipe (150 steps at lr 2e-4) must print E2E PASS (held-out EPE under
+    2.1 px); `overfit_sanity` at its 400 steps must print LEARNED;
+    `reproduce_baseline` rehearses the 100k-step recipe for 20 steps and
+    must write a row for each of the nine protocols (2 frames each) naming
+    the card; `scaling_bench --devices 1` prints its line (its rank is a
+    process of its own).  Launches in this process exact, stage by stage
+    (B8 none: the SceneFlow tree holds the left view's PFMs only, so the
+    left-right occlusion provider has nothing to warp)."""
+    import re
+
+    from anystereo_tpu_torch.config import TrainConfig
+    from anystereo_tpu_torch.tools.make_synthetic_datasets import PROTOCOLS
+
+    t_phase = time.perf_counter()
+    tree, lines, seconds = os.path.join(root, "tools_tree"), [], {}
+    launches = dict.fromkeys((k.__name__ for k in kernels), 0)
+
+    def stage(name, argv, want=None, per_step=None):
+        """Run one tool; hold its launches to `want` (and each training
+        step's to `per_step`); its output and the ms of its steps."""
+        before = _counts(kernels)
+        log = {"steps": []}
+        with _recorded_steps(torch, kernels, per_step, log, name) if per_step else contextlib.nullcontext():
+            rc, text, seconds[name] = _tool_main(name, argv)
+        if rc != 0:
+            raise AssertionError(f"{name} {' '.join(argv)} exited {rc}: {text[-3000:]}")
+        if want is not None:
+            _expect_launches(kernels, before, want, name)
+            for k, v in want.items():
+                launches[k] += v
+        return text, [ms for _, ms, _ in log["steps"]]
+
+    def mean(ms):
+        return f"first {ms[0]:.2f}, then mean {sum(ms[1:]) / len(ms[1:]):.2f}"
+
+    text, _ = stage("make_synthetic_datasets", ["--out", tree, "--seed", "0", "--device", DEVICE])
+    counts = {k: int(v) for k, v in re.findall(r"^(\w+) +(\d+) images$", text, re.M)}
+    if sorted(counts) != sorted(PROTOCOLS) or min(counts.values()) < 1:
+        raise AssertionError(f"make_synthetic_datasets resolved {counts}")
+    lines.append(f"trees {counts} in {seconds['make_synthetic_datasets']:.1f} s")
+
+    text, _ = stage("check_datasets", ["--data-root", tree, "--smoke", "--device", DEVICE],
+                    _tools_launches(kernels, 0, 0, TOOLS_SMOKE_FRAMES, TOOLS_SMOKE_ITERS))
+    if "eval smoke OK" not in text or "train smoke rc=0" not in text or text.count("[ok     ]") != 10:
+        raise AssertionError(f"check_datasets --smoke: {text[-3000:]}")
+    lines.append(f"check_datasets --smoke exit 0 (eval smoke {TOOLS_SMOKE_FRAMES} frames, CLI train smoke 20 "
+                 f"steps) in {seconds['check_datasets']:.1f} s")
+
+    steps = int(TOOLS_E2E[1])
+    text, ms = stage("e2e_demo", ["--out", os.path.join(root, "tools_e2e"), *TOOLS_E2E, "--device", DEVICE],
+                     _tools_launches(kernels, steps, TOOLS_E2E_ITERS, TOOLS_E2E_VAL_FRAMES, TOOLS_E2E_VAL_ITERS),
+                     _tools_launches(kernels, 1, TOOLS_E2E_ITERS, 0, 0))
+    found = re.search(r"^E2E (PASS|WEAK) epe=(\S+)$", text, re.M)
+    if not found or found.group(1) != "PASS" or len(ms) != steps:
+        raise AssertionError(f"e2e_demo {' '.join(TOOLS_E2E)}: {text[-3000:]}")
+    lines.append(f"e2e_demo {' '.join(TOOLS_E2E)}: E2E PASS, held-out EPE {found.group(2)} px; ms a step "
+                 f"(synchronised) {mean(ms)}, min {min(ms[1:]):.2f}, max {max(ms[1:]):.2f}; "
+                 f"{seconds['e2e_demo']:.1f} s")
+
+    text, _ = stage("overfit_sanity", ["--steps", str(TOOLS_OVERFIT_STEPS), "--device", DEVICE],
+                    _tools_launches(kernels, TOOLS_OVERFIT_STEPS, TOOLS_E2E_ITERS, 0, 0))
+    found = re.search(r"^(LEARNED|NOT_LEARNED) final epe (\S+)$", text, re.M)
+    first = re.search(r"^step +0 +loss +\S+ +epe +(\S+)", text, re.M)
+    if not found or found.group(1) != "LEARNED" or not first:
+        raise AssertionError(f"overfit_sanity: {text[-3000:]}")
+    per_step = seconds["overfit_sanity"] / TOOLS_OVERFIT_STEPS * 1e3
+    lines.append(f"overfit_sanity {TOOLS_OVERFIT_STEPS} steps: LEARNED, EPE {first.group(1)} -> {found.group(2)} "
+                 f"px; {seconds['overfit_sanity']:.1f} s ({per_step:.2f} ms a step, the loss read each step)")
+
+    table = os.path.join(root, "tools_baseline.md")
+    it = TrainConfig().train_iters
+    text, ms = stage("reproduce_baseline",
+                     ["--data-root", tree, "--ckpt", os.path.join(root, "tools_ckpt"), "--num-steps",
+                      str(TOOLS_REHEARSAL_STEPS), "--max-images", str(TOOLS_REHEARSAL_FRAMES), "--out", table,
+                      "--device", DEVICE],
+                     _tools_launches(kernels, TOOLS_REHEARSAL_STEPS, it, len(PROTOCOLS) * TOOLS_REHEARSAL_FRAMES,
+                                     TOOLS_REHEARSAL_VAL_ITERS),
+                     _tools_launches(kernels, 1, it, 0, 0))
+    with open(table) as f:
+        rows = [r for r in f.read().splitlines() if r.startswith("| ") and "epe=" in r]
+    hardware = {r.split(" | ")[2] for r in rows}
+    if len(rows) != len(PROTOCOLS) or hardware != {card} or len(ms) != TOOLS_REHEARSAL_STEPS:
+        raise AssertionError(f"reproduce_baseline wrote {len(rows)} rows, Hardware {hardware}: {text[-3000:]}")
+    lines.append(f"reproduce_baseline rehearsal: {TOOLS_REHEARSAL_STEPS} steps of the recipe (ms a step "
+                 f"{mean(ms)}), {len(rows)} rows naming the card; {seconds['reproduce_baseline']:.1f} s")
+
+    text, _ = stage("scaling_bench", ["--devices", "1", "--device", DEVICE])
+    found = re.search(r"^devices 1: .*efficiency +100\.0%$", text, re.M)
+    if not found:
+        raise AssertionError(f"scaling_bench --devices 1: {text[-3000:]}")
+    lines.append(f"scaling_bench: {found.group(0).strip()}; {seconds['scaling_bench']:.1f} s")
+
+    _keep("tools", f"[tools] {time.perf_counter() - t_phase:.1f} s in all: " + "; ".join(lines) + f"; {card}")
+    return launches
+
+
+# ----------------------------------------------------------------- phase 12
+
 
 @contextlib.contextmanager
 def _all_plain(lookups_only=False):
@@ -3187,6 +3346,8 @@ def main(argv) -> int:
         by_path["ddp"] = phase_ddp(torch, kernels, card, root)
         torch.cuda.empty_cache()
         by_path["spatial"] = phase_spatial(torch, kernels, card, root)
+        torch.cuda.empty_cache()
+        by_path["tools"] = phase_tools(torch, kernels, card, root)
     torch.cuda.empty_cache()
     phase_check(torch, kernels)
     if "--spread" in argv:

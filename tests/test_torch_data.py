@@ -576,6 +576,9 @@ def test_the_port_imports_no_jax_opencv_or_pil():
     names = [m.name for m in pkgutil.walk_packages(anystereo_tpu_torch.__path__, "anystereo_tpu_torch.")]
     assert {"anystereo_tpu_torch.data.png", "anystereo_tpu_torch.train.trainer",
             "anystereo_tpu_torch.eval.reporting"} <= set(names)
+    assert {f"anystereo_tpu_torch.tools.{t}" for t in (
+        "make_synthetic_datasets", "e2e_demo", "overfit_sanity", "check_datasets", "reproduce_baseline",
+        "scaling_bench")} <= set(names)
     code = ("import importlib, sys\n"
             f"for n in {names!r}: importlib.import_module(n)\n"
             "bad = [m for m in ('jax', 'flax', 'optax', 'cv2', 'PIL', 'anystereo_tpu') if m in sys.modules]\n"
