@@ -7,8 +7,9 @@
   python -m anystereo_tpu_torch.cli evaluate --dataset kitti15 --data-root /datasets/kitti \
       --ckpt ckpts/
   python -m anystereo_tpu_torch.cli train ... --device cpu   # the CPU, by name
+  python -m anystereo_tpu_torch.cli bench                    # one JSON line (`bench.py`)
 
-Both run on the CUDA card unless `--device` names another; without a card
+All three run on the CUDA card unless `--device` names another; without a card
 they raise.  `train --multihost` initialises the process group from the
 cluster environment (`parallel/mesh.py`: the JAX package's
 `COORDINATOR_ADDRESS` / `NUM_PROCESSES` / `PROCESS_ID`, or torchrun's) and
@@ -16,8 +17,7 @@ trains data-parallel over every rank, one card a rank:
 
   torchrun --nproc-per-node 2 -m anystereo_tpu_torch.cli train --multihost ...
 
-`--loader grain` and `bench` are refused: the grain loader and the GPU
-bench script are not ported.
+`--loader grain` is refused: the grain loader is not ported.
 
 Like the JAX CLI, `train` and `evaluate` build the GroupNorm model
 (`_model_cfg`), never `config.reference_regime_config`'s frozen BatchNorm:
@@ -34,8 +34,6 @@ import sys
 
 GRAIN_REFUSAL = ("--loader grain: the grain input pipeline (data/grain_loader.py of the JAX package) "
                  "is not ported; use --loader prefetch")
-BENCH_REFUSAL = ("bench: the GPU bench script is not written yet (it waits on the first benchmark "
-                 "change); chip_smoke.py times the eval forward meanwhile")
 
 
 def _model_cfg(args):
@@ -234,8 +232,9 @@ def cmd_evaluate(argv) -> int:
 
 
 def cmd_bench(argv) -> int:
-    print(BENCH_REFUSAL, file=sys.stderr)
-    return 2
+    from anystereo_tpu_torch import bench
+
+    return bench.main(argv)
 
 
 COMMANDS = {"train": cmd_train, "evaluate": cmd_evaluate, "bench": cmd_bench}

@@ -80,19 +80,30 @@ Phases (any failure raises, and the exit code is not 0):
            (`raft_config()`) under the "aligned" lookup flavor and under
            "classify", and both models under "levels" (path `eval_levels`);
            every kernel's launch count is read over exactly these requests;
-4. validate `validate_dataset` on a seeded in-memory dataset of three
+4. bench   the bench entry point as a user runs it, `cli.main(["bench"])`
+           (`anystereo_tpu_torch/bench.py`: the same forward, batch 1,
+           384x1248, 32 iterations, bf16, images from RandomState(0)), in
+           this process with its output captured: exit 0 (its chained
+           output within its band of the direct one), one JSON line with
+           every key, pairs/s and both latencies finite and positive, the
+           card named; B1 64 a forward, exactly, over the 25 forwards it
+           makes, no other kernel; then `utils/profiling.flops_estimate` of
+           one forward, and `latency_ms` and `latency_ms_e2e` beside the
+           model phase's ms a pair, the achieved TFLOP/s and its share of
+           the card's bf16 peak;
+5. validate `validate_dataset` on a seeded in-memory dataset of three
            375x1242 frames with left and right ground truth (IGEV model, 32
            iterations, bf16, padded to 384x1248 by the evaluator, the
            left-right occlusion split), then `Validator.infer` with
            `fixed_upscale=2` on a 188x624 pair and with `scale_test=2.0` on a
            375x1242 pair; ms per frame and the host's share of it;
-5. train   the training step at full width (`TrainConfig()`: batch 2,
+6. train   the training step at full width (`TrainConfig()`: batch 2,
            160x320, 51,200 queries a sample, 16 iterations with a query decode
            each, bf16, sequence loss, clip, AdamW) on a seeded synthetic
            batch, one warm-up and three timed steps with the exact launch
            counts of each: the IGEV model ("aligned") and the RAFT model
            ("classify"); one timed step of the IGEV model under "levels";
-6. trainer training from dataset files: a SceneFlow tree (8 + 2 pairs of
+7. trainer training from dataset files: a SceneFlow tree (8 + 2 pairs of
            540x960 PNGs with left and right PFM disparities) and a KITTI
            2015 tree (2 frames of 375x1242, 16-bit disparity PNGs) written
            by the port's writers, and a FallingThings tree (3 frames, each
@@ -117,13 +128,13 @@ Phases (any failure raises, and the exit code is not 0):
            decoded; the loader's samples/s with 2 and with 4 samples in
            flight, and one SceneFlow and one FallingThings sample alone; the
            trees stay for the next three phases;
-7. convert a seeded reference-format IGEV checkpoint at `ModelConfig()`
+8. convert a seeded reference-format IGEV checkpoint at `ModelConfig()`
            widths (keys and shapes from `tests/data/reference_keys_igev.json`,
            `module.` prefix, `{"model": ...}` wrapper) through `python -m
            anystereo_tpu_torch.tools.convert_checkpoint --verify`, loaded
            strictly into a reference-regime model and validated on the KITTI
            tree (B1 64 a frame); the conversion's ms and tensor count;
-8. cli     `cli.main(["train", ..., "--restore", <converted>])` for 2 steps
+9. cli     `cli.main(["train", ..., "--restore", <converted>])` for 2 steps
            at `TrainConfig()` defaults on the SceneFlow tree (per step B1 32
            + 32, gather 48, scatter 48; the CLI builds the GroupNorm model,
            so the converted checkpoint's BatchNorm tensors are not loaded,
@@ -131,12 +142,12 @@ Phases (any failure raises, and the exit code is not 0):
            checkpoint on SceneFlow (B1 64 and B8 1 a frame), and a `python -m
            anystereo_tpu_torch.cli evaluate` subprocess on KITTI that must
            exit 0 and print its metrics;
-9. ddp     two ranks on the one card (`torch.multiprocessing`, gloo), each
+10. ddp    two ranks on the one card (`torch.multiprocessing`, gloo), each
            with one sample of a seeded batch of two whose valid counts
            differ, one fp32 `train()` step at full width against one process
            on the batch of two: loss, gradients, parameters, ms per step,
            each rank's launches sent back;
-10. spatial two ranks on the one card (gloo) tile the rows of a 1504x2016
+11. spatial two ranks on the one card (gloo) tile the rows of a 1504x2016
            frame (`infer_spatial_sharded`, IGEV `ModelConfig()`, bf16, 32
            iterations): one warm-up and three dense requests and one at
            200,000 scattered queries, against the same in one process: ms a
@@ -148,7 +159,7 @@ Phases (any failure raises, and the exit code is not 0):
            0.2 px, a bound that a planted fault, the rows computed in reverse
            order, must exceed) and an fp32 check at 384x1248 (4 iterations)
            within 1e-3 px;
-11. tools  the port's tools as a user runs them (`anystereo_tpu_torch/tools/`,
+12. tools  the port's tools as a user runs them (`anystereo_tpu_torch/tools/`,
            each `main` in this process): `make_synthetic_datasets` writes
            the SceneFlow, KITTI, Middlebury and ETH3D trees at seed 0 (nine
            protocols resolve); `check_datasets --smoke` on them (an eval
@@ -163,7 +174,7 @@ Phases (any failure raises, and the exit code is not 0):
            an iteration a frame); its line also goes to
            `chiprun_out/tools.txt` and each tool's output to
            `chiprun_out/tools_<name>.txt`;
-12. check  fp32 (TF32 off, cuDNN deterministic), 4 iterations: the IGEV and
+13. check  fp32 (TF32 off, cuDNN deterministic), 4 iterations: the IGEV and
            RAFT eval forwards through the kernels against the same with every
            lookup forced to its plain version, under each flavor, and the
            flavors against "aligned"; the occlusion mask through the kernel
@@ -549,7 +560,7 @@ def _kernels_lookup_fwd(torch):
     # PyTorch call computes this lookup
     return _record("gather_pyramid_aligned", "anystereo_tpu_torch/csrc/lookup_aligned.cu",
                    "anystereo_tpu/ops/pallas/lookup_kernel.py:1103", calls, main=(0, 1),
-                   paths=("eval_igev", "train_igev", "eval_raft", "trainer", "convert", "cli", "ddp",
+                   paths=("eval_igev", "bench", "train_igev", "eval_raft", "trainer", "convert", "cli", "ddp",
                           "spatial", "tools"))
 
 
@@ -1355,6 +1366,76 @@ def phase_model(torch, kernels, core, flavor, keep=False):
 # ----------------------------------------------------------------- phase 4
 
 
+def _positive(x):
+    return isinstance(x, (int, float)) and 0 < x < float("inf")
+
+
+def phase_bench(torch, kernels, card):
+    """`python -m anystereo_tpu_torch.cli bench` as a user runs it, here
+    `cli.main(["bench"])` in this process with its standard output
+    captured, so that the counts see its launches (set to 0 just before,
+    read just after): B1 64 a forward, nothing else.  Its line must hold
+    every key, finite positive pairs/s and latencies, and the card's name;
+    the run must exit 0 (the bench raises when its chained output leaves
+    the band of its direct one).  Then the FLOP count of one forward at the
+    protocol (`flops_estimate`, its launches not counted), beside
+    `latency_ms` as TFLOP/s and a share of the bf16 peak.  Returns the
+    launches."""
+    import io
+
+    from anystereo_tpu_torch import bench, cli
+    from anystereo_tpu_torch.config import ModelConfig
+    from anystereo_tpu_torch.nn.model import build_model
+    from anystereo_tpu_torch.utils.profiling import H100_PEAK, flops_estimate
+
+    # bench.run: 1 direct, N_REP synchronised, then the harness's chains of 1
+    # and K, each once to warm up and REPS times timed
+    forwards = 1 + bench.N_REP + (1 + bench.K) * (1 + bench.REPS)
+    want = dict.fromkeys((k.__name__ for k in kernels), 0)
+    want.update(_lookup_counts("igev", "aligned", bench.ITERS * forwards))
+    buf = io.StringIO()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["bench"])
+    seconds = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    text = buf.getvalue()
+    _log(text.rstrip())
+    if rc != 0:
+        raise AssertionError(f"cli.main(['bench']) exited {rc}: {text[-3000:]}")
+    _expect_launches(kernels, [0] * len(kernels), want, f"the bench ({forwards} forwards)")
+    found = [row for row in text.splitlines() if row.startswith("{")]
+    if len(found) != 1:
+        raise AssertionError(f"the bench printed {len(found)} JSON lines: {text[-3000:]}")
+    line = json.loads(found[0])
+    missing = [key for key in bench.LINE_KEYS if key not in line]
+    bad = [key for key in ("value", "latency_ms", "latency_ms_e2e") if not _positive(line.get(key))]
+    if missing or bad or line["device"] != card:
+        raise AssertionError(f"the bench line lacks {missing}, has {bad} not finite and positive, or names "
+                             f"{line.get('device')!r} for {card!r}: {found[0]}")
+
+    model = build_model(ModelConfig(), device=DEVICE, seed=0)
+    left, right = (torch.rand(bench.B, bench.H, bench.W, 3, device=DEVICE) * 255 for _ in range(2))
+    flops = flops_estimate(lambda l, r: model(l, r, iters=bench.ITERS).disp_final, left, right)
+    del model
+    pair_ms = PAIR_MS[("igev", "aligned")]
+    rate = flops / (line["latency_ms"] / 1e3)
+    _keep("bench", f"[bench] cli.main(['bench']) exit 0 in {seconds:.1f} s, {forwards} forwards, launches "
+                   f"{ {k: v for k, v in launches.items() if v} }; {json.dumps(line)}; latency_ms "
+                   f"{line['latency_ms']} and latency_ms_e2e {line['latency_ms_e2e']} beside the model phase's "
+                   f"{pair_ms:.2f} ms a pair (ratios {line['latency_ms'] / pair_ms:.3f}, "
+                   f"{line['latency_ms_e2e'] / pair_ms:.3f}); flops_estimate of one forward "
+                   f"{flops / 1e12:.4f} TFLOP ({flops:.0f}); {rate / 1e12:.2f} TFLOP/s at latency_ms, "
+                   f"{100 * rate / H100_PEAK['bf16_flops']:.2f}% of the bf16 peak "
+                   f"({H100_PEAK['bf16_flops'] / 1e12:.0f} TFLOP/s at 700 W); {card}")
+    return launches
+
+
+# ----------------------------------------------------------------- phase 5
+
+
 class _MemoryDataset:
     """Seeded frames held in memory, as `validate_dataset` reads a dataset:
     the right view is the left one shifted by 24 px; the left ground truth is
@@ -1471,7 +1552,7 @@ def phase_validate(torch, kernels):
     return launches
 
 
-# ----------------------------------------------------------------- phase 5
+# ----------------------------------------------------------------- phase 6
 
 
 def _train_batch(torch, batch, h, w, q, seed):
@@ -1567,7 +1648,7 @@ def phase_train(torch, kernels, core, flavor, steps=TRAIN_STEPS):
     return launches, (model, tcfg, state, step, batch)
 
 
-# ----------------------------------------------------------------- phase 6
+# ----------------------------------------------------------------- phase 7
 
 
 SF_H, SF_W, SF_TRAIN, SF_TEST = 540, 960, 8, 2  # SceneFlow's frame size; pairs of the tree
@@ -2064,7 +2145,7 @@ def _state_diff(a, b):
     return out
 
 
-# ----------------------------------------------------------------- phases 7-9
+# ----------------------------------------------------------------- phases 8-10
 
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -2433,7 +2514,7 @@ def phase_ddp(torch, kernels, card, root):
     return launches
 
 
-# ----------------------------------------------------------------- phase 10
+# ----------------------------------------------------------------- phase 11
 
 SPATIAL_H, SPATIAL_W, SPATIAL_RANKS = 1504, 2016, 2  # a Middlebury-F-class frame over two ranks
 SPATIAL_QUERIES = 200_000  # the scattered query request, seeded over the frame
@@ -2649,7 +2730,7 @@ def phase_spatial(torch, kernels, card, root):
     return launches
 
 
-# ----------------------------------------------------------------- phase 11
+# ----------------------------------------------------------------- phase 12
 
 # the JAX gate's recipe for the end-to-end demo (tests/test_train_gate.py)
 TOOLS_E2E = ("--steps", "150", "--lr", "2e-4", "--epe-target", "2.1")
@@ -2793,7 +2874,7 @@ def phase_tools(torch, kernels, card, root):
     return launches
 
 
-# ----------------------------------------------------------------- phase 12
+# ----------------------------------------------------------------- phase 13
 
 
 @contextlib.contextmanager
@@ -3319,6 +3400,8 @@ def main(argv) -> int:
     _log("[model] ms per pair by lookup flavor: " + "; ".join(
         f"{core.upper()} " + ", ".join(f"{fl} {ms:.2f}" for (c, fl), ms in PAIR_MS.items() if c == core)
         for core in ("igev", "raft")))
+    by_path["bench"] = phase_bench(torch, kernels, card)
+    torch.cuda.empty_cache()
     by_path["validate"] = phase_validate(torch, kernels)
     torch.cuda.empty_cache()
     by_path["train_igev"], trained = phase_train(torch, kernels, "igev", "aligned")
