@@ -17,7 +17,9 @@ trains data-parallel over every rank, one card a rank:
 
   torchrun --nproc-per-node 2 -m anystereo_tpu_torch.cli train --multihost ...
 
-`--loader grain` is refused: the grain loader is not ported.
+`--loader grain` trains from the checkpointable pipeline
+(`data/grain_loader.py`): its state is saved beside every checkpoint, so a
+resumed run goes on mid-epoch in the order a straight run would have used.
 
 Like the JAX CLI, `train` and `evaluate` build the GroupNorm model
 (`_model_cfg`), never `config.reference_regime_config`'s frozen BatchNorm:
@@ -31,10 +33,6 @@ from __future__ import annotations
 import argparse
 import logging
 import sys
-
-GRAIN_REFUSAL = ("--loader grain: the grain input pipeline (data/grain_loader.py of the JAX package) "
-                 "is not ported; use --loader prefetch")
-
 
 def _model_cfg(args):
     from anystereo_tpu_torch.config import AggregationType, CoreType, LiifConfig, ModelConfig
@@ -94,7 +92,7 @@ def train_parser() -> argparse.ArgumentParser:
     p.add_argument("--num-workers", type=int, default=8)
     p.add_argument("--loader", choices=["prefetch", "grain"], default="prefetch",
                    help="'grain' = deterministic checkpointable input "
-                        "pipeline of the JAX package; not ported, refused")
+                        "pipeline (data/grain_loader.py)")
     # in-training held-out validation every --ckpt-every steps (the
     # reference validates every valid_fre, train_continuous_IGEV.py:242-264)
     p.add_argument("--val-dataset", default=None,
@@ -113,9 +111,6 @@ def train_parser() -> argparse.ArgumentParser:
 
 def cmd_train(argv) -> int:
     args = train_parser().parse_args(argv)
-    if args.loader == "grain":
-        print(GRAIN_REFUSAL, file=sys.stderr)
-        return 2
 
     from anystereo_tpu_torch.config import Config, DataConfig, MeshConfig, TrainConfig
     from anystereo_tpu_torch.data.augment import AugmentorConfig
@@ -166,10 +161,18 @@ def cmd_train(argv) -> int:
         scale_min=args.scale_min, scale_max=args.scale_max,
         inp_size=tuple(args.inp_size),
     )
-    loader = PrefetchLoader(
-        dataset, cfg.train.batch_size, num_workers=args.num_workers,
-        seed=cfg.train.seed,
-    )
+    if args.loader == "grain":
+        from anystereo_tpu_torch.data.grain_loader import GrainLoader
+
+        loader = GrainLoader(
+            dataset, cfg.train.batch_size, num_workers=args.num_workers,
+            seed=cfg.train.seed,
+        )
+    else:
+        loader = PrefetchLoader(
+            dataset, cfg.train.batch_size, num_workers=args.num_workers,
+            seed=cfg.train.seed,
+        )
     validate_fn = None
     if args.val_dataset is not None:
         from anystereo_tpu_torch.eval.validate import make_train_validate_fn

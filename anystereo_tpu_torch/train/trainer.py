@@ -301,6 +301,9 @@ def train(
         for sig, h in prev_handlers.items():
             signal.signal(sig, h)
         logger.close()
+        close = getattr(raw_it, "close", None)
+        if close is not None:  # the loader's worker processes or threads
+            close()
     dt = time.time() - t0
     steps_done = max(total - start, 0)
     log.info("trained %d steps in %.1fs (%.2f steps/s)", steps_done, dt, steps_done / max(dt, 1e-9))

@@ -127,14 +127,25 @@ Phases (any failure raises, and the exit code is not 0):
            frame (B1 64, B8 1 on SceneFlow); the JPEGs and PNGs `train()`
            decoded; the loader's samples/s with 2 and with 4 samples in
            flight, and one SceneFlow and one FallingThings sample alone; the
-           trees stay for the next three phases;
-8. convert a seeded reference-format IGEV checkpoint at `ModelConfig()`
+           trees stay for the phases after it;
+8. loader  the checkpointable loader (`data/grain_loader.py`) on the same
+           trees and `fetch_dataset` mix: `GrainLoader` (4 worker
+           processes, seed 1234) through `train()` straight for 4 steps with
+           a checkpoint every 2, and a run preempted at step 2 (its
+           `loader_state-2-p0.bin` written) that a fresh `train()` resumes
+           to 4: its first state bit for bit the saved one, the digest of
+           every batch steps 3-4 consumed the straight run's, exact
+           launches per step (B1 32 + 32, gather 48, scatter 48); then
+           `cli.main(["train", "--loader", "grain", ...])` for 2 steps (exit
+           0, its loader state written); the loader's samples/s alone
+           beside the trainer phase's `PrefetchLoader` figure;
+9. convert a seeded reference-format IGEV checkpoint at `ModelConfig()`
            widths (keys and shapes from `tests/data/reference_keys_igev.json`,
            `module.` prefix, `{"model": ...}` wrapper) through `python -m
            anystereo_tpu_torch.tools.convert_checkpoint --verify`, loaded
            strictly into a reference-regime model and validated on the KITTI
            tree (B1 64 a frame); the conversion's ms and tensor count;
-9. cli     `cli.main(["train", ..., "--restore", <converted>])` for 2 steps
+10. cli    `cli.main(["train", ..., "--restore", <converted>])` for 2 steps
            at `TrainConfig()` defaults on the SceneFlow tree (per step B1 32
            + 32, gather 48, scatter 48; the CLI builds the GroupNorm model,
            so the converted checkpoint's BatchNorm tensors are not loaded,
@@ -142,12 +153,12 @@ Phases (any failure raises, and the exit code is not 0):
            checkpoint on SceneFlow (B1 64 and B8 1 a frame), and a `python -m
            anystereo_tpu_torch.cli evaluate` subprocess on KITTI that must
            exit 0 and print its metrics;
-10. ddp    two ranks on the one card (`torch.multiprocessing`, gloo), each
+11. ddp    two ranks on the one card (`torch.multiprocessing`, gloo), each
            with one sample of a seeded batch of two whose valid counts
            differ, one fp32 `train()` step at full width against one process
            on the batch of two: loss, gradients, parameters, ms per step,
            each rank's launches sent back;
-11. spatial two ranks on the one card (gloo) tile the rows of a 1504x2016
+12. spatial two ranks on the one card (gloo) tile the rows of a 1504x2016
            frame (`infer_spatial_sharded`, IGEV `ModelConfig()`, bf16, 32
            iterations): one warm-up and three dense requests and one at
            200,000 scattered queries, against the same in one process: ms a
@@ -159,7 +170,7 @@ Phases (any failure raises, and the exit code is not 0):
            0.2 px, a bound that a planted fault, the rows computed in reverse
            order, must exceed) and an fp32 check at 384x1248 (4 iterations)
            within 1e-3 px;
-12. tools  the port's tools as a user runs them (`anystereo_tpu_torch/tools/`,
+13. tools  the port's tools as a user runs them (`anystereo_tpu_torch/tools/`,
            each `main` in this process): `make_synthetic_datasets` writes
            the SceneFlow, KITTI, Middlebury and ETH3D trees at seed 0 (nine
            protocols resolve); `check_datasets --smoke` on them (an eval
@@ -174,7 +185,7 @@ Phases (any failure raises, and the exit code is not 0):
            an iteration a frame); its line also goes to
            `chiprun_out/tools.txt` and each tool's output to
            `chiprun_out/tools_<name>.txt`;
-13. check  fp32 (TF32 off, cuDNN deterministic), 4 iterations: the IGEV and
+14. check  fp32 (TF32 off, cuDNN deterministic), 4 iterations: the IGEV and
            RAFT eval forwards through the kernels against the same with every
            lookup forced to its plain version, under each flavor, and the
            flavors against "aligned"; the occlusion mask through the kernel
@@ -560,8 +571,8 @@ def _kernels_lookup_fwd(torch):
     # PyTorch call computes this lookup
     return _record("gather_pyramid_aligned", "anystereo_tpu_torch/csrc/lookup_aligned.cu",
                    "anystereo_tpu/ops/pallas/lookup_kernel.py:1103", calls, main=(0, 1),
-                   paths=("eval_igev", "bench", "train_igev", "eval_raft", "trainer", "convert", "cli", "ddp",
-                          "spatial", "tools"))
+                   paths=("eval_igev", "bench", "train_igev", "eval_raft", "trainer", "loader", "convert", "cli",
+                          "ddp", "spatial", "tools"))
 
 
 def _bound(nbytes, flops):
@@ -651,7 +662,7 @@ def _kernels_lookup_bwd(torch):
         calls.append(res)
     return _record("gather_pyramid_aligned_bwd", "anystereo_tpu_torch/csrc/lookup_aligned.cu",
                    "anystereo_tpu/ops/pallas/lookup_kernel.py:965", calls, main=(0, 1),
-                   paths=("train_igev", "trainer", "cli", "ddp", "tools"))
+                   paths=("train_igev", "trainer", "loader", "cli", "ddp", "tools"))
 
 
 def _kernels_window(torch):
@@ -1004,7 +1015,7 @@ def _kernels_gather(torch):
     src = "anystereo_tpu_torch/csrc/gather_rows.cu"
     # per decode all three tables go through the gather forward and the
     # scatter backward
-    paths = ("train_igev", "train_raft", "trainer", "cli", "ddp", "tools")
+    paths = ("train_igev", "train_raft", "trainer", "loader", "cli", "ddp", "tools")
     return [
         _record("gather_rows", src, "anystereo_tpu/ops/pallas/gather_kernel.py:319", fwd,
                 main=(0, 1, 2), paths=paths + ("spatial",), library=True),
@@ -1865,12 +1876,10 @@ def phase_trainer(torch, kernels, card, root):
     and of every validation frame are checked exactly; the steps are timed
     (synchronised) by a wrapper around the trainer's step.  The trees stay
     in `root` for the phases after it; returns the launches and the trees'
-    roots (SceneFlow, KITTI 2015)."""
+    roots (SceneFlow, KITTI 2015, FallingThings)."""
     import numpy as np
 
     from anystereo_tpu_torch.config import Config, ModelConfig, TrainConfig
-    from anystereo_tpu_torch.data.augment import AugmentorConfig
-    from anystereo_tpu_torch.data.datasets import fetch_dataset
     from anystereo_tpu_torch.data.loader import PrefetchLoader, to_device
     from anystereo_tpu_torch.eval.validate import make_train_validate_fn, run_validation
     from anystereo_tpu_torch.nn.model import build_model
@@ -1896,13 +1905,7 @@ def phase_trainer(torch, kernels, card, root):
     ckpt_dir = os.path.join(root, "ckpt")
     cfg = Config(train=TrainConfig(ckpt_dir=ckpt_dir, ckpt_every=TRAINER_CKPT_EVERY))
     tcfg = cfg.train
-    aug = AugmentorConfig(crop_size=tcfg.inp_size, yjitter=cfg.data.yjitter)
-    ds = fetch_dataset(["sceneflow", "falling_things"], {"sceneflow": sf, "falling_things": ft}, aug,
-                       multi_scale=tcfg.multi_scale, scale_min=tcfg.scale_min, scale_max=tcfg.scale_max,
-                       inp_size=tcfg.inp_size)
-    if len(ds) != SF_TRAIN + 5 * len(FT_NAMES):
-        raise AssertionError(f"fetch_dataset found {len(ds)} training samples, not {SF_TRAIN} SceneFlow "
-                             f"pairs and FallingThings' {len(FT_NAMES)} x 5")
+    ds = _trainer_dataset(cfg, sf, ft)
     inner_validate = make_train_validate_fn(cfg.model, "sceneflow", sf,
                                             max_images=TRAINER_VAL_FRAMES)
     schedule = one_cycle_schedule(tcfg.lr, tcfg.num_steps, tcfg.warmup_frac)
@@ -1963,7 +1966,7 @@ def phase_trainer(torch, kernels, card, root):
     it_ = iter(PrefetchLoader(ds, tcfg.batch_size, num_workers=TRAINER_WORKERS, seed=tcfg.seed + 1))
     for _ in range(LOADER_BATCHES):
         next(it_)
-    loader_rate = LOADER_BATCHES * tcfg.batch_size / (time.perf_counter() - t0)
+    loader_rate = LOADER_RATE["prefetch"] = LOADER_BATCHES * tcfg.batch_size / (time.perf_counter() - t0)
     it_.close()
     # what bounds it: the loader maps one batch at a time, so only
     # batch_size samples are in flight; beside it one sample at a time on
@@ -2068,7 +2071,24 @@ def phase_trainer(torch, kernels, card, root):
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "trainer.txt"), "w") as f:
         f.write("\n".join(lines) + "\n")
-    return launches, sf, kitti
+    return launches, sf, kitti, ft
+
+
+def _trainer_dataset(cfg, sf, ft):
+    """`fetch_dataset(["sceneflow", "falling_things"])` on the trees, in
+    multi-scale mode at `cfg`'s crop and scales (FallingThings x 5)."""
+    from anystereo_tpu_torch.data.augment import AugmentorConfig
+    from anystereo_tpu_torch.data.datasets import fetch_dataset
+
+    tcfg = cfg.train
+    aug = AugmentorConfig(crop_size=tcfg.inp_size, yjitter=cfg.data.yjitter)
+    ds = fetch_dataset(["sceneflow", "falling_things"], {"sceneflow": sf, "falling_things": ft}, aug,
+                       multi_scale=tcfg.multi_scale, scale_min=tcfg.scale_min, scale_max=tcfg.scale_max,
+                       inp_size=tcfg.inp_size)
+    if len(ds) != SF_TRAIN + 5 * len(FT_NAMES):
+        raise AssertionError(f"fetch_dataset found {len(ds)} training samples, not {SF_TRAIN} SceneFlow "
+                             f"pairs and FallingThings' {len(FT_NAMES)} x 5")
+    return ds
 
 
 @contextlib.contextmanager
@@ -2076,7 +2096,8 @@ def _recorded_steps(torch, kernels, per_step, log, what):
     """`train()`'s training step, wrapped while the block runs: each step
     synchronised and timed, its launches held to `per_step` exactly, and
     recorded in log["steps"] as (step, ms, metrics); where log["first"] is
-    None, the state as `train()` hands it to its first step goes there."""
+    None, the state as `train()` hands it to its first step goes there;
+    where log has "digests", (step, `_batch_digest` of its batch) goes there."""
     from anystereo_tpu_torch.train import trainer
 
     real_make = trainer.make_train_step
@@ -2087,6 +2108,8 @@ def _recorded_steps(torch, kernels, per_step, log, what):
         def step(state, batch):
             if "first" in log and log["first"] is None:
                 log["first"] = _state_copy(state)
+            if "digests" in log:
+                log["digests"].append((state.step + 1, _batch_digest(batch)))
             before = _counts(kernels)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2124,6 +2147,17 @@ class _Timed:
             it.close()
 
 
+def _batch_digest(batch):
+    """A digest of a batch's keys and bytes, copied from the card."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(batch):
+        h.update(k.encode())
+        h.update(batch[k].detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def _state_copy(state):
     """A host copy of a train state's parameters, moments and counters."""
     opt = state.optimizer
@@ -2145,7 +2179,117 @@ def _state_diff(a, b):
     return out
 
 
-# ----------------------------------------------------------------- phases 8-10
+# ----------------------------------------------------------------- phase 8
+
+LOADER_STEPS = 4  # the straight run; the preempted run stops halfway and resumes to it
+LOADER_RATE = {}  # samples/s of a loader alone, TRAINER_WORKERS workers, batch 2: "prefetch", "grain"
+
+
+def phase_loader(torch, kernels, card, root, sf, ft):
+    """The checkpointable loader (`data/grain_loader.py`, `--loader grain`)
+    on the trainer phase's trees and dataset, TRAINER_WORKERS worker
+    processes, seed 1234 (`TrainConfig()`): `train()` straight for
+    LOADER_STEPS steps with a checkpoint every LOADER_STEPS // 2, and a run
+    preempted there (its loader state written beside the checkpoint) that a
+    fresh `train()` resumes to LOADER_STEPS.  The resumed run's first state
+    must be the saved one bit for bit, and every batch its steps consume
+    must be the straight run's (a digest of the bytes on the card); the
+    launches of every step exact.  Then `cli.main(["train", "--loader",
+    "grain", ...])` for CLI_STEPS steps, which must exit 0 and write its
+    loader state; and the loader's samples/s alone beside the trainer
+    phase's `PrefetchLoader`."""
+    from anystereo_tpu_torch import cli
+    from anystereo_tpu_torch.config import Config, TrainConfig
+    from anystereo_tpu_torch.data.grain_loader import GrainLoader
+    from anystereo_tpu_torch.train import trainer
+    from anystereo_tpu_torch.train.state import checkpoint_steps
+
+    t_phase = time.perf_counter()
+    per_step = _igev_step_launches(kernels)
+    half = LOADER_STEPS // 2
+    straight, preempted, by_cli = (os.path.join(root, d) for d in ("grain_a", "grain_b", "grain_cli"))
+    tcfg = TrainConfig()
+    ds = _trainer_dataset(Config(train=tcfg), sf, ft)
+    for k in kernels:
+        k.launches = 0
+    log = {"steps": []}
+    runs = []
+    with _recorded_steps(torch, kernels, per_step, log, "loader"):
+        for ckpt, max_steps in ((straight, LOADER_STEPS), (preempted, half), (preempted, LOADER_STEPS)):
+            cfg = Config(train=TrainConfig(ckpt_dir=ckpt, ckpt_every=half))
+            log.update(first=None, digests=[])
+            n_steps = len(log["steps"])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = trainer.train(cfg, GrainLoader(ds, tcfg.batch_size, num_workers=TRAINER_WORKERS,
+                                                   seed=tcfg.seed), max_steps=max_steps)
+            torch.cuda.synchronize()
+            runs.append(dict(state=state, first=log["first"], digests=log["digests"],
+                             steps=[s for s, _, _ in log["steps"][n_steps:]],
+                             ms=[ms for _, ms, _ in log["steps"][n_steps:]],
+                             wall=(time.perf_counter() - t0) * 1e3))
+        sidecar = os.path.join(preempted, f"loader_state-{half}-p0.bin")
+        if not os.path.exists(sidecar):
+            raise AssertionError(f"the preempted run wrote no {sidecar}")
+        log.update(first=None, digests=[])
+        n_steps = len(log["steps"])
+        t0 = time.perf_counter()
+        rc = cli.main(["train", "--loader", "grain", "--datasets", "sceneflow", "--data-root", sf,
+                       "--num-steps", str(CLI_STEPS), "--num-workers", str(TRAINER_WORKERS), "--ckpt-dir", by_cli])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+    cli_steps = [s for s, _, _ in log["steps"][n_steps:]]
+    if (rc != 0 or cli_steps != list(range(1, CLI_STEPS + 1)) or checkpoint_steps(by_cli) != [CLI_STEPS]
+            or not os.path.exists(os.path.join(by_cli, f"loader_state-{CLI_STEPS}-p0.bin"))):
+        raise AssertionError(f"cli train --loader grain: exit {rc}, steps {cli_steps}, checkpoints "
+                             f"{checkpoint_steps(by_cli)}, files {sorted(os.listdir(by_cli))}")
+    a, b1, b2 = runs
+    for run, want in ((a, range(1, LOADER_STEPS + 1)), (b1, range(1, half + 1)),
+                      (b2, range(half + 1, LOADER_STEPS + 1))):
+        if run["steps"] != list(want):
+            raise AssertionError(f"loader runs took steps {[r['steps'] for r in runs]}")
+    if b2["first"]["step"] != half:
+        raise AssertionError(f"the resumed train() started at step {b2['first']['step']}, not {half}")
+    diff = _state_diff(_state_copy(b1["state"]), b2["first"])
+    if diff:
+        raise AssertionError(f"the resumed state differs from the saved one: {diff[:5]}")
+    if b1["digests"] + b2["digests"] != a["digests"]:
+        raise AssertionError(f"the preempted and resumed runs consumed {b1['digests'] + b2['digests']}, "
+                             f"the straight run {a['digests']}")
+    for step_no, _, metrics in log["steps"]:
+        loss = float(metrics["loss"])
+        if not (loss == loss and abs(loss) != float("inf")) or metrics["nonfinite_skips"]:
+            raise AssertionError(f"loader step {step_no}: loss {loss}, skips {metrics['nonfinite_skips']}")
+    launches = {k.__name__: k.launches for k in kernels}
+    # the loader alone, as the trainer phase times `PrefetchLoader`: the
+    # start of its worker processes included
+    t0 = time.perf_counter()
+    it_ = iter(GrainLoader(ds, tcfg.batch_size, num_workers=TRAINER_WORKERS, seed=tcfg.seed + 1))
+    next(it_)
+    first_s = time.perf_counter() - t0
+    for _ in range(LOADER_BATCHES - 1):
+        next(it_)
+    rate = LOADER_RATE["grain"] = LOADER_BATCHES * tcfg.batch_size / (time.perf_counter() - t0)
+    it_.close()
+    prefetch = LOADER_RATE.get("prefetch")
+    steps_ms = [ms for run in runs for ms in run["ms"][1:]]  # the first step of each run excluded
+    _keep("loader", f"[loader] GrainLoader ({TRAINER_WORKERS} worker processes, seed {tcfg.seed}, batch "
+          f"{tcfg.batch_size}) through train(): straight {LOADER_STEPS} steps in {a['wall']:.0f} ms, preempted at "
+          f"{half} in {b1['wall']:.0f} ms and resumed to {LOADER_STEPS} in {b2['wall']:.0f} ms (model, workers' "
+          f"start and checkpoints included), {sum(steps_ms) / len(steps_ms):.2f} ms/step over {len(steps_ms)} "
+          f"steps (the first of each run excluded); the resumed state bit for bit the saved one; steps "
+          f"{half + 1}-{LOADER_STEPS} consumed the straight run's batches {[d for _, d in b2['digests']]}; "
+          f"cli train --loader grain {CLI_STEPS} steps: exit 0 in {cli_s:.1f} s, its loader state written; "
+          f"the loader alone {rate:.2f} samples/s ({LOADER_BATCHES} batches of {tcfg.batch_size}, first batch "
+          f"{first_s:.1f} s after the start), PrefetchLoader "
+          f"{'not measured' if prefetch is None else f'{prefetch:.2f}'} samples/s (the trainer phase, "
+          f"{TRAINER_WORKERS} threads, {tcfg.batch_size} samples in flight); phase "
+          f"{time.perf_counter() - t_phase:.1f} s; launches {({k: v for k, v in launches.items() if v})}; "
+          f"{card}")
+    return launches
+
+
+# ----------------------------------------------------------------- phases 9-11
 
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -2514,7 +2658,7 @@ def phase_ddp(torch, kernels, card, root):
     return launches
 
 
-# ----------------------------------------------------------------- phase 11
+# ----------------------------------------------------------------- phase 12
 
 SPATIAL_H, SPATIAL_W, SPATIAL_RANKS = 1504, 2016, 2  # a Middlebury-F-class frame over two ranks
 SPATIAL_QUERIES = 200_000  # the scattered query request, seeded over the frame
@@ -2730,7 +2874,7 @@ def phase_spatial(torch, kernels, card, root):
     return launches
 
 
-# ----------------------------------------------------------------- phase 12
+# ----------------------------------------------------------------- phase 13
 
 # the JAX gate's recipe for the end-to-end demo (tests/test_train_gate.py)
 TOOLS_E2E = ("--steps", "150", "--lr", "2e-4", "--epe-target", "2.1")
@@ -2874,7 +3018,7 @@ def phase_tools(torch, kernels, card, root):
     return launches
 
 
-# ----------------------------------------------------------------- phase 13
+# ----------------------------------------------------------------- phase 14
 
 
 @contextlib.contextmanager
@@ -3420,7 +3564,9 @@ def main(argv) -> int:
     del trained
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as root:
-        by_path["trainer"], sf, kitti = phase_trainer(torch, kernels, card, root)
+        by_path["trainer"], sf, kitti, ft = phase_trainer(torch, kernels, card, root)
+        torch.cuda.empty_cache()
+        by_path["loader"] = phase_loader(torch, kernels, card, root, sf, ft)
         torch.cuda.empty_cache()
         by_path["convert"], converted = phase_convert(torch, kernels, card, root, kitti)
         torch.cuda.empty_cache()

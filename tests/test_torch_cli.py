@@ -7,14 +7,16 @@ for two steps on the synthetic SceneFlow tree of
 max_disp 32, three GRU levels; the model at its default widths), warm
 started from a converted reference checkpoint; `evaluate` then reads its
 checkpoint.  The flag set, defaults and help are the JAX CLI's plus
-`--device` (captured from the JAX parsers without running them); `--loader
-grain` is refused (`bench` runs: `tests/test_torch_bench.py`); without
+`--device` (captured from the JAX parsers without running them); `train
+--loader grain` runs two steps and writes its loader's state beside the
+checkpoint (`bench` runs: `tests/test_torch_bench.py`); without
 `--device` and without a card both subcommands raise instead of running on
 the CPU; a weights-only checkpoint given as `--ckpt-dir` raises with a
 message that names `--restore`.
 """
 
 import argparse
+import json
 import os
 import subprocess
 import sys
@@ -39,7 +41,7 @@ sys.path.insert(0, os.path.join(REPO, "tools"))
 GOLDEN = ["--max-disp", "32", "--n-gru-layers", "3"]
 # the port's help differs from the JAX package's where the JAX help names
 # what only the JAX package has
-OWN_HELP = {"restore", "loader", "multihost", "device"}
+OWN_HELP = {"restore", "multihost", "device"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -135,9 +137,20 @@ def test_flags_are_the_jax_clis_plus_device(monkeypatch, name):
             assert g.help == w.help, dest
 
 
-def test_refusals(capsys, tmp_path):
-    assert cli.main(["train", "--data-root", str(tmp_path), "--loader", "grain", "--device", "cpu"]) != 0
-    assert "grain" in capsys.readouterr().err
+def test_train_with_the_grain_loader_writes_its_state(tree, tmp_path):
+    ckpt = str(tmp_path / "ckpt")
+    proc = _run("train", "--loader", "grain", "--datasets", "sceneflow", "--data-root", tree, "--inp-size", "32",
+                "64", "--scale-max", "1.4", "--batch-size", "1", "--num-steps", "2", "--train-iters", "1",
+                "--num-workers", "2", "--ckpt-dir", ckpt, "--device", "cpu", *GOLDEN)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert ts.checkpoint_steps(ckpt) == [2]
+    with open(os.path.join(ckpt, "loader_state-2-p0.bin"), "rb") as f:
+        state = json.loads(f.read())
+    # two workers, one batch each so far: the sampler indices of their records
+    assert state == {"last_seen_indices": {"0": 0, "1": 1}, "last_worker_index": 1, "worker_count": 2}
+
+
+def test_refusals(capsys):
     assert cli.main(["nope"]) == 2 and "usage" in capsys.readouterr().out
     assert cli.main([]) == 2
 

@@ -566,7 +566,7 @@ def test_prefetch_loader_raises_what_a_sample_raises(tree):
 
 def test_the_port_imports_no_jax_opencv_or_pil():
     """Every module of the port, imported in a fresh interpreter, loads none
-    of the JAX stack, OpenCV, PIL or the JAX package."""
+    of the JAX stack, grain, OpenCV, PIL or the JAX package."""
     import pkgutil
     import subprocess
 
@@ -575,13 +575,15 @@ def test_the_port_imports_no_jax_opencv_or_pil():
     root = os.path.dirname(os.path.abspath(list(anystereo_tpu_torch.__path__)[0]))
     names = [m.name for m in pkgutil.walk_packages(anystereo_tpu_torch.__path__, "anystereo_tpu_torch.")]
     assert {"anystereo_tpu_torch.data.png", "anystereo_tpu_torch.train.trainer",
-            "anystereo_tpu_torch.eval.reporting"} <= set(names)
+            "anystereo_tpu_torch.eval.reporting", "anystereo_tpu_torch.data.grain_loader",
+            "anystereo_tpu_torch.data.index_shuffle"} <= set(names)
     assert {f"anystereo_tpu_torch.tools.{t}" for t in (
         "make_synthetic_datasets", "e2e_demo", "overfit_sanity", "check_datasets", "reproduce_baseline",
         "scaling_bench")} <= set(names)
     code = ("import importlib, sys\n"
             f"for n in {names!r}: importlib.import_module(n)\n"
-            "bad = [m for m in ('jax', 'flax', 'optax', 'cv2', 'PIL', 'anystereo_tpu') if m in sys.modules]\n"
+            "bad = [m for m in ('jax', 'flax', 'optax', 'grain', 'cv2', 'PIL', 'anystereo_tpu') "
+            "if m in sys.modules]\n"
             "print(len(sys.modules)); assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
                          timeout=300, env={**os.environ, "PYTHONPATH": root})
