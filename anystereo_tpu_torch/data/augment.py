@@ -11,10 +11,15 @@ bicubic-downscales the images only to the low-resolution input size.
 Sparse variants: a scatter-based rescale of the flow map and crops with
 margins.
 
-The JAX package calls OpenCV for the colour conversions and resizes; the
-port computes them itself: `rgb_to_gray`, `rgb_to_hsv` and `hsv_to_rgb`
-below, and `utils/resize.resize`.  Every draw from `rng` comes in the JAX
-module's order, so the same seed gives the same crops, flips and queries.
+The JAX package calls OpenCV for the colour conversions and resizes, and
+its native module for the sparse rescale; the port computes them itself, in
+its own C: `rgb_to_gray`, `rgb_to_hsv` and `hsv_to_rgb` below
+(`csrc/colour.c`), `utils/resize.resize` (`csrc/resize.c`) and
+`data/native_io.scatter_resize_sparse` (`csrc/native_io.c`).  Each has its
+plain numpy version, which gives the same arrays bit for bit
+(`impl="numpy"`, or `utils/host_c.plain()` for a whole sample).  Every draw
+from `rng` comes in the JAX module's order, so the same seed gives the same
+crops, flips and queries.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from anystereo_tpu_torch.data import native_io
+from anystereo_tpu_torch.utils import host_c
 from anystereo_tpu_torch.utils.resize import resize
 
 # ------------------------------------------------------------------ #
@@ -37,17 +44,45 @@ _HDIV = np.array([0] + [round((180 << _HSV_SHIFT) / (6.0 * i)) for i in range(1,
 _SECTOR = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1], [0, 2, 1], [0, 1, 3], [2, 1, 0]])
 
 
-def rgb_to_gray(img: np.ndarray) -> np.ndarray:
+def _colour_fn(name: str):
+    P, I64 = host_c.P, host_c.I64
+    argtypes = {"rgb_to_gray": [P, P, I64], "rgb_to_hsv": [P, P, I64, P, P],
+                "hsv_to_rgb": [P, P, I64, I64]}[name]
+    return host_c.function("colour", name, argtypes)
+
+
+def _u8_pixels(img: np.ndarray, what: str) -> np.ndarray:
+    """`img` as the C-contiguous uint8 [..., 3] the C versions take."""
+    if img.dtype != np.uint8 or img.ndim < 1 or img.shape[-1] != 3:
+        raise ValueError(f"{what} takes uint8 [..., 3], got {img.dtype} {img.shape}")
+    return np.ascontiguousarray(img)
+
+
+def rgb_to_gray(img: np.ndarray, impl: Optional[str] = None) -> np.ndarray:
     """[..., 3] uint8 RGB -> [...] uint8: (9798 R + 19235 G + 3735 B +
     16384) >> 15, the fixed point of OpenCV 5's `COLOR_RGB2GRAY` (OpenCV 4
-    rounds the same weights to 14 bits)."""
+    rounds the same weights to 14 bits).  impl: "c" (the default,
+    `csrc/colour.c`) or "numpy", the plain version."""
+    if host_c.resolve(impl, "rgb_to_gray") == "c":
+        src = _u8_pixels(img, "rgb_to_gray")
+        out = np.empty(src.shape[:-1], np.uint8)
+        _colour_fn("rgb_to_gray")(src.ctypes.data, out.ctypes.data, out.size)
+        return out
     x = img.astype(np.int32)
     return ((9798 * x[..., 0] + 19235 * x[..., 1] + 3735 * x[..., 2] + 16384) >> 15).astype(np.uint8)
 
 
-def rgb_to_hsv(img: np.ndarray) -> np.ndarray:
+def rgb_to_hsv(img: np.ndarray, impl: Optional[str] = None) -> np.ndarray:
     """[..., 3] uint8 RGB -> uint8 HSV with hue in [0, 180), OpenCV's
-    `COLOR_RGB2HSV` (12-bit fixed point, division tables)."""
+    `COLOR_RGB2HSV` (12-bit fixed point, division tables).  impl: "c" (the
+    default, `csrc/colour.c`, given these tables) or "numpy", the plain
+    version."""
+    if host_c.resolve(impl, "rgb_to_hsv") == "c":
+        src = _u8_pixels(img, "rgb_to_hsv")
+        out = np.empty(src.shape, np.uint8)
+        _colour_fn("rgb_to_hsv")(src.ctypes.data, out.ctypes.data, src.size // 3, _SDIV.ctypes.data,
+                                 _HDIV.ctypes.data)
+        return out
     x = img.astype(np.int64)
     r, g, b = x[..., 0], x[..., 1], x[..., 2]
     v = np.maximum(np.maximum(b, g), r)
@@ -63,12 +98,21 @@ def rgb_to_hsv(img: np.ndarray) -> np.ndarray:
 _HSV2RGB_BLOCK = 32  # pixels a step of OpenCV's vector code (4 x 8 float lanes)
 
 
-def hsv_to_rgb(hsv: np.ndarray) -> np.ndarray:
+def hsv_to_rgb(hsv: np.ndarray, impl: Optional[str] = None) -> np.ndarray:
     """uint8 [H, W, 3] HSV (hue in [0, 180)) -> uint8 RGB, as OpenCV's
     `COLOR_HSV2RGB` computes it: float32 arithmetic with 1 - s·x fused;
-    each row in blocks of
-    32 pixels truncated to a level by its vector code, and the last W % 32
-    pixels of a row rounded by its scalar code."""
+    each row in blocks of 32 pixels truncated to a level by its vector
+    code, and the last W % 32 pixels of a row rounded by its scalar code.
+    impl: "c" (the default, `csrc/colour.c`) or "numpy", the plain
+    version."""
+    if host_c.resolve(impl, "hsv_to_rgb") == "c":
+        src = _u8_pixels(hsv, "hsv_to_rgb")
+        if src.ndim < 2:
+            raise ValueError(f"hsv_to_rgb takes uint8 [..., W, 3], got {src.shape}")
+        out = np.empty(src.shape, np.uint8)
+        w = src.shape[-2]
+        _colour_fn("hsv_to_rgb")(src.ctypes.data, out.ctypes.data, src.size // max(3 * w, 1), w)
+        return out
     h = hsv[..., 0].astype(np.float32) * np.float32(6.0 / 180.0)
     s = hsv[..., 1].astype(np.float32) * np.float32(1.0 / 255.0)
     v = hsv[..., 2].astype(np.float32) * np.float32(1.0 / 255.0)
@@ -229,9 +273,15 @@ class StereoAugmentor:
             sy *= 2 ** rng.uniform(-self.cfg.max_stretch, self.cfg.max_stretch)
         return max(sx, min_scale), max(sy, min_scale)
 
-    def _resize_sparse_flow(self, flow, valid, fx, fy):
+    def _resize_sparse_flow(self, flow, valid, fx, fy, impl: Optional[str] = None):
         """Scatter-based rescale of a sparse flow map: each valid pixel moves
-        to its rounded scaled position, with its flow scaled."""
+        to its rounded scaled position, with its flow scaled.  impl: "c"
+        (the default: `native_io.scatter_resize_sparse` by the numpy
+        version's rules) or "numpy", the plain version."""
+        if host_c.resolve(impl, "scatter_resize_sparse") == "c":
+            return native_io.scatter_resize_sparse(
+                np.ascontiguousarray(flow, np.float32), np.ascontiguousarray(valid, np.float32),
+                fx, fy, numpy_rules=True)
         ht, wd = flow.shape[:2]
         coords = np.stack(np.meshgrid(np.arange(wd), np.arange(ht)), axis=-1)
         coords = coords.reshape(-1, 2).astype(np.float32)

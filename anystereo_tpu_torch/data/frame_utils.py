@@ -10,7 +10,10 @@ Images are decoded by the port itself, with no OpenCV or PIL: PNG by
 numpy walk there is the plain version), JPEG (FallingThings) by
 `data/jpeg.py` (the port's own baseline decoder in C,
 `csrc/jpeg_decode.c`), both built at first use by the host C compiler into
-`build/kernels/`, and PPM by `read_ppm`.
+`build/kernels/`, and PPM by `read_ppm`.  PFM is read by the port's C
+(`data/native_io.read_pfm`, `csrc/native_io.c`, as the JAX package reads it
+with its native module); `read_pfm(path, impl="numpy")` is the plain
+version.
 """
 
 from __future__ import annotations
@@ -23,13 +26,18 @@ from typing import Optional, Tuple, Union
 
 import numpy as np
 
+from anystereo_tpu_torch.data import native_io
 from anystereo_tpu_torch.data.jpeg import read_jpeg
 from anystereo_tpu_torch.data.png import read_png
+from anystereo_tpu_torch.utils import host_c
 
 
-def read_pfm(path: str) -> np.ndarray:
+def read_pfm(path: str, impl: Optional[str] = None) -> np.ndarray:
     """Portable float map; returns [H, W] or [H, W, 3] float32 (row order
-    flipped to top-down)."""
+    flipped to top-down).  impl: "c" (the default, `native_io.read_pfm`) or
+    "numpy", the plain version."""
+    if host_c.resolve(impl, "read_pfm") == "c":
+        return native_io.read_pfm(os.fspath(path))
     with open(path, "rb") as f:
         header = f.readline().rstrip()
         if header == b"PF":

@@ -21,32 +21,27 @@ import ctypes
 
 import numpy as np
 
+from anystereo_tpu_torch.utils import host_c
+
 _ERRORS = {1: ValueError, 2: NotImplementedError, 3: MemoryError}
 
 
-def _lib() -> ctypes.CDLL:
-    from anystereo_tpu_torch.ops.kernels import build
-
-    lib = build.load_library("jpeg_decode")
-    if lib.jpeg_decode.argtypes is None:
-        lib.jpeg_info.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_int32),
-                                  ctypes.c_char_p, ctypes.c_int64]
-        lib.jpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p,
-                                    ctypes.c_int64, ctypes.c_char_p, ctypes.c_int64]
-        lib.jpeg_info.restype = lib.jpeg_decode.restype = ctypes.c_int
-    return lib
+def _fn(name: str):
+    c_char_p, i64 = ctypes.c_char_p, ctypes.c_int64
+    argtypes = {"jpeg_info": [c_char_p, i64, ctypes.POINTER(ctypes.c_int32), c_char_p, i64],
+                "jpeg_decode": [c_char_p, i64, ctypes.c_void_p, i64, c_char_p, i64]}[name]
+    return host_c.function("jpeg_decode", name, argtypes, ctypes.c_int)
 
 
 def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
     """Decode the JPEG file held in `data`; `name` goes into the errors."""
-    lib = _lib()
     msg = ctypes.create_string_buffer(256)
     dims = (ctypes.c_int32 * 3)()
-    rc = lib.jpeg_info(data, len(data), dims, msg, len(msg))
+    rc = _fn("jpeg_info")(data, len(data), dims, msg, len(msg))
     if rc == 0:
         h, w, c = dims
         out = np.empty((h, w, c) if c == 3 else (h, w), np.uint8)
-        rc = lib.jpeg_decode(data, len(data), out.ctypes.data, out.nbytes, msg, len(msg))
+        rc = _fn("jpeg_decode")(data, len(data), out.ctypes.data, out.nbytes, msg, len(msg))
     if rc:
         raise _ERRORS.get(rc, ValueError)(f"{name}: {msg.value.decode(errors='replace')}")
     return out

@@ -27,11 +27,12 @@ whose rows use only None, Sub and Up are unfiltered a row at a time.
 
 from __future__ import annotations
 
-import ctypes
 import struct
 import zlib
 
 import numpy as np
+
+from anystereo_tpu_torch.utils import host_c
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples a pixel
@@ -104,23 +105,14 @@ def _unfilter_numpy(raw: np.ndarray, h: int, row_bytes: int, bpp: int) -> np.nda
     return _unfilter_diagonals(kind, filt, bpp)
 
 
-def _unfilter_lib() -> ctypes.CDLL:
-    from anystereo_tpu_torch.ops.kernels import build
-
-    lib = build.load_library("png_unfilter")
-    fn = lib.png_unfilter
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int64] * 3
-        fn.restype = ctypes.c_int64
-    return lib
-
-
 def _unfilter_c(raw: np.ndarray, h: int, row_bytes: int, bpp: int) -> np.ndarray:
     if raw.dtype != np.uint8 or raw.size != h * (row_bytes + 1) or not raw.flags.c_contiguous or bpp < 1:
         raise ValueError(f"PNG unfilter: {raw.dtype} stream of {raw.size} bytes for {h} rows of "
                          f"{row_bytes} bytes, {bpp} a pixel")
     out = np.empty((h, row_bytes), np.uint8)
-    bad = _unfilter_lib().png_unfilter(raw.ctypes.data, out.ctypes.data, h, row_bytes, bpp)
+    unfilter = host_c.function("png_unfilter", "png_unfilter", [host_c.P, host_c.P] + [host_c.I64] * 3,
+                               host_c.I64)
+    bad = unfilter(raw.ctypes.data, out.ctypes.data, h, row_bytes, bpp)
     if bad >= 0:
         raise ValueError(f"PNG filter type {int(raw[bad * (row_bytes + 1)])} is not one of 0-4")
     return out

@@ -3,12 +3,15 @@
 Each `anystereo_tpu_torch/csrc/<name>.cu` is compiled by `nvcc` for Hopper
 (`sm_90a`) into a shared library with a plain C interface, which is loaded
 with `ctypes`.  Each `csrc/<name>.c` is host C (the image readers' PNG
-unfilter and JPEG decoder), compiled by the host C compiler (`$CC`, else
-`cc`, else `gcc`) with `C_FLAGS`.  Libraries go to `build/kernels/` beside
-the package, keyed by a digest of the source, the shared headers
-(`csrc/*.cuh`, for CUDA sources), the compiler's path and the flags, so an
-edited source or header is rebuilt and an unchanged one is reused.  A
-library is loaded with `ctypes.CDLL`, so its calls release the GIL.
+unfilter and JPEG decoder; the augmentor's resizes and colour conversions;
+the PFM reader and the sparse rescale), compiled by the host C compiler
+(`$CC`, else `cc`, else `gcc`) with `C_FLAGS`, which forbid contracting a
+multiply and an add into one rounding, so that the host C gives numpy's
+arithmetic bit for bit.  Libraries go to `build/kernels/` beside the
+package, keyed by a digest of the source, the shared headers (`csrc/*.cuh`,
+for CUDA sources), the compiler's path and the flags, so an edited source
+or header is rebuilt and an unchanged one is reused.  A library is loaded
+with `ctypes.CDLL`, so its calls release the GIL.
 Nothing here runs at import time.
 """
 
@@ -30,7 +33,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-C_FLAGS = ("-std=c11", "-O2", "-fPIC", "-shared")
+C_FLAGS = ("-std=c11", "-O2", "-ffp-contract=off", "-fPIC", "-shared")
+C_LIBS = ("-lm",)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()  # one build a source at a time in this process (the loader's threads)
@@ -71,7 +75,7 @@ def _is_c(name: str) -> bool:
 def library_path(name: str) -> Path:
     if _is_c(name):
         text = (CSRC / f"{name}.c").read_bytes()
-        flags = " ".join((_cc(CSRC / f"{name}.c"),) + C_FLAGS)
+        flags = " ".join((_cc(CSRC / f"{name}.c"),) + C_FLAGS + C_LIBS)
     else:
         text = (CSRC / f"{name}.cu").read_bytes()
         text += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
@@ -83,7 +87,7 @@ def library_path(name: str) -> Path:
 def _command(name: str, tmp: Path) -> List[str]:
     if _is_c(name):
         src = CSRC / f"{name}.c"
-        return [_cc(src), *C_FLAGS, "-o", str(tmp), str(src)]
+        return [_cc(src), *C_FLAGS, "-o", str(tmp), str(src), *C_LIBS]
     return [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
 
 

@@ -19,6 +19,11 @@ code rounds it), bit for bit; bicubic in float32, rounded to the nearest
 level and saturated (OpenCV 5 sums in another order with fused
 multiply-adds: 1 level off on about 0.05% of pixels).  A bilinear resize
 at a step of exactly 2 on both axes is OpenCV's 2 x 2 block mean, as there.
+
+The per-pixel passes run in the port's C, `csrc/resize.c` (`impl="c"`, the
+default; built at first use by the host C compiler, `utils/host_c.py`); the
+numpy helpers below form the tap tables for it, and their numpy passes are
+the plain version (`impl="numpy"`), which the C equals bit for bit.
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import numpy as np
+
+from anystereo_tpu_torch.utils import host_c
 
 _CUBIC_A = -0.75
 _COEF_SCALE = 2048  # OpenCV's INTER_RESIZE_COEF_SCALE
@@ -123,14 +130,57 @@ def _halve(img: np.ndarray, w: int, h: int) -> np.ndarray:
     return out.astype(np.uint8)
 
 
+def _lib(name: str):
+    P, I64 = host_c.P, host_c.I64
+    argtypes = {
+        "resize_axis": [P, I64, P, I64, I64, I64, I64, I64, I64, P, P],
+        "resize_linear_u8": [P, I64, I64, P, I64, I64, P, P, P, P, P, P],
+        "resize_halve": [P, I64, I64, I64, I64, P, I64, I64, I64],
+    }[name]
+    return host_c.function("resize", name, argtypes, I64 if name == "resize_axis" else None)
+
+
+def _resize_c(img: np.ndarray, w: int, h: int, mode: str, step_x: float, step_y: float) -> np.ndarray:
+    """The C version of what `resize` does past its checks, on a
+    C-contiguous copy of `img` (uint8, or float32 as the plain one casts)."""
+    u8 = img.dtype == np.uint8
+    src = np.ascontiguousarray(img if u8 else np.asarray(img, np.float32))
+    rows, cols = src.shape[:2]
+    c = 1 if src.ndim == 2 else src.shape[2]
+    out = np.empty((h, w) + src.shape[2:], src.dtype)
+    ptr = lambda a: a.ctypes.data  # noqa: E731
+    if mode == "linear" and step_x == step_y == 2.0:
+        all_even = src.ndim == 3 and c not in (1, 3, 4)
+        _lib("resize_halve")(ptr(src), u8, rows, cols, c, ptr(out), h, w, all_even)
+        return out
+    if u8 and mode == "linear":
+        xi, xw = _fixed_linear_taps(cols, w, step_x, clamp_weights=True)
+        yi, yw = _fixed_linear_taps(rows, h, step_y, clamp_weights=False)
+        xi, xw, yi, yw = (np.ascontiguousarray(a, np.int64) for a in (xi, xw, yi, yw))
+        scratch = np.empty((2, w * c), np.int64)
+        _lib("resize_linear_u8")(ptr(src), cols, c, ptr(out), h, w, ptr(xi), ptr(xw), ptr(yi), ptr(yw),
+                                 ptr(scratch[0]), ptr(scratch[1]))
+        return out
+    axis = _lib("resize_axis")
+    xi, xw = (np.ascontiguousarray(a) for a in _axis_taps(cols, w, mode, step_x))
+    yi, yw = (np.ascontiguousarray(a) for a in _axis_taps(rows, h, mode, step_y))
+    mid = np.empty((rows, w) + src.shape[2:], np.float32)
+    if axis(ptr(src), u8, ptr(mid), False, rows, cols, c, w, xi.shape[1], ptr(xi), ptr(xw)) or \
+            axis(ptr(mid), False, ptr(out), u8, 1, rows, w * c, h, yi.shape[1], ptr(yi), ptr(yw)):
+        raise ValueError(f"resize_axis takes 2 or 4 taps, not {xi.shape[1]}")
+    return out
+
+
 def resize(img: np.ndarray, size: Optional[Tuple[int, int]], mode: str = "cubic",
-           scale: Optional[Tuple[float, float]] = None) -> np.ndarray:
+           scale: Optional[Tuple[float, float]] = None, impl: Optional[str] = None) -> np.ndarray:
     """Resize `img` [H, W] or [H, W, C] (any channel count) to `size` =
     (width, height), the order OpenCV takes it in, or, with `size` None, by
     `scale` = (fx, fy) to (round(W·fx), round(H·fy)), sampling at steps of
     1/fx and 1/fy as `cv2.resize(img, None, fx=fx, fy=fy)` does.  mode:
     "cubic" or "linear".  uint8 in gives uint8 out; anything else float32
-    (module docstring)."""
+    (module docstring).  impl: "c" (the default) or "numpy", the plain
+    version (`utils/host_c.py`)."""
+    impl = host_c.resolve(impl, "resize")
     if size is None:
         if scale is None:
             raise ValueError("resize needs a size or a scale")
@@ -147,6 +197,8 @@ def resize(img: np.ndarray, size: Optional[Tuple[int, int]], mode: str = "cubic"
     if (img.shape[0], img.shape[1]) == (h, w):
         return img.copy() if u8 else np.asarray(img, np.float32).copy()
     step_x, step_y = step_x or img.shape[1] / w, step_y or img.shape[0] / h
+    if impl == "c":
+        return _resize_c(img, w, h, mode, step_x, step_y)
     if mode == "linear" and step_x == step_y == 2.0:
         return _halve(img if u8 else np.asarray(img, np.float32), w, h)
     if u8 and mode == "linear":

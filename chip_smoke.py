@@ -39,8 +39,10 @@
 Phases (any failure raises, and the exit code is not 0):
 
 1. build   every `anystereo_tpu_torch/csrc/*.cu` with nvcc for sm_90a and
-           the readers' host C sources (`csrc/*.c`: the PNG unfilter and
-           the JPEG decoder) with the host C compiler, all sources at once;
+           the data path's host C sources (`csrc/*.c`: the PNG unfilter, the
+           JPEG decoder, the resizes, the colour conversions and the PFM
+           reader with the sparse rescale) with the host C compiler, all
+           sources at once;
 2. kernels each kernel against its plain PyTorch version on the card, at the
            shapes the main paths give it, with its time (CUDA events, L2
            flushed before each launch), the plain version's time, the time
@@ -112,7 +114,16 @@ Phases (any failure raises, and the exit code is not 0):
            beside the plain numpy one on both PNG kinds, None- and
            Paeth-filtered, the C JPEG decode of the committed 540x960 file,
            every committed JPEG held to its recorded PIL digest, and the
-           host compiler's version; then `fetch_dataset(["sceneflow",
+           host compiler's version; the augment line: each host C function
+           of the augmentor at the path's shapes (the uint8 and float32
+           bilinear resizes of a 540x960 frame and its flow by a stretched
+           scale, the bicubic 400x800 -> 160x320, gray, RGB->HSV and
+           HSV->RGB on the 1080x960 stacked pair, a 540x960 PFM read, the
+           sparse rescale of a 375x1242 KITTI disparity) held to its plain
+           numpy version bit for bit and timed beside it, then one SceneFlow
+           (multi-scale) and one KITTI (sparse) sample through
+           `StereoDataset.__getitem__` on the C path and on the plain path
+           from one seed, every array identical; then `fetch_dataset(["sceneflow",
            "falling_things"])` (FallingThings x 5, every image decoded by
            the C readers inside the loader's threads) in
            multi-scale mode at `TrainConfig()` defaults, `PrefetchLoader`
@@ -269,7 +280,7 @@ def phase_build(parent=None):
         procs.append((name, out, subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, "-o", str(out), src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    # the CUDA sources and the readers' host C sources, all started together
+    # the CUDA sources and the data path's host C sources, all started together
     seconds = build.build(sorted(p.stem for p in build.CSRC.glob("*.cu")) +
                           sorted(p.stem for p in build.CSRC.glob("*.c")))
     for name, out, proc in procs:
@@ -1668,6 +1679,8 @@ FT_NAMES = ("kitchen_0/000000", "kitchen_0/000001", "temple_4/000000")  # Fallin
 FT_FX = 768.1605  # FallingThings' left camera, _camera_settings.json
 JPEG_FIXTURES = os.path.join("tests", "data", "jpeg")  # committed JPEGs and PIL's digests of them
 READER_REPS = 5
+AUG_SCALE = (1.31, 1.17)  # a stretched scale the dense augmentor draws
+SPARSE_SCALE = 2 ** 0.3  # one the sparse augmentor draws (no stretch)
 TRAINER_STEPS, TRAINER_RESUMED, TRAINER_CKPT_EVERY, TRAINER_VAL_FRAMES = 4, 6, 2, 2
 TRAINER_WORKERS = 4
 LOADER_BATCHES = 8  # batches the loader makes alone, timed
@@ -1821,6 +1834,105 @@ def _readers_line(np, root, sf, kitti, card):
             f"{version}; {card}")
 
 
+def _identical(got, want, what):
+    """Raise unless the arrays (or tuples, or dicts of them) have the same
+    dtypes, shapes and bytes."""
+    import numpy as np
+
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            raise AssertionError(f"{what}: keys {sorted(got)} against {sorted(want)}")
+        got, want = [got[k] for k in sorted(want)], [want[k] for k in sorted(want)]
+    pairs = zip(got, want) if isinstance(want, (tuple, list)) else [(got, want)]
+    for i, (g, w) in enumerate(pairs):
+        g, w = np.asarray(g), np.asarray(w)
+        if g.dtype != w.dtype or g.shape != w.shape or g.tobytes() != w.tobytes():
+            raise AssertionError(f"{what} [{i}]: the C path's {g.dtype} {g.shape} is not the plain "
+                                 f"version's {w.dtype} {w.shape} bit for bit")
+
+
+def _augment_line(np, root, sf, kitti, ds, card):
+    """A line of the augmentor's host C on the card's host: each function at
+    the path's shapes, held to its plain numpy version bit for bit, both
+    timed (best and median of READER_REPS); then one SceneFlow sample of the
+    trainer's dataset `ds` and one KITTI sample (sparse, 320x736 crops, the
+    spatial step always taken so the sparse rescale runs) through
+    `StereoDataset.__getitem__` on the C path and on the plain path
+    (`host_c.plain()`) from one seed, every array identical, with the C
+    functions each C sample called."""
+    from anystereo_tpu_torch.config import TrainConfig
+    from anystereo_tpu_torch.data import augment, frame_utils, native_io
+    from anystereo_tpu_torch.data.augment import AugmentorConfig
+    from anystereo_tpu_torch.data.datasets import KittiDataset
+    from anystereo_tpu_torch.data.png import read_png
+    from anystereo_tpu_torch.utils import host_c
+    from anystereo_tpu_torch.utils.resize import resize
+
+    frames = [os.path.join(sf, "frames_finalpass", "TRAIN", "A", "0000", view, "0000.png")
+              for view in ("left", "right")]
+    left, right = (read_png(p) for p in frames)
+    pfm = os.path.join(sf, "disparity", "TRAIN", "A", "0000", "left", "0000.pfm")
+    flow = np.stack([frame_utils.read_pfm(pfm, impl="numpy"), np.zeros((SF_H, SF_W), np.float32)], -1)
+    stack = np.concatenate([left, right], axis=0)
+    hsv = augment.rgb_to_hsv(stack, impl="numpy")
+    kdisp, kvalid = frame_utils.read_disp_kitti(os.path.join(kitti, "training", "disp_occ_0",
+                                                             "000000_10.png"))
+    kflow = np.stack([kdisp, np.zeros_like(kdisp)], -1).astype(np.float32)
+    sparse = augment.StereoAugmentor(AugmentorConfig(), sparse=True)
+    crop = left[:400, :800]
+    cases = {
+        f"bilinear u8 {SF_H}x{SF_W}x3 by {AUG_SCALE}": lambda i: resize(left, None, "linear", scale=AUG_SCALE,
+                                                                      impl=i),
+        f"bilinear f32 {SF_H}x{SF_W}x2 flow by {AUG_SCALE}": lambda i: resize(flow, None, "linear",
+                                                                             scale=AUG_SCALE, impl=i),
+        "bicubic u8 400x800x3 -> 160x320x3": lambda i: resize(crop, (320, 160), "cubic", impl=i),
+        f"gray {2 * SF_H}x{SF_W}x3": lambda i: augment.rgb_to_gray(stack, impl=i),
+        f"RGB->HSV {2 * SF_H}x{SF_W}x3": lambda i: augment.rgb_to_hsv(stack, impl=i),
+        f"HSV->RGB {2 * SF_H}x{SF_W}x3": lambda i: augment.hsv_to_rgb(hsv, impl=i),
+        f"read_pfm {SF_H}x{SF_W}": lambda i: frame_utils.read_pfm(pfm, impl=i),
+        f"sparse rescale {EVAL_H}x{EVAL_W} ({int(kvalid.sum())} valid) by {SPARSE_SCALE:.4f}":
+            lambda i: sparse._resize_sparse_flow(kflow, kvalid, SPARSE_SCALE, SPARSE_SCALE, impl=i),
+    }
+    parts = []
+    for what, fn in cases.items():
+        c_best, c_med, got = _ms(lambda: fn("c"))
+        n_best, n_med, want = _ms(lambda: fn("numpy"))
+        _identical(got, want, what)
+        parts.append(f"{what}: C {c_best:.2f} (median {c_med:.2f}), numpy {n_best:.2f} (median {n_med:.2f})")
+    if not native_io.available():
+        raise AssertionError("native_io: the C library did not build")
+    kitti_ds = KittiDataset(kitti, AugmentorConfig(crop_size=TrainConfig().crop_size, spatial_aug_prob=1.0))
+    calls = {}
+    own = host_c.function
+
+    def counted(source, name, *a, **kw):
+        calls[name] = calls.get(name, 0) + 1
+        return own(source, name, *a, **kw)
+
+    for name, dataset in (("SceneFlow multi-scale", ds), ("KITTI sparse", kitti_ds)):
+        calls.clear()
+        host_c.function = counted
+        try:
+            t0 = time.perf_counter()
+            got = dataset.__getitem__(0, rng=np.random.RandomState(SF_TRAIN))
+            c_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            host_c.function = own
+        with host_c.plain():
+            t0 = time.perf_counter()
+            want = dataset.__getitem__(0, rng=np.random.RandomState(SF_TRAIN))
+            n_ms = (time.perf_counter() - t0) * 1e3
+        _identical(got, want, f"the {name} sample")
+        need = {"resize_linear_u8", "rgb_to_gray", "rgb_to_hsv", "hsv_to_rgb"} | \
+            ({"scatter_resize_sparse"} if "KITTI" in name else {"pfm_header"})
+        if not need <= set(calls):
+            raise AssertionError(f"the {name} sample on the C path called {calls}, not all of {sorted(need)}")
+        parts.append(f"{name} sample C {c_ms:.1f} ms, plain {n_ms:.1f} ms, identical (C calls "
+                     f"{dict(sorted(calls.items()))})")
+    return (f"[trainer] augment ms (best of {READER_REPS}, on the card's host; C bit for bit its plain "
+            f"numpy version): " + "; ".join(parts) + f"; {card}")
+
+
 @contextlib.contextmanager
 def _counted_reads():
     """Counts of the image decodes the readers make inside the block, by
@@ -1906,6 +2018,7 @@ def phase_trainer(torch, kernels, card, root):
     cfg = Config(train=TrainConfig(ckpt_dir=ckpt_dir, ckpt_every=TRAINER_CKPT_EVERY))
     tcfg = cfg.train
     ds = _trainer_dataset(cfg, sf, ft)
+    lines.append(_augment_line(np, root, sf, kitti, ds, card))
     inner_validate = make_train_validate_fn(cfg.model, "sceneflow", sf,
                                             max_images=TRAINER_VAL_FRAMES)
     schedule = one_cycle_schedule(tcfg.lr, tcfg.num_steps, tcfg.warmup_frac)

@@ -13,7 +13,10 @@ unit has another width would give).  uint8 images out of the augmentor and
 the datasets: within 1 grey level; OpenCV 5's uint8 bicubic sums in another
 order than the port's float32 (measured: 1 level on 0.0-0.05% of pixels).
 Float flows and ground truth: 1e-4 px or 1e-4 relative (both sum float32
-products of the same taps; measured 2e-7 relative).
+products of the same taps; measured 2e-7 relative).  The conversions and
+resizes held to OpenCV run both the port's C (the default) and its plain
+numpy version (`impl`); `tests/test_torch_host_c.py` holds the two to each
+other bit for bit.
 """
 
 import json
@@ -260,39 +263,46 @@ def _all_colours():
     return c.reshape(4096, 4096, 3).astype(np.uint8)
 
 
-def test_rgb_to_gray_exact_on_every_colour():
+IMPLS = ["c", "numpy"]  # the port's C (the default) and its plain numpy version
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_rgb_to_gray_exact_on_every_colour(impl):
     c = _all_colours()
-    np.testing.assert_array_equal(taug.rgb_to_gray(c), cv2.cvtColor(c, cv2.COLOR_RGB2GRAY))
+    np.testing.assert_array_equal(taug.rgb_to_gray(c, impl=impl), cv2.cvtColor(c, cv2.COLOR_RGB2GRAY))
 
 
-def test_rgb_to_hsv_exact_on_every_colour():
+@pytest.mark.parametrize("impl", IMPLS)
+def test_rgb_to_hsv_exact_on_every_colour(impl):
     c = _all_colours()
-    np.testing.assert_array_equal(taug.rgb_to_hsv(c), cv2.cvtColor(c, cv2.COLOR_RGB2HSV))
+    np.testing.assert_array_equal(taug.rgb_to_hsv(c, impl=impl), cv2.cvtColor(c, cv2.COLOR_RGB2HSV))
 
 
+@pytest.mark.parametrize("impl", IMPLS)
 @pytest.mark.parametrize("width", [4096, 376, 97, 31])
-def test_hsv_round_trip(width):
+def test_hsv_round_trip(width, impl):
     c = _all_colours().reshape(-1, width, 3) if 4096 * 4096 % width == 0 else \
         np.random.RandomState(width).randint(0, 256, (997, width, 3)).astype(np.uint8)
     want = cv2.cvtColor(cv2.cvtColor(c, cv2.COLOR_RGB2HSV), cv2.COLOR_HSV2RGB)
-    got = taug.hsv_to_rgb(taug.rgb_to_hsv(c))
+    got = taug.hsv_to_rgb(taug.rgb_to_hsv(c, impl=impl), impl=impl)
     diff = np.abs(got.astype(int) - want)
     assert diff.max() <= 1 and (diff > 0).mean() <= VECTOR_SHARE, (diff.max(), (diff > 0).mean())
 
 
+@pytest.mark.parametrize("impl", IMPLS)
 @pytest.mark.parametrize("scale", [(1.3, 1.17), (0.93, 1.6), (1.9, 0.77), (0.5, 0.5)])
 @pytest.mark.parametrize("mode", ["linear", "cubic"])
-def test_resize_uint8_by_scale(scale, mode):
+def test_resize_uint8_by_scale(scale, mode, impl):
     img = _texture(np.random.RandomState(6), (61, 103, 3))
     flag = cv2.INTER_LINEAR if mode == "linear" else cv2.INTER_CUBIC
     want = cv2.resize(img, None, fx=scale[0], fy=scale[1], interpolation=flag)
-    got = resize(img, None, mode, scale=scale)
+    got = resize(img, None, mode, scale=scale, impl=impl)
     assert got.dtype == np.uint8 and got.shape == want.shape
     diff = np.abs(got.astype(int) - want)
     assert diff.max() <= 1 and (diff > 0).mean() <= VECTOR_SHARE, (diff.max(), (diff > 0).mean())
     flow = img[..., :2].astype(np.float32) * 0.37
     want = cv2.resize(flow, None, fx=scale[0], fy=scale[1], interpolation=flag)
-    np.testing.assert_allclose(resize(flow, None, mode, scale=scale), want, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(resize(flow, None, mode, scale=scale, impl=impl), want, rtol=0, atol=1e-4)
 
 
 # -------------------------------------------------------------- augmentor
