@@ -55,7 +55,9 @@
 // rounding of each row's sum.  One launch a call, beside the wrapper's
 // zero-fill: no sort, histogram or scan pass, whose extra launches would
 // cost the launch-bound training step more host time than they save on the
-// card.
+// card.  Where the caller asks PyTorch for deterministic algorithms, the
+// wrapper sorts the indices instead and `scatter_rows_sorted` sums each
+// table row's queries in ascending order, without atomics.
 //
 // An index outside [0, N) is the caller's fault; the kernels do not fault on
 // it: the forward writes zeros for that query and the backward drops it, as
@@ -213,6 +215,47 @@ scatter_rows_add(const int32_t* __restrict__ idx, const GT* __restrict__ g,
   }
 }
 
+// The backward in PyTorch's deterministic mode: no atomics, so a run repeats
+// bit for bit.  The wrapper sorts each sample's indices (a stable sort), so
+// order[b, start[b, p] : start[b, p + 1]] are the queries of table row p in
+// ascending order.  A lane group owns a table row, sums its queries' rows of
+// g in that order in fp32 from zero and writes the row (zeros included, so
+// no zero-fill): the order of PyTorch's deterministic `index_add_`.  Indices
+// out of [0, n) sort outside every row's range and are dropped.
+template <typename GT, int VEC>
+__global__ void __launch_bounds__(kThreads)
+scatter_rows_sorted(const int32_t* __restrict__ order, const int32_t* __restrict__ start,
+                    const GT* __restrict__ g, float* __restrict__ dtbl, int q, int n, int c) {
+  const LaneGroup lg(c / VEC);
+  const int b = blockIdx.y;
+  const int32_t* ob = order + (int64_t)b * q;
+  const int32_t* sb = start + (int64_t)b * (n + 1);
+  const GT* gb = g + (int64_t)b * q * c;
+  float* tb = dtbl + (int64_t)b * n * c;
+  const int warp = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  const int warps = gridDim.x * (kThreads / 32);
+  for (int p = warp * lg.per_warp + lg.slot; lg.active && p < n; p += warps * lg.per_warp) {
+    const int j0 = sb[p], j1 = sb[p + 1];
+    for (int ch = lg.unit * VEC; ch < c; ch += lg.lanes * VEC) {
+      float acc[VEC] = {};
+      for (int j = j0; j < j1; ++j) {
+        float v[VEC];
+        load_g<VEC>(gb + (int64_t)ob[j] * c + ch, v);
+#pragma unroll
+        for (int u = 0; u < VEC; ++u) acc[u] += v[u];
+      }
+      float* dst = tb + (int64_t)p * c + ch;
+      if constexpr (VEC == 4) {
+        *reinterpret_cast<float4*>(dst) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+      } else if constexpr (VEC == 2) {
+        *reinterpret_cast<float2*>(dst) = make_float2(acc[0], acc[1]);
+      } else {
+        *dst = acc[0];
+      }
+    }
+  }
+}
+
 // The grid of both kernels: enough blocks for every chunk of queries, at
 // most 8192 (the kernels loop), times the batch
 dim3 grid_for(int64_t batch, int64_t q, int units) {
@@ -233,6 +276,18 @@ template <typename GT, int VEC>
 void launch_scatter(const int32_t* idx, const GT* g, float* dtbl, int batch, int n,
                     int q, int c, cudaStream_t s) {
   scatter_rows_add<GT, VEC><<<grid_for(batch, q, c / VEC), kThreads, 0, s>>>(idx, g, dtbl, q, n, c);
+}
+
+// a block for each kThreads / 32 * per_warp table rows, at most 8192 (the
+// kernel loops), times the batch
+template <typename GT, int VEC>
+void launch_sorted(const int32_t* order, const int32_t* start, const GT* g, float* dtbl, int batch,
+                   int n, int q, int c, cudaStream_t s) {
+  const int units = c / VEC, lanes = units < 32 ? units : 32;
+  const int64_t per_block = (int64_t)(kThreads / 32) * (32 / lanes);
+  const int64_t need = (n + per_block - 1) / per_block;
+  const dim3 grid((unsigned)(need < 8192 ? need : 8192), (unsigned)batch);
+  scatter_rows_sorted<GT, VEC><<<grid, kThreads, 0, s>>>(order, start, g, dtbl, q, n, c);
 }
 
 }  // namespace
@@ -292,6 +347,42 @@ extern "C" int anystereo_scatter_rows_add(const void* idx, const void* g, void* 
       case 4: launch_scatter<float, 4>(ix, gg, d, batch, n, q, c, s); break;
       case 2: launch_scatter<float, 2>(ix, gg, d, batch, n, q, c, s); break;
       default: launch_scatter<float, 1>(ix, gg, d, batch, n, q, c, s);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+// The deterministic backward: order [batch, q] int32, each sample's query
+// numbers sorted by index (stably); start [batch, n + 1] int32, the first
+// position in `order` of each table row's queries (start[b, n] past the
+// last in range); g and `vec` as for anystereo_scatter_rows_add; dtbl
+// [batch, n, c] fp32, every element written.  Launches on `stream`; returns
+// cudaGetLastError(), or cudaErrorInvalidValue as anystereo_scatter_rows_add.
+extern "C" int anystereo_scatter_rows_sorted(const void* order, const void* start, const void* g,
+                                             void* dtbl, long long batch, long long n, long long q,
+                                             int c, int g_bf16, int vec, void* stream) {
+  if (batch > 65535 || n >= INT32_MAX || q > INT32_MAX || q * c > INT32_MAX || n * c > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  if ((vec != 4 && vec != 2 && vec != 1) || c % vec != 0)
+    return (int)cudaErrorInvalidValue;
+  if (batch == 0 || n == 0 || c == 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  const int32_t* o = (const int32_t*)order;
+  const int32_t* st = (const int32_t*)start;
+  float* d = (float*)dtbl;
+  if (g_bf16) {
+    const __nv_bfloat16* gg = (const __nv_bfloat16*)g;
+    switch (vec) {
+      case 4: launch_sorted<__nv_bfloat16, 4>(o, st, gg, d, batch, n, q, c, s); break;
+      case 2: launch_sorted<__nv_bfloat16, 2>(o, st, gg, d, batch, n, q, c, s); break;
+      default: launch_sorted<__nv_bfloat16, 1>(o, st, gg, d, batch, n, q, c, s);
+    }
+  } else {
+    const float* gg = (const float*)g;
+    switch (vec) {
+      case 4: launch_sorted<float, 4>(o, st, gg, d, batch, n, q, c, s); break;
+      case 2: launch_sorted<float, 2>(o, st, gg, d, batch, n, q, c, s); break;
+      default: launch_sorted<float, 1>(o, st, gg, d, batch, n, q, c, s);
     }
   }
   return (int)cudaGetLastError();

@@ -59,12 +59,14 @@ def _record_rng(seed: int, index: int) -> np.random.RandomState:
 def _worker_context():
     """The workers' start method: forks of multiprocessing's fork server, a
     fresh single-threaded interpreter (a fork of this process would copy
-    its threads' locks and its CUDA state) that has imported torch and the
-    port's data modules once, so a restart (as `set_state` makes) costs a
+    its threads' locks and its CUDA state) that has imported torch, the
+    port's data modules and the host C's build helper (with the `ops`
+    package around it) once, so a restart (as `set_state` makes) costs a
     fork, not an interpreter's start."""
     ctx = multiprocessing.get_context("forkserver")
     # read when the server starts, the first time any caller uses it
-    ctx.set_forkserver_preload(["__main__", "anystereo_tpu_torch.data.datasets", __name__])
+    ctx.set_forkserver_preload(["__main__", "anystereo_tpu_torch.data.datasets",
+                                "anystereo_tpu_torch.ops.kernels.build", __name__])
     return ctx
 
 

@@ -22,6 +22,12 @@ def all_pairs_correlation(fl: torch.Tensor, fr: torch.Tensor) -> torch.Tensor:
     return torch.matmul(fl.float(), fr.float().transpose(-1, -2))
 
 
+def _shift_right(x: torch.Tensor, d: int) -> torch.Tensor:
+    """x shifted by +d along W (dim 2) with zero fill: x'[:, :, w] =
+    x[:, :, w-d], zero for w < d."""
+    return F.pad(x, (0, 0) * (x.dim() - 3) + (d, 0))[:, :, :x.shape[2]]
+
+
 def build_gwc_volume(
     fl: torch.Tensor, fr: torch.Tensor, max_disp: int, num_groups: int
 ) -> torch.Tensor:
@@ -31,11 +37,33 @@ def build_gwc_volume(
     cg = c // num_groups
     fl_g = fl.reshape(b, h, w, num_groups, cg).float()
     fr_g = fr.reshape(b, h, w, num_groups, cg).float()
-    slabs = []
-    for d in range(max_disp):
-        fr_d = F.pad(fr_g, (0, 0, 0, 0, d, 0))[:, :, :w]
-        slabs.append((fl_g * fr_d).mean(dim=-1))
+    slabs = [(fl_g * _shift_right(fr_g, d)).mean(dim=-1) for d in range(max_disp)]
     return torch.stack(slabs, dim=-1)
+
+
+def build_correlation_volume(fl: torch.Tensor, fr: torch.Tensor, max_disp: int) -> torch.Tensor:
+    """Dot-product volume [B, H, W, D], fp32: vol[b,h,w,d] =
+    sum_c fl[b,h,w,c] * fr[b,h,w-d,c], zero where w < d."""
+    fl32, fr32 = fl.float(), fr.float()
+    return torch.stack([(fl32 * _shift_right(fr32, d)).sum(dim=-1) for d in range(max_disp)], dim=-1)
+
+
+def build_norm_correlation_volume(
+    fl: torch.Tensor, fr: torch.Tensor, max_disp: int, eps: float = 1e-5
+) -> torch.Tensor:
+    """Cosine-similarity volume [B, H, W, D] in the inputs' dtype: each
+    feature divided by (its L2 norm + eps), then the mean over C of the
+    shifted products.  Where w < d the shifted right features are zeros, so
+    that triangle is exactly zero."""
+    fl_n = fl / (torch.linalg.vector_norm(fl, dim=-1, keepdim=True) + eps)
+    fr_n = fr / (torch.linalg.vector_norm(fr, dim=-1, keepdim=True) + eps)
+    return torch.stack([(fl_n * _shift_right(fr_n, d)).mean(dim=-1) for d in range(max_disp)], dim=-1)
+
+
+def build_concat_volume(fl: torch.Tensor, fr: torch.Tensor, max_disp: int) -> torch.Tensor:
+    """Concatenation volume [B, H, W, 2C, D] in the inputs' dtype: the left
+    features at every d beside the right ones shifted by d (zero fill)."""
+    return torch.stack([torch.cat([fl, _shift_right(fr, d)], dim=-1) for d in range(max_disp)], dim=-1)
 
 
 def _band_from_all_pairs(ap: torch.Tensor, max_disp: int) -> torch.Tensor:

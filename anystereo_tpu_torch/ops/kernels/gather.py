@@ -132,7 +132,11 @@ def scatter_rows_add(idx: torch.Tensor, g: torch.Tensor, n: int) -> torch.Tensor
     A CUDA tensor goes to the kernel (fp32 vector atomics, `scatter_vec`
     channels a lane, into a table this wrapper zero-fills, so the order of
     each row's sum changes from run to run), a CPU tensor to the plain
-    version; any other device raises.
+    version; any other device raises.  Under
+    `torch.use_deterministic_algorithms(True)` the CUDA tensor goes to the
+    sorted kernel instead: the wrapper sorts each sample's indices (stably)
+    and each table row sums its queries in ascending order, the order of
+    PyTorch's deterministic `index_add_`, so that a run repeats bit for bit.
     Each kernel launch adds one to `scatter_rows_add.launches`."""
     if g.dim() != 3:
         raise ValueError(f"expected g [B, Q, C], got {tuple(g.shape)}")
@@ -146,14 +150,27 @@ def scatter_rows_add(idx: torch.Tensor, g: torch.Tensor, n: int) -> torch.Tensor
     if not (g.is_contiguous() and idx.is_contiguous()):
         raise ValueError("g and idx must be contiguous")
     batch, q, c = g.shape
-    dtbl = torch.zeros((batch, n, c), dtype=torch.float32, device=g.device)
-    fn = _entry("anystereo_scatter_rows_add",
-                [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3
-                + [ctypes.c_void_p])
-    with torch.cuda.device(g.device):
-        err = fn(idx.data_ptr(), g.data_ptr(), dtbl.data_ptr(), batch, n, q, c,
-                 int(g.dtype == torch.bfloat16), scatter_vec(c, g.dtype, g.data_ptr()),
-                 torch.cuda.current_stream().cuda_stream)
+    vec, bf16 = scatter_vec(c, g.dtype, g.data_ptr()), int(g.dtype == torch.bfloat16)
+    if torch.are_deterministic_algorithms_enabled():
+        with torch.cuda.device(g.device):
+            key, order = torch.sort(idx, dim=1, stable=True)
+            rows = torch.arange(n + 1, dtype=torch.int32, device=g.device).expand(batch, n + 1)
+            start = torch.searchsorted(key, rows.contiguous(), out_int32=True)
+            order = order.to(torch.int32)
+            dtbl = torch.empty((batch, n, c), dtype=torch.float32, device=g.device)
+            fn = _entry("anystereo_scatter_rows_sorted",
+                        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3
+                        + [ctypes.c_void_p])
+            err = fn(order.data_ptr(), start.data_ptr(), g.data_ptr(), dtbl.data_ptr(), batch, n, q, c,
+                     bf16, vec, torch.cuda.current_stream().cuda_stream)
+    else:
+        dtbl = torch.zeros((batch, n, c), dtype=torch.float32, device=g.device)
+        fn = _entry("anystereo_scatter_rows_add",
+                    [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3
+                    + [ctypes.c_void_p])
+        with torch.cuda.device(g.device):
+            err = fn(idx.data_ptr(), g.data_ptr(), dtbl.data_ptr(), batch, n, q, c, bf16, vec,
+                     torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"scatter_rows_add kernel failed: CUDA error {err}")
     scatter_rows_add.launches += 1

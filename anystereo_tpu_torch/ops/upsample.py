@@ -67,10 +67,12 @@ def context_upsample_queries_quarter(
     return (torch.stack(taps, dim=-1) * weights).sum(dim=-1)
 
 
-def context_upsample(disp_low: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+def context_upsample(disp_low: torch.Tensor, weights: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
     """Fixed-grid upsampling: disp_low [B, H, W] (already scaled), weights
     [B, H', W', 9] → [B, H', W'], each output pixel combining the 3x3
-    neighborhood of the low-res cell a nearest resize assigns it."""
+    neighborhood of the low-res cell a nearest resize assigns it.  The
+    output grid is the weights' (H' = round(4*H*scale)); `scale` itself does
+    not enter the result, as in the JAX package."""
     oh, ow = weights.shape[1], weights.shape[2]
     up = nearest_resize(unfold3x3(disp_low), (oh, ow))  # [B, H', W', 9]
     return (up * weights).sum(dim=-1)

@@ -155,6 +155,35 @@ def make_mesh(cfg: Optional[MeshConfig] = None) -> RankMesh:
     return RankMesh(data, spatial, rank // spatial, rank % spatial, data_group, spatial_group)
 
 
+def shard_batch(batch, mesh: RankMesh, cfg: Optional[MeshConfig] = None, device=None):
+    """This rank's rows of a host batch, on its card (`rank_device(device)`):
+    every array or tensor of a nest of dicts, lists and tuples is cut along
+    its leading (batch) axis into `mesh.data` equal blocks, and the rank
+    takes block `mesh.data_index`, as `NamedSharding(mesh, P("data"))` gives
+    each device of the JAX package's mesh its rows (the ranks of a spatial
+    group take the same block).  A leading axis that does not split evenly
+    raises `ValueError`, as `jax.device_put` does.  `cfg` names the mesh's
+    data axis in the JAX package; the port's mesh has one, so it is not
+    read.  The rows are copied.  The trainer does not call it: there each
+    rank loads only its own rows (the loader's per-rank partition,
+    `train/trainer.py`), so no rank holds the whole batch."""
+    dev = rank_device(device)
+
+    def rows(x):
+        if isinstance(x, dict):
+            return {k: rows(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(rows(v) for v in x)
+        t = torch.as_tensor(x)
+        if not t.dim() or t.shape[0] % mesh.data:
+            raise ValueError(f"an array of shape {tuple(t.shape)} does not split over the mesh's "
+                             f"data axis of {mesh.data}")
+        i, n = mesh.data_index, t.shape[0] // mesh.data
+        return t[i * n:(i + 1) * n].to(dev, copy=True)
+
+    return rows(batch)
+
+
 def rank_device(device=None) -> torch.device:
     """The card of this rank (`cuda:LOCAL_RANK`) where `device` names the
     card without an index, else `device` as `resolve_device` takes it."""

@@ -5,7 +5,8 @@ with a spatially varying disparity), trains the IGEV model through the real
 pipeline (`StereoDataset` multi-scale sampling, the augmentor,
 `PrefetchLoader`, `train()` with a checkpoint), then validates the held-out
 pairs through `validate_dataset` (padding, dense decode, metrics, a report
-with images) and prints the EPE.  The port's counterpart of the repo's
+with images) and prints the EPE.  The run uses PyTorch's deterministic
+algorithms, so that it repeats from its seed on the card as on the CPU.  The port's counterpart of the repo's
 `tools/e2e_demo.py`, with its flags, recipe and exit codes (0 PASS, 1 WEAK,
 2 a non-finite EPE); the pairs come from `make_synthetic_datasets`'s numpy
 redo of OpenCV's blur and remap, not from OpenCV.
@@ -89,6 +90,24 @@ def main(argv=None) -> int:
         level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s"
     )
 
+    import torch
+
+    # The gate is a seeded band, so the run must repeat from its seed: on the
+    # card the scatter-add's atomics and cuDNN's fastest backward algorithms
+    # sum in an order that changes from run to run, and 150 steps carry that
+    # rounding to a different held-out EPE.  PyTorch's deterministic
+    # algorithms for the run (the scatter-add's sorted kernel among them),
+    # the caller's setting back after it.
+    was = torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled()
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        return _run(args)
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+
+
+def _run(args) -> int:
     from anystereo_tpu_torch.config import Config, ModelConfig, TrainConfig
     from anystereo_tpu_torch.data.loader import PrefetchLoader
     from anystereo_tpu_torch.eval.validate import validate_dataset

@@ -15,10 +15,13 @@
                                       # lookup's inside the IGEV one under
                                       # "levels", its forward and
                                       # backward inside the IGEV training
-                                      # step under "levels", and the
+                                      # step under "levels", the
                                       # window-pyramid lookup's forward and
                                       # backward inside the RAFT training
-                                      # step under "classify"
+                                      # step under "classify", and the
+                                      # aligned lookup's, the scatter-add's
+                                      # and the gather's inside the IGEV
+                                      # training step under remat
     python3 chip_smoke.py --spread    # and the run-to-run spread of the fp32
                                       # gradients with and without cuDNN's
                                       # deterministic algorithms
@@ -57,7 +60,9 @@ Phases (any failure raises, and the exit code is not 0):
            row-major backward also at path-shaped positions, with
            `floor_ms` and the read-flush time), the query row gather and its
            scatter-add transpose (the 9-tap disparity table and both latent
-           tables, 51,200 queries a sample), `gather_rows_hybrid`, and the
+           tables, 51,200 queries a sample; the scatter also in PyTorch's
+           deterministic mode, its sorted kernel repeating its bits),
+           `gather_rows_hybrid`, and the
            single-level linear lookups, forward and backward, bit for bit:
            `gather_window_linear` at the eight level shapes of the "levels"
            flavor's eval forwards and the four of its training step,
@@ -103,8 +108,12 @@ Phases (any failure raises, and the exit code is not 0):
            160x320, 51,200 queries a sample, 16 iterations with a query decode
            each, bf16, sequence loss, clip, AdamW) on a seeded synthetic
            batch, one warm-up and three timed steps with the exact launch
-           counts of each: the IGEV model ("aligned") and the RAFT model
-           ("classify"); one timed step of the IGEV model under "levels";
+           counts of each: the IGEV model ("aligned"), the same with
+           `ModelConfig(remat=True)` (path `train_remat`: the backward runs
+           each iteration's body again, so per step B1 64 + 32 and gather 96,
+           scatter 48), its ms a step and peak memory beside the plain
+           step's, and the RAFT model ("classify"); one timed step of the
+           IGEV model under "levels";
 7. trainer training from dataset files: a SceneFlow tree (8 + 2 pairs of
            540x960 PNGs with left and right PFM disparities) and a KITTI
            2015 tree (2 frames of 375x1242, 16-bit disparity PNGs) written
@@ -186,9 +195,10 @@ Phases (any failure raises, and the exit code is not 0):
            the SceneFlow, KITTI, Middlebury and ETH3D trees at seed 0 (nine
            protocols resolve); `check_datasets --smoke` on them (an eval
            smoke, a 20-step CLI train smoke in a subprocess); `e2e_demo` at
-           the JAX gate's recipe (150 steps at lr 2e-4, `supervise_init`)
-           must print E2E PASS, a held-out EPE under 2.1 px, with its ms a
-           step; `overfit_sanity` (400 steps on one batch) must print
+           the JAX gate's recipe (150 steps at lr 2e-4, `supervise_init`,
+           PyTorch's deterministic algorithms, so the run repeats from its
+           seed) must print E2E PASS, a held-out EPE under 2.1 px, with its
+           ms a step; `overfit_sanity` (400 steps on one batch) must print
            LEARNED; `reproduce_baseline` rehearses the 100k-step recipe for
            20 steps and writes a row for each of the nine protocols naming
            the card; `scaling_bench --devices 1`; exact launches stage by
@@ -203,8 +213,11 @@ Phases (any failure raises, and the exit code is not 0):
            against its plain version; a training loss and every parameter's
            gradient (batch 1, 4,096 queries) through the kernels and with
            every kernel forced to its plain version, IGEV under "aligned" and
-           under "levels", RAFT under "classify"; one forward each with
-           `quarter_nearest="both"` and with `local_ensemble=True`.
+           under "levels", RAFT under "classify"; the IGEV training loss and
+           gradients of the train phase's step (`TrainConfig()`, its batch)
+           with `remat` against the same without, both through the kernels;
+           one forward each with `quarter_nearest="both"` and with
+           `local_ensemble=True`.
 
 It prints a `kernels` JSON line (also written to kernels.json in OUT_DIR),
 with `--parent` a short line of the redesigned kernels' times beside the
@@ -245,6 +258,7 @@ OUT_DIR = "chiprun_out"
 DEVICE = "cuda"
 PARENT = {}  # --parent: source name -> library built from an earlier checkout's source
 PAIR_MS = {}  # (core, flavor) -> mean ms per pair of the timed eval requests
+STEP_MS = {}  # (core, flavor, remat) -> (mean ms per timed training step, peak GiB)
 IN_PATH = {}  # --profile: B1-B3 summed inside the profiled forward and step
 YARDSTICK = {}  # the kernels phase: one launch between the event pair (`_yardstick`)
 
@@ -582,8 +596,8 @@ def _kernels_lookup_fwd(torch):
     # PyTorch call computes this lookup
     return _record("gather_pyramid_aligned", "anystereo_tpu_torch/csrc/lookup_aligned.cu",
                    "anystereo_tpu/ops/pallas/lookup_kernel.py:1103", calls, main=(0, 1),
-                   paths=("eval_igev", "bench", "train_igev", "eval_raft", "trainer", "loader", "convert", "cli",
-                          "ddp", "spatial", "tools"))
+                   paths=("eval_igev", "bench", "train_igev", "train_remat", "eval_raft", "trainer", "loader",
+                          "convert", "cli", "ddp", "spatial", "tools"))
 
 
 def _bound(nbytes, flops):
@@ -673,7 +687,7 @@ def _kernels_lookup_bwd(torch):
         calls.append(res)
     return _record("gather_pyramid_aligned_bwd", "anystereo_tpu_torch/csrc/lookup_aligned.cu",
                    "anystereo_tpu/ops/pallas/lookup_kernel.py:965", calls, main=(0, 1),
-                   paths=("train_igev", "trainer", "loader", "cli", "ddp", "tools"))
+                   paths=("train_igev", "train_remat", "trainer", "loader", "cli", "ddp", "tools"))
 
 
 def _kernels_window(torch):
@@ -929,7 +943,9 @@ def _kernels_gather(torch):
     rows, its share of SPATIAL_QUERIES).  The gather is a copy and must be
     exact.  The scatter sums with atomics, so a row's sum is taken in another
     order than the plain version's: for each (row, channel),
-    |diff| <= 1e-5 * (1 + the sum of |g| over the queries that land there)."""
+    |diff| <= 1e-5 * (1 + the sum of |g| over the queries that land there).
+    In PyTorch's deterministic mode the scatter is the sorted kernel: it must
+    repeat its bits and hold the same band."""
     from anystereo_tpu_torch.ops.kernels.gather import (
         gather_rows,
         gather_rows_ref,
@@ -1012,6 +1028,21 @@ def _kernels_gather(torch):
         torch.cuda.synchronize()
         if not bool(((out.view_as(want) - want).abs() <= SCATTER_RTOL * (1.0 + row_abs)).all()):
             raise AssertionError(f"index_add_ {shape} disagrees with the plain version")
+        # PyTorch's deterministic mode (the e2e demo's): the sorted kernel,
+        # which must repeat its bits, against the plain version in that mode
+        torch.use_deterministic_algorithms(True)
+        try:
+            got_d, again = scatter_rows_add(idx, g, n), scatter_rows_add(idx, g, n)
+            want_d = scatter_rows_add_ref(idx, g, n)
+            torch.cuda.synchronize()
+            res["deterministic_ms"] = _time_ms(torch, lambda: scatter_rows_add(idx, g, n))
+        finally:
+            torch.use_deterministic_algorithms(False)
+        ddiff = (got_d - want_d).abs()
+        if not torch.equal(got_d, again) or not bool((ddiff <= SCATTER_RTOL * (1.0 + row_abs)).all()):
+            raise AssertionError(f"scatter_rows_add {shape}, deterministic mode: repeats its bits "
+                                 f"{torch.equal(got_d, again)}, max |kernel - plain| {float(ddiff.max())}")
+        res["deterministic_max_abs_err"] = float(ddiff.max())
         res["bytes"], res["flops"] = idx.numel() * 4 + g.numel() * es + got.numel() * 4, g.numel()
         res["bound_ms"], res["bound_by"] = _bound(res["bytes"], res["flops"])
         parent = "" if not PARENT else (
@@ -1020,18 +1051,22 @@ def _kernels_gather(torch):
              f"{res['ms']:.4f} ms ({res['vec']} channels a lane), floor "
              f"{res['floor_ms']:.4f} ms, plain "
              f"{res['plain_ms']:.4f} ms, index_add_ {res['library_ms']:.4f} ms, bound "
-             f"{res['bound_ms']:.4f} ms ({res['bytes']} B){parent}")
+             f"{res['bound_ms']:.4f} ms ({res['bytes']} B); deterministic mode (sorted kernel, "
+             f"bits repeated) max|diff| {res['deterministic_max_abs_err']:.3g}, "
+             f"{res['deterministic_ms']:.4f} ms{parent}")
         bwd.append(res)
-        del table, idx, bad, g, got, got_bad, want, out, g32, idx1, g1
+        del table, idx, bad, g, got, got_bad, want, out, g32, idx1, g1, got_d, again, want_d
     src = "anystereo_tpu_torch/csrc/gather_rows.cu"
     # per decode all three tables go through the gather forward and the
     # scatter backward
-    paths = ("train_igev", "train_raft", "trainer", "loader", "cli", "ddp", "tools")
+    paths = ("train_igev", "train_remat", "train_raft", "trainer", "loader", "cli", "ddp", "tools")
     return [
         _record("gather_rows", src, "anystereo_tpu/ops/pallas/gather_kernel.py:319", fwd,
                 main=(0, 1, 2), paths=paths + ("spatial",), library=True),
-        _record("scatter_rows_add", src, "anystereo_tpu/ops/pallas/gather_kernel.py:355", bwd,
-                main=(0, 1, 2), paths=paths, library=True),
+        dict(_record("scatter_rows_add", src, "anystereo_tpu/ops/pallas/gather_kernel.py:355", bwd,
+                     main=(0, 1, 2), paths=paths, library=True),
+             deterministic_ms=sum(c["deterministic_ms"] for c in bwd),
+             deterministic_max_abs_err=max(c["deterministic_max_abs_err"] for c in bwd)),
     ]
 
 
@@ -1600,33 +1635,44 @@ def _counts(kernels):
     return [k.launches for k in kernels]
 
 
+def _step_counts(kernels, core, flavor, it, remat=False):
+    """Expected launches of one training step of `it` iterations: per
+    iteration one lookup forward and one backward a volume, and per decode
+    the three query tables through the gather forward and the scatter-add
+    backward.  Under `remat` the backward runs each iteration's body again
+    (`nn/model.py`: the GRU update and the query decode under
+    `torch.utils.checkpoint`), so the lookup forwards and the gathers launch
+    twice; the backward kernels launch as often as without."""
+    runs = 2 if remat else 1
+    want = dict.fromkeys((k.__name__ for k in kernels), 0)
+    want.update({name: runs * n for name, n in _lookup_counts(core, flavor, it).items()})
+    want.update({name + "_bwd": n for name, n in _lookup_counts(core, flavor, it).items()})
+    want.update(gather_rows=runs * 3 * it, scatter_rows_add=3 * it)
+    return want
+
+
 def _expect_launches(kernels, before, want, what):
     got = {k.__name__: k.launches - b for k, b in zip(kernels, before)}
     if got != want:
         raise AssertionError(f"kernel launches of {what}: {got}, want {want}")
 
 
-def phase_train(torch, kernels, core, flavor, steps=TRAIN_STEPS):
+def phase_train(torch, kernels, core, flavor, steps=TRAIN_STEPS, remat=False):
     """One warm-up and `steps` timed training steps of one model under
-    one lookup flavor at full width, with the exact launch counts of each:
-    per iteration one lookup forward and one backward a volume, and per
-    decode the three query tables through the gather kernel forward and the
-    scatter-add kernel backward."""
+    one lookup flavor at full width (with `remat`, `ModelConfig(remat=True)`),
+    with the exact launch counts of each (`_step_counts`)."""
     from anystereo_tpu_torch.config import TrainConfig
     from anystereo_tpu_torch.nn.model import build_model
     from anystereo_tpu_torch.train.state import create_train_state
     from anystereo_tpu_torch.train.step import make_train_step
 
     tcfg = TrainConfig()
-    model = build_model(_config(core), device=DEVICE, seed=0)
+    model = build_model(_config(core, remat=remat), device=DEVICE, seed=0)
     state = create_train_state(model, tcfg)
     step = make_train_step(model, tcfg)
     batch = _train_batch(torch, tcfg.batch_size, TRAIN_H, TRAIN_W, tcfg.sample_q, seed=4)
     it = tcfg.train_iters
-    per_step = dict.fromkeys((k.__name__ for k in kernels), 0)
-    per_step.update(_lookup_counts(core, flavor, it))
-    per_step.update({name + "_bwd": n for name, n in _lookup_counts(core, flavor, it).items()})
-    per_step.update(gather_rows=3 * it, scatter_rows_add=3 * it)
+    per_step = _step_counts(kernels, core, flavor, it, remat)
     for k in kernels:
         k.launches = 0
     start = {n: p.detach().clone() for n, p in model.named_parameters()}
@@ -1642,7 +1688,8 @@ def phase_train(torch, kernels, core, flavor, steps=TRAIN_STEPS):
             dt = (time.perf_counter() - t0) * 1e3
             if i:
                 times.append(dt)
-            _expect_launches(kernels, before, per_step, f"{core} training step {i} ({flavor})")
+            _expect_launches(kernels, before, per_step, f"{core} training step {i} ({flavor}"
+                             f"{', remat' if remat else ''})")
             loss, gnorm = float(metrics["loss"]), metrics["grad_norm"]
             losses.append(loss)
             if not (loss == loss and abs(loss) != float("inf") and 0 < gnorm < float("inf")):
@@ -1660,8 +1707,10 @@ def phase_train(torch, kernels, core, flavor, steps=TRAIN_STEPS):
              if n not in zero and torch.equal(p.detach(), start[n])]
     if still:
         raise AssertionError(f"parameters with a gradient that did not change: {still}")
+    STEP_MS[(core, flavor, remat)] = (sum(times) / len(times), peak)
     _log(f"[train] {core.upper()} training step {tcfg.batch_size}x{TRAIN_H}x{TRAIN_W}, Q "
-         f"{tcfg.sample_q}, {it} iters, bf16, lookup {flavor}: {sum(times) / len(times):.2f} "
+         f"{tcfg.sample_q}, {it} iters, bf16, lookup {flavor}{', remat' if remat else ''}: "
+         f"{sum(times) / len(times):.2f} "
          f"ms/step over {steps} steps ({', '.join(f'{t:.2f}' for t in times)} ms; warm-up "
          f"excluded), peak {peak:.2f} GiB; losses {[round(v, 4) for v in losses]}; last grad_norm "
          f"{gnorm:.3f}, lr {metrics['lr']:.3e}, epe {float(metrics['epe']):.3f} px; launches per "
@@ -3035,8 +3084,9 @@ def phase_tools(torch, kernels, card, root):
     `make_synthetic_datasets` writes every tree at seed 0 (its nine
     protocols must resolve); `check_datasets --smoke` on it must exit 0 (its
     20-step train smoke is a CLI subprocess); `e2e_demo` at the JAX gate's
-    recipe (150 steps at lr 2e-4) must print E2E PASS (held-out EPE under
-    2.1 px); `overfit_sanity` at its 400 steps must print LEARNED;
+    recipe (150 steps at lr 2e-4, deterministic) must print E2E PASS
+    (held-out EPE under 2.1 px); `overfit_sanity` at its 400 steps must
+    print LEARNED;
     `reproduce_baseline` rehearses the 100k-step recipe for 20 steps and
     must write a row for each of the nine protocols (2 frames each) naming
     the card; `scaling_bench --devices 1` prints its line (its rank is a
@@ -3252,10 +3302,7 @@ def _check_train(torch, kernels, core, flavor):
     """fp32 training loss and gradients through the kernels against the same
     with every kernel forced to its plain version (which launches nothing)."""
     through_kernels, plain = _fp32_train_runs(torch, core, flavor)
-    want = dict.fromkeys((k.__name__ for k in kernels), 0)
-    want.update(_lookup_counts(core, flavor, CHECK_ITERS))
-    want.update({name + "_bwd": n for name, n in _lookup_counts(core, flavor, CHECK_ITERS).items()})
-    want.update(gather_rows=3 * CHECK_ITERS, scatter_rows_add=3 * CHECK_ITERS)
+    want = _step_counts(kernels, core, flavor, CHECK_ITERS)
     before = _counts(kernels)
     k_loss, k_grads = through_kernels()
     _expect_launches(kernels, before, want, f"{core} fp32 forward and backward ({flavor})")
@@ -3270,6 +3317,42 @@ def _check_train(torch, kernels, core, flavor):
          f"(bound {GRAD_CHECK_RTOL})")
     if not rel <= LOSS_CHECK_RTOL or bad:
         raise AssertionError(f"kernel and plain training disagree: loss {k_loss} vs {p_loss}; {bad}")
+
+
+def _check_remat(torch, kernels):
+    """fp32, the train phase's step (`TrainConfig()` on its batch): the IGEV
+    training loss and every parameter's gradient with `ModelConfig(remat=True)`
+    against the same without, both through the kernels from the same seed-0
+    weights, each with its exact launches (`_step_counts`): the recomputed
+    iterations must give the gradients of the stored ones."""
+    from anystereo_tpu_torch.config import TrainConfig
+    from anystereo_tpu_torch.nn.model import build_model
+    from anystereo_tpu_torch.train.step import loss_and_metrics
+
+    tcfg = TrainConfig()
+    batch = _train_batch(torch, tcfg.batch_size, TRAIN_H, TRAIN_W, tcfg.sample_q, seed=4)
+    runs = {}
+    for remat in (False, True):
+        model = build_model(_config("igev", compute_dtype="float32", remat=remat), device=DEVICE, seed=0)
+        before = _counts(kernels)
+        with _flavor("aligned"):
+            loss, _ = loss_and_metrics(model, tcfg, batch)
+            loss.backward()
+        torch.cuda.synchronize()
+        _expect_launches(kernels, before, _step_counts(kernels, "igev", "aligned", tcfg.train_iters, remat),
+                         f"IGEV fp32 training step{' under remat' if remat else ''}")
+        runs[remat] = float(loss.detach()), {n: p.grad for n, p in model.named_parameters()}
+        del model, loss
+        torch.cuda.empty_cache()
+    (p_loss, p_grads), (r_loss, r_grads) = runs[False], runs[True]
+    worst, worst_name, bad = _grad_diff(r_grads, p_grads)
+    rel = abs(r_loss - p_loss) / abs(p_loss)
+    _log(f"[check] IGEV fp32 training step {tcfg.batch_size}x{TRAIN_H}x{TRAIN_W}, Q {tcfg.sample_q}, "
+         f"{tcfg.train_iters} iters, remat vs not: loss {r_loss:.6f} vs {p_loss:.6f} (relative "
+         f"{rel:.2e}, bound {LOSS_CHECK_RTOL}); worst ||dg||/||g|| {worst:.2e} ({worst_name}) over "
+         f"{len(p_grads)} parameters (bound {GRAD_CHECK_RTOL})")
+    if not rel <= LOSS_CHECK_RTOL or bad:
+        raise AssertionError(f"training with and without remat disagree: loss {r_loss} vs {p_loss}; {bad}")
 
 
 def _check_occlusion(torch):
@@ -3354,6 +3437,7 @@ def phase_check(torch, kernels):
     for core, flavor in (("igev", "aligned"), ("igev", "levels"), ("raft", "classify")):
         _check_train(torch, kernels, core, flavor)
         torch.cuda.empty_cache()
+    _check_remat(torch, kernels)
     _check_liif_modes(torch)
 
 
@@ -3566,11 +3650,12 @@ def _train_parts(flavor):
             "b2_ms": ("scatter_rows_add", scatter_rows_add), "b3_ms": ("gather_rows_fwd", gather_rows)}
 
 
-def phase_profile_train(torch, model, tcfg, state, step, batch, flavor="aligned"):
+def phase_profile_train(torch, model, tcfg, state, step, batch, flavor="aligned", remat=False):
     """Stream time of the forward, the backward and the optimizer of one
-    training step (CUDA events) under the lookup flavor `flavor`, then the
-    whole step under torch.profiler with the kernels of `_train_parts`
-    summed inside it (with --parent in turns with the parent's)."""
+    training step (CUDA events) under the lookup flavor `flavor` (`remat`:
+    the model was built with it), then the whole step under torch.profiler
+    with the kernels of `_train_parts` summed inside it (with --parent in
+    turns with the parent's)."""
     from anystereo_tpu_torch.train.step import loss_and_metrics
 
     def ev():
@@ -3602,10 +3687,11 @@ def phase_profile_train(torch, model, tcfg, state, step, batch, flavor="aligned"
                "busy_share": kernel_ms / prof_wall, **sums}
     if turns is not None:
         summary["in_turns"] = turns
-    label = "training step" if flavor == "aligned" else f"training step ({flavor})"
+    tag = "_".join(([] if flavor == "aligned" else [flavor]) + (["remat"] if remat else []))
+    label = "training step" + (f" ({tag.replace('_', ', ')})" if tag else "")
     IN_PATH[label] = {k: summary[k] for k in (*parts, "in_turns") if k in summary}
     os.makedirs(OUT_DIR, exist_ok=True)
-    name = "profile_train.txt" if flavor == "aligned" else f"profile_train_{flavor}.txt"
+    name = f"profile_train_{tag}.txt" if tag else "profile_train.txt"
     path = os.path.join(OUT_DIR, name)
     with open(path, "w") as f:
         f.write(json.dumps(summary) + "\n" + table)
@@ -3666,6 +3752,15 @@ def main(argv) -> int:
         phase_profile_train(torch, *trained)
     del trained
     torch.cuda.empty_cache()
+    by_path["train_remat"], trained = phase_train(torch, kernels, "igev", "aligned", remat=True)
+    if profile:
+        phase_profile_train(torch, *trained, remat=True)
+    del trained
+    torch.cuda.empty_cache()
+    (ms, peak), (remat_ms, remat_peak) = (STEP_MS[("igev", "aligned", r)] for r in (False, True))
+    _log(f"[train] IGEV training step under remat: {remat_ms:.2f} ms/step, peak {remat_peak:.2f} GiB; "
+         f"without: {ms:.2f} ms/step, peak {peak:.2f} GiB ({remat_ms / ms:.3f}x the time, "
+         f"{remat_peak / peak:.3f}x the memory)")
     by_path["train_raft"], trained = phase_train(torch, kernels, "raft", "classify")
     if profile:
         phase_profile_train(torch, *trained, flavor="classify")

@@ -268,6 +268,36 @@ def test_scatter_kernel_vector_widths(card, c, dtype):
                 assert bool(((got - want).abs() <= bound).all()), (b, scatter_vec(c, dtype, g.data_ptr()))
 
 
+@pytest.mark.parametrize("c", [1, 4, 9, 40, 184])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_kernel_deterministic_mode(card, c, dtype):
+    """Under `torch.use_deterministic_algorithms(True)` the wrapper sorts the
+    indices and launches the sorted kernel once: a second call gives the same
+    bits, the sum is within the atomics' band of the plain version (in the
+    same mode), indices out of range are dropped, and rows no query reaches
+    are zero."""
+    gen = torch.Generator(device=card).manual_seed(6)
+    n, q = 300, 5003
+    idx = torch.randint(0, n - 20, (2, q), device=card, generator=gen, dtype=torch.int32)
+    idx[:, :4] = torch.tensor([-1, n, n + 7, -(2 ** 31)], device=card, dtype=torch.int32)
+    g = torch.randn(2, q, c, device=card, generator=gen).to(dtype)
+    valid = ((idx >= 0) & (idx < n))[..., None]
+    torch.use_deterministic_algorithms(True)
+    try:
+        want = scatter_rows_add_ref(idx.clamp(0, n - 1), g * valid, n)
+        bound = 1e-5 * (1.0 + scatter_rows_add_ref(idx.clamp(0, n - 1), g.abs() * valid, n))
+        before = scatter_rows_add.launches
+        got, again = scatter_rows_add(idx, g, n), scatter_rows_add(idx, g, n)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert scatter_rows_add.launches == before + 2
+    assert got.dtype == torch.float32 and got.shape == (2, n, c)
+    assert torch.equal(got, again)
+    assert bool(((got - want).abs() <= bound).all())
+    assert not got[:, n - 20:].any()
+
+
 @pytest.mark.parametrize("fn,fwd_launches", [(gather_rows, 1), (gather_rows_hybrid, 0)])
 def test_gather_functions_backward_through_the_scatter_kernel(card, fn, fwd_launches):
     g = torch.Generator(device=card).manual_seed(4)
@@ -361,6 +391,43 @@ def test_training_forward_backward_through_kernels(card, monkeypatch, core, flav
     floor = max(1e-7, 1e-8 * max(float(g.norm()) for g in plain_grads.values()))
     for name, want_g in plain_grads.items():
         assert float((grads[name] - want_g).norm()) <= 1e-3 * float(want_g.norm()) + floor, name
+
+
+def test_remat_training_step_through_kernels(card, monkeypatch):
+    """A small fp32 IGEV training forward and backward with
+    `ModelConfig(remat=True)` against the same without, both through the
+    kernels under "aligned": the backward runs each iteration's body again,
+    so per iteration the lookup forward launches twice a volume and the
+    query gather six times (three tables, twice), while the lookup backward
+    and the scatter-add launch as without; loss and gradients agree."""
+    monkeypatch.setenv("ANYSTEREO_LOOKUP_KERNEL", "aligned")
+    iters = 2
+    tcfg = TrainConfig(train_iters=iters)
+    g = torch.Generator(device=card).manual_seed(5)
+    left = torch.rand(2, 64, 160, 3, device=card, generator=g) * 255
+    batch = {"left": left, "right": torch.roll(left, shifts=-4, dims=2),
+             "coords": torch.rand(2, 1000, 2, device=card, generator=g) * 2 - 1,
+             "scale": torch.tensor([1.5, 2.5], device=card),
+             "gt": torch.full((2, 1000), 6.0, device=card), "valid": torch.ones(2, 1000, device=card)}
+    kernels = (gather_pyramid_aligned, gather_pyramid_aligned_bwd, gather_rows, scatter_rows_add)
+    runs = {}
+    for remat in (False, True):
+        model = build_model(ModelConfig(max_disp=32, compute_dtype="float32", remat=remat), device=card,
+                            seed=0)
+        before = [k.launches for k in kernels]
+        loss, _ = loss_and_metrics(model, tcfg, batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        runs_of_body = 2 if remat else 1
+        assert [k.launches - b for k, b in zip(kernels, before)] == \
+            [runs_of_body * 2 * iters, 2 * iters, runs_of_body * 3 * iters, 3 * iters]
+        runs[remat] = loss.detach(), {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+    (loss, grads), (remat_loss, remat_grads) = runs[False], runs[True]
+    torch.testing.assert_close(remat_loss, loss, rtol=1e-5, atol=0)
+    assert set(grads) == set(remat_grads)
+    floor = max(1e-7, 1e-8 * max(float(g.norm()) for g in grads.values()))
+    for name, want_g in grads.items():
+        assert float((remat_grads[name] - want_g).norm()) <= 1e-3 * float(want_g.norm()) + floor, name
 
 
 # ------------------------------------------------- the window-pyramid kernels

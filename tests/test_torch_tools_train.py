@@ -64,6 +64,30 @@ def test_e2e_demo_two_steps(tmp_path):
     assert os.listdir(tmp_path / "ckpt") == ["2"]
 
 
+def test_e2e_demo_trains_deterministically_and_restores_the_setting(tmp_path, monkeypatch):
+    """The demo's run repeats from its seed: it trains under PyTorch's
+    deterministic algorithms (the scatter-add's sorted kernel on the card),
+    and the caller's setting comes back after it, also when the run raises."""
+    from anystereo_tpu_torch.tools import e2e_demo
+    from anystereo_tpu_torch.train import trainer
+
+    class Stop(Exception):
+        pass
+
+    seen = []
+
+    def train(cfg, loader, device=None):
+        seen.append(torch.are_deterministic_algorithms_enabled())
+        raise Stop
+
+    monkeypatch.setattr(trainer, "train", train)
+    assert not torch.are_deterministic_algorithms_enabled()
+    with pytest.raises(Stop):
+        e2e_demo.main(["--steps", "1", "--pairs", "1", "--device", "cpu", "--out", str(tmp_path)])
+    assert seen == [True]
+    assert not torch.are_deterministic_algorithms_enabled()
+
+
 def test_overfit_sanity_two_steps():
     out = _tool("overfit_sanity", "--steps", 2, "--device", "cpu")
     assert out.returncode in (0, 1), out.stderr[-3000:]

@@ -359,6 +359,45 @@ def test_remat_gives_the_same_gradients(variables):
         assert float((grads[1][1][name] - g).norm()) <= 1e-4 * float(g.norm()) + 1e-7, name
 
 
+def test_remat_recomputes_each_lookup_and_query_gather_once(monkeypatch):
+    """Under `remat` the backward runs each iteration's body once more: the
+    plain versions of the aligned lookup's forward and of the query gather
+    (what the kernels stand for on the CPU) run twice as often as without,
+    the lookup's backward as often.  These are the per-step launches
+    `chip_smoke.py` expects of its `train_remat` path (`_step_counts`)."""
+    import chip_smoke
+    from anystereo_tpu_torch.nn.model import build_model
+    from anystereo_tpu_torch.ops import sampling
+    from anystereo_tpu_torch.ops.kernels import lookup as kl
+
+    calls = {}
+
+    def counted(module, name, key):
+        fn = getattr(module, name)
+
+        def wrapper(*a, **kw):
+            calls[key] = calls.get(key, 0) + 1
+            return fn(*a, **kw)
+        monkeypatch.setattr(module, name, wrapper)
+
+    counted(kl, "gather_pyramid_aligned_ref", "gather_pyramid_aligned")
+    counted(kl, "gather_pyramid_aligned_bwd_ref", "gather_pyramid_aligned_bwd")
+    counted(sampling, "gather_rows_ref", "gather_rows")
+    monkeypatch.setenv("ANYSTEREO_LOOKUP_KERNEL", "aligned")
+    batch = {k: torch.from_numpy(v) for k, v in _batch().items()}
+    kernels = chip_smoke._launch_counters()
+    for remat in (False, True):
+        model = build_model(ModelConfig(max_disp=MAX_DISP, compute_dtype="float32", remat=remat,
+                                        hidden_dims=(32, 32, 32)), device="cpu", seed=0)
+        calls.clear()
+        loss, _ = loss_and_metrics(model, TCFG, batch)
+        loss.backward()
+        want = chip_smoke._step_counts(kernels, "igev", "aligned", ITERS, remat)
+        keys = ("gather_pyramid_aligned", "gather_pyramid_aligned_bwd", "gather_rows")
+        assert calls == {k: want[k] for k in keys}, remat
+        assert calls["gather_pyramid_aligned"] == (2 if remat else 1) * 2 * ITERS
+
+
 def test_train_step_bf16_band(variables, fp32_pair):
     jm = JaxAnyStereo(JaxConfig(max_disp=MAX_DISP, compute_dtype="bfloat16"))
 
