@@ -55,9 +55,18 @@
 // rounding of each row's sum.  One launch a call, beside the wrapper's
 // zero-fill: no sort, histogram or scan pass, whose extra launches would
 // cost the launch-bound training step more host time than they save on the
-// card.  Where the caller asks PyTorch for deterministic algorithms, the
-// wrapper sorts the indices instead and `scatter_rows_sorted` sums each
-// table row's queries in ascending order, without atomics.
+// card.
+//
+// Where the caller asks PyTorch for deterministic algorithms,
+// `scatter_rows_ordered` runs instead: no atomics, and each table row sums
+// its queries in ascending q in fp32 from zero, so a run repeats bit for
+// bit: the order of `index_add_` on the CPU, and of PyTorch's deterministic
+// `index_add_` on the card for rows wider than one channel.  One launch, no
+// sort: a block owns up to 128 consecutive table rows of a sample and
+// finds their queries itself, a stable counting sort in shared memory (its
+// comment below).  What bounds it: g read once from device memory, and
+// each block's pass over all its sample's indices (200 KB at Q = 51,200)
+// from L2, so the grid holds about two blocks an SM and no more.
 //
 // An index outside [0, N) is the caller's fault; the kernels do not fault on
 // it: the forward writes zeros for that query and the backward drops it, as
@@ -215,45 +224,253 @@ scatter_rows_add(const int32_t* __restrict__ idx, const GT* __restrict__ g,
   }
 }
 
-// The backward in PyTorch's deterministic mode: no atomics, so a run repeats
-// bit for bit.  The wrapper sorts each sample's indices (a stable sort), so
-// order[b, start[b, p] : start[b, p + 1]] are the queries of table row p in
-// ascending order.  A lane group owns a table row, sums its queries' rows of
-// g in that order in fp32 from zero and writes the row (zeros included, so
-// no zero-fill): the order of PyTorch's deterministic `index_add_`.  Indices
-// out of [0, n) sort outside every row's range and are dropped.
-template <typename GT, int VEC>
-__global__ void __launch_bounds__(kThreads)
-scatter_rows_sorted(const int32_t* __restrict__ order, const int32_t* __restrict__ start,
-                    const GT* __restrict__ g, float* __restrict__ dtbl, int q, int n, int c) {
-  const LaneGroup lg(c / VEC);
-  const int b = blockIdx.y;
-  const int32_t* ob = order + (int64_t)b * q;
-  const int32_t* sb = start + (int64_t)b * (n + 1);
-  const GT* gb = g + (int64_t)b * q * c;
-  float* tb = dtbl + (int64_t)b * n * c;
-  const int warp = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
-  const int warps = gridDim.x * (kThreads / 32);
-  for (int p = warp * lg.per_warp + lg.slot; lg.active && p < n; p += warps * lg.per_warp) {
-    const int j0 = sb[p], j1 = sb[p + 1];
-    for (int ch = lg.unit * VEC; ch < c; ch += lg.lanes * VEC) {
-      float acc[VEC] = {};
-      for (int j = j0; j < j1; ++j) {
-        float v[VEC];
-        load_g<VEC>(gb + (int64_t)ob[j] * c + ch, v);
+// The backward in PyTorch's deterministic mode.  A block owns the table
+// rows [p0, p0 + rows) of one sample (rows <= kOrderedRowsMax; the grid's x
+// is the row blocks and its y the sample) and sums each row's queries in
+// ascending q in fp32 from zero; it writes every element of its rows, so
+// the table needs no zero-fill.  It finds its rows' queries itself, by a
+// stable counting sort of the sample's indices in shared memory:
+//   1. count: the queries are cut into kOrderedWarps contiguous segments,
+//      one a warp.  A warp streams its segment, 16 bytes of indices a lane
+//      and kQuadsInFlight loads in flight; it counts the queries of each of
+//      the block's rows into cnt[row][segment] (shared atomics: integer
+//      counts have no order) and stages them, (q, row) in ascending q, in
+//      its own kStageCap slots;
+//   2. scan: an exclusive scan over (row, then segment) gives each segment
+//      its first slot in each row's list, and begin[row] each list's start;
+//   3. place: each warp places its staged queries, 32 at a time; a query's
+//      slot is its segment's next slot in its row plus its rank among the
+//      lanes with the same row (`__match_any_sync`), so that each list holds
+//      its row's queries in ascending q.  A segment that found more than
+//      kStageCap queries streams its indices again past the last one staged
+//      and places the rest one lane after another;
+//   4. sum: a `LaneGroup` takes a row at a time and walks its list,
+//      loading kSumInFlight queries' rows of g (`vec` channels a lane,
+//      evict first) before it adds any, and stores the row.
+// The lists hold kListCap queries.  Where the block's rows receive more,
+// the block takes q in windows of kListCap queries (a window cannot
+// overflow), counting, placing and summing each in turn; a row's partial
+// sum is carried from window to window in its own elements of the table,
+// which only this block writes, so the adds are the same sequence and give
+// the same bits.  Indices outside [0, n) fall in no block's rows.
+constexpr int kOrderedThreads = 512;
+constexpr int kOrderedWarps = kOrderedThreads / 32;
+constexpr int kOrderedRowsMin = 8, kOrderedRowsMax = 128;
+constexpr int kOrderedBlocks = 264;  // two blocks on each of the H100's 132 SMs
+constexpr int kListCap = 4096;       // queries a block places at once
+constexpr int kStageCap = 256;       // queries a warp stages in its count
+constexpr int kQuadsInFlight = 4;    // 16-byte loads of indices a lane has in flight
+constexpr int kSumInFlight = 8;      // query rows of g a lane group loads before it adds them
+
+struct OrderedShared {
+  int cnt[kOrderedRowsMax * kOrderedWarps];  // [row][segment]: the count, then the next slot
+  int begin[kOrderedRowsMax + 1];            // each row's first slot, then the total
+  int warp_sum[kOrderedWarps];
+  unsigned stage_q[kOrderedWarps][kStageCap];        // [segment]: its first queries in the rows,
+  unsigned char stage_row[kOrderedWarps][kStageCap];  // ascending, and their rows
+  unsigned list[kListCap];                           // the queries, row after row
+};
+
+// Segment `seg` of the queries [qa, qb), from query `from` on (qa <= from),
+// in ascending q.  Each segment is a multiple of 32 indices from the
+// 16-byte word that holds query qa (the first may start before qa, the last
+// end early): lane l reads the word w = w0 + 32u + l (4 indices) for
+// u < kQuadsInFlight at once (one scalar load an index where the word is
+// not wholly inside the range), then visit(row, hits, j0) runs for each u
+// in turn: row[k] the index of query j0 + k less p0, and bit k of `hits`
+// set where it lies in [0, rows) (and the query in the range).  Every lane
+// of the warp makes the same calls, so `visit` may use the whole warp.
+template <typename Visit>
+__device__ __forceinline__ void walk_quads(const int32_t* __restrict__ ib, unsigned qa, unsigned qb,
+                                           unsigned from, int seg, int p0, int rows, Visit visit) {
+  const unsigned lane = threadIdx.x & 31;
+  // a = q + off counts indices from the 16-byte word that holds ib[0]
+  const unsigned off = (unsigned)(reinterpret_cast<uintptr_t>(ib) >> 2) & 3;
+  const int4* words = reinterpret_cast<const int4*>(ib - off);
+  const unsigned lo = (qa + off) & ~3u, hi = qb + off, len = hi - lo;
+  const unsigned per = (len / kOrderedWarps + (len % kOrderedWarps != 0) + 31) & ~31u;
+  const unsigned long long s0 = lo + (unsigned long long)seg * per;
+  const unsigned s = s0 < hi ? (unsigned)s0 : hi, e = hi - s > per ? s + per : hi;
+  const unsigned start = max(s, (from + off) & ~3u);
+  for (unsigned a0 = start; a0 < e; a0 += 128 * kQuadsInFlight) {
+    int4 t[kQuadsInFlight];
+    bool whole[kQuadsInFlight];
 #pragma unroll
-        for (int u = 0; u < VEC; ++u) acc[u] += v[u];
+    for (int u = 0; u < kQuadsInFlight; ++u) {
+      const unsigned a = a0 + 128 * u + 4 * lane;
+      whole[u] = a >= from + off && a + 4 <= e;
+      t[u] = whole[u] ? __ldg(words + (a >> 2)) : make_int4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int u = 0; u < kQuadsInFlight; ++u) {
+      const unsigned a = a0 + 128 * u + 4 * lane;
+      unsigned row[4] = {(unsigned)t[u].x, (unsigned)t[u].y, (unsigned)t[u].z, (unsigned)t[u].w};
+      unsigned hits = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (!whole[u]) {
+          const bool in = a + k >= from + off && a + k < e;
+          row[k] = in ? (unsigned)__ldg(ib + (a + k - off)) : (unsigned)p0 - 1;
+        }
+        row[k] -= (unsigned)p0;
+        hits |= (unsigned)(row[k] < (unsigned)rows) << k;
       }
-      float* dst = tb + (int64_t)p * c + ch;
-      if constexpr (VEC == 4) {
-        *reinterpret_cast<float4*>(dst) = make_float4(acc[0], acc[1], acc[2], acc[3]);
-      } else if constexpr (VEC == 2) {
-        *reinterpret_cast<float2*>(dst) = make_float2(acc[0], acc[1]);
-      } else {
-        *dst = acc[0];
-      }
+      visit(row, hits, (long long)a - off);
     }
   }
+}
+
+// Step 1 for the queries [qa, qb) by this warp's segment, then step 2:
+// sh.cnt and sh.begin, the total in sh.begin[rows], and the segment's
+// staged queries; returns how many queries the segment found (the first
+// kStageCap of them staged).  Ends with a barrier.
+__device__ __forceinline__ int count_rows(OrderedShared& sh, const int32_t* __restrict__ ib, unsigned qa,
+                                          unsigned qb, int p0, int rows) {
+  const int warp = threadIdx.x >> 5, seg = warp, lane = threadIdx.x & 31;
+  const unsigned lower_lanes = (1u << lane) - 1;
+  const int cells = rows * kOrderedWarps;
+  for (int i = threadIdx.x; i < cells; i += kOrderedThreads) sh.cnt[i] = 0;
+  __syncthreads();
+  int found = 0;  // the same in every lane of the warp
+  walk_quads(ib, qa, qb, qa, seg, p0, rows, [&](const unsigned (&row)[4], unsigned hits, long long j0) {
+    // the lanes' counts of queries in the rows (at most 4: three bits)
+    const int count = __popc(hits);
+    const unsigned c1 = __ballot_sync(0xffffffffu, count & 1), c2 = __ballot_sync(0xffffffffu, count & 2),
+                   c4 = __ballot_sync(0xffffffffu, count & 4);
+    if (hits) {
+      int slot = found + __popc(c1 & lower_lanes) + 2 * __popc(c2 & lower_lanes) + 4 * __popc(c4 & lower_lanes);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (hits >> k & 1) {
+          atomicAdd(&sh.cnt[row[k] * kOrderedWarps + seg], 1);
+          if (slot < kStageCap) {
+            sh.stage_q[seg][slot] = (unsigned)(j0 + k);
+            sh.stage_row[seg][slot] = (unsigned char)row[k];
+          }
+          ++slot;
+        }
+      }
+    }
+    found += __popc(c1) + 2 * __popc(c2) + 4 * __popc(c4);
+  });
+  __syncthreads();
+  // exclusive scan over (row, segment): thread t owns `per` consecutive cells
+  const int per = (cells + kOrderedThreads - 1) / kOrderedThreads;
+  const int i0 = min(cells, (int)threadIdx.x * per), i1 = min(cells, i0 + per);
+  int own = 0;
+  for (int i = i0; i < i1; ++i) own += sh.cnt[i];
+  int incl = own;
+  for (int d = 1; d < 32; d *= 2) {
+    const int t = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += t;
+  }
+  if (lane == 31) sh.warp_sum[warp] = incl;
+  __syncthreads();
+  int next = incl - own;
+  for (int v = 0; v < warp; ++v) next += sh.warp_sum[v];
+  for (int i = i0; i < i1; ++i) {
+    const int here = sh.cnt[i];
+    if (i % kOrderedWarps == 0) sh.begin[i / kOrderedWarps] = next;
+    sh.cnt[i] = next;
+    next += here;
+  }
+  if (threadIdx.x == kOrderedThreads - 1) sh.begin[rows] = next;  // every cell lies before its range
+  __syncthreads();
+  return found;
+}
+
+// Step 3 for this warp's segment of the queries [qa, qb), after
+// count_rows found `found` queries there.
+__device__ __forceinline__ void place_rows(OrderedShared& sh, const int32_t* __restrict__ ib, unsigned qa,
+                                           unsigned qb, int found, int p0, int rows) {
+  const int seg = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const unsigned lower_lanes = (1u << lane) - 1;
+  const int staged = min(found, kStageCap);
+  for (int i0 = 0; i0 < staged; i0 += 32) {
+    const int i = i0 + lane;
+    const int row = i < staged ? sh.stage_row[seg][i] : -1;
+    const unsigned peers = __match_any_sync(0xffffffffu, row);
+    int* next = &sh.cnt[max(row, 0) * kOrderedWarps + seg];
+    if (row >= 0) sh.list[*next + __popc(peers & lower_lanes)] = sh.stage_q[seg][i];
+    __syncwarp();
+    if (row >= 0 && (peers & lower_lanes) == 0) *next += __popc(peers);
+    __syncwarp();
+  }
+  if (found > kStageCap) {  // the rest of the segment, past the last query staged
+    walk_quads(ib, qa, qb, sh.stage_q[seg][kStageCap - 1] + 1, seg, p0, rows,
+               [&](const unsigned (&row)[4], unsigned hits, long long j0) {
+      // the lanes with queries in the rows, in ascending q
+      for (unsigned lanes = __ballot_sync(0xffffffffu, hits != 0); lanes; lanes &= lanes - 1) {
+        if (lane == __ffs(lanes) - 1) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            if (hits >> k & 1) sh.list[sh.cnt[row[k] * kOrderedWarps + seg]++] = (unsigned)(j0 + k);
+          }
+        }
+        __syncwarp();
+      }
+    });
+  }
+}
+
+// idx [B, q], g [B, q, c], dtbl [B, n, c] fp32 (every element written);
+// c % VEC == 0; blockIdx.x * rows_per_block is the block's first row.
+template <typename GT, int VEC>
+__global__ void __launch_bounds__(kOrderedThreads, 2)
+scatter_rows_ordered(const int32_t* __restrict__ idx, const GT* __restrict__ g,
+                     float* __restrict__ dtbl, int q, int n, int c, int rows_per_block) {
+  __shared__ OrderedShared sh;
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.y;
+  const int p0 = blockIdx.x * rows_per_block, rows = min(rows_per_block, n - p0);
+  const int32_t* ib = idx + (int64_t)b * q;
+  const GT* gb = g + (int64_t)b * q * c;
+  float* tb = dtbl + ((int64_t)b * n + p0) * c;
+  const LaneGroup lg(c / VEC);
+  const int groups = kOrderedWarps * lg.per_warp, group = warp * lg.per_warp + lg.slot;
+
+  int found = count_rows(sh, ib, 0, q, p0, rows);
+  // one window of all the queries where the lists hold them, else windows of kListCap
+  const unsigned window = sh.begin[rows] <= kListCap ? (unsigned)q : (unsigned)kListCap;
+  unsigned qa = 0;
+  do {
+    const unsigned qb = q - qa > window ? qa + window : q;
+    if (window != (unsigned)q) found = count_rows(sh, ib, qa, qb, p0, rows);
+    place_rows(sh, ib, qa, qb, found, p0, rows);
+    __syncthreads();
+    for (int r = group; lg.active && r < rows; r += groups) {
+      const int j0 = sh.begin[r], j1 = sh.begin[r + 1];
+      for (int ch = lg.unit * VEC; ch < c; ch += lg.lanes * VEC) {
+        float* dst = tb + (int64_t)r * c + ch;
+        float acc[VEC];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[e] = qa == 0 ? 0.0f : dst[e];  // the earlier windows' sum
+        for (int j = j0; j < j1; j += kSumInFlight) {
+          float v[kSumInFlight][VEC];
+#pragma unroll
+          for (int u = 0; u < kSumInFlight; ++u) {
+            if (j + u < j1) load_g<VEC>(gb + (int64_t)sh.list[j + u] * c + ch, v[u]);
+          }
+#pragma unroll
+          for (int u = 0; u < kSumInFlight; ++u) {
+            if (j + u < j1) {
+#pragma unroll
+              for (int e = 0; e < VEC; ++e) acc[e] = __fadd_rn(acc[e], v[u][e]);
+            }
+          }
+        }
+        if constexpr (VEC == 4) {
+          *reinterpret_cast<float4*>(dst) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+        } else if constexpr (VEC == 2) {
+          *reinterpret_cast<float2*>(dst) = make_float2(acc[0], acc[1]);
+        } else {
+          *dst = acc[0];
+        }
+      }
+    }
+    qa = qb;
+    __syncthreads();  // every list is summed before the next window's count
+  } while (qa < (unsigned)q);
 }
 
 // The grid of both kernels: enough blocks for every chunk of queries, at
@@ -278,16 +495,23 @@ void launch_scatter(const int32_t* idx, const GT* g, float* dtbl, int batch, int
   scatter_rows_add<GT, VEC><<<grid_for(batch, q, c / VEC), kThreads, 0, s>>>(idx, g, dtbl, q, n, c);
 }
 
-// a block for each kThreads / 32 * per_warp table rows, at most 8192 (the
-// kernel loops), times the batch
+// The deterministic backward's rows a block: the fewest that give at most
+// kOrderedBlocks blocks in all (each block reads all its sample's indices,
+// so fewer, wider blocks read less; as many blocks on each SM, so that no
+// SM sums more rows than another), within [kOrderedRowsMin,
+// kOrderedRowsMax]; and its grid
+int ordered_rows(int64_t batch, int64_t n) {
+  const int64_t per_sample = batch < kOrderedBlocks ? kOrderedBlocks / batch : 1;
+  const int64_t rows = (n + per_sample - 1) / per_sample;
+  return (int)(rows < kOrderedRowsMin ? kOrderedRowsMin : rows > kOrderedRowsMax ? kOrderedRowsMax : rows);
+}
+
 template <typename GT, int VEC>
-void launch_sorted(const int32_t* order, const int32_t* start, const GT* g, float* dtbl, int batch,
-                   int n, int q, int c, cudaStream_t s) {
-  const int units = c / VEC, lanes = units < 32 ? units : 32;
-  const int64_t per_block = (int64_t)(kThreads / 32) * (32 / lanes);
-  const int64_t need = (n + per_block - 1) / per_block;
-  const dim3 grid((unsigned)(need < 8192 ? need : 8192), (unsigned)batch);
-  scatter_rows_sorted<GT, VEC><<<grid, kThreads, 0, s>>>(order, start, g, dtbl, q, n, c);
+void launch_ordered(const int32_t* idx, const GT* g, float* dtbl, int batch, int n, int q, int c,
+                    cudaStream_t s) {
+  const int rows = ordered_rows(batch, n);
+  const dim3 grid((unsigned)((n + rows - 1) / rows), (unsigned)batch);
+  scatter_rows_ordered<GT, VEC><<<grid, kOrderedThreads, 0, s>>>(idx, g, dtbl, q, n, c, rows);
 }
 
 }  // namespace
@@ -352,37 +576,35 @@ extern "C" int anystereo_scatter_rows_add(const void* idx, const void* g, void* 
   return (int)cudaGetLastError();
 }
 
-// The deterministic backward: order [batch, q] int32, each sample's query
-// numbers sorted by index (stably); start [batch, n + 1] int32, the first
-// position in `order` of each table row's queries (start[b, n] past the
-// last in range); g and `vec` as for anystereo_scatter_rows_add; dtbl
-// [batch, n, c] fp32, every element written.  Launches on `stream`; returns
-// cudaGetLastError(), or cudaErrorInvalidValue as anystereo_scatter_rows_add.
-extern "C" int anystereo_scatter_rows_sorted(const void* order, const void* start, const void* g,
-                                             void* dtbl, long long batch, long long n, long long q,
-                                             int c, int g_bf16, int vec, void* stream) {
-  if (batch > 65535 || n >= INT32_MAX || q > INT32_MAX || q * c > INT32_MAX || n * c > INT32_MAX)
+// The deterministic backward: the arguments of anystereo_scatter_rows_add,
+// but dtbl need not be zeroed (every element is written), and each row's
+// queries are summed in ascending order.  Launches on `stream`; returns
+// cudaGetLastError(), or cudaErrorInvalidValue for another vec, a batch
+// beyond the grid's y or q, n, q * c or n * c beyond 32 bits.
+extern "C" int anystereo_scatter_rows_ordered(const void* idx, const void* g, void* dtbl,
+                                              long long batch, long long n, long long q,
+                                              int c, int g_bf16, int vec, void* stream) {
+  if (batch > 65535 || n > INT32_MAX || q > INT32_MAX || q * c > INT32_MAX || n * c > INT32_MAX)
     return (int)cudaErrorInvalidValue;
   if ((vec != 4 && vec != 2 && vec != 1) || c % vec != 0)
     return (int)cudaErrorInvalidValue;
   if (batch == 0 || n == 0 || c == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
-  const int32_t* o = (const int32_t*)order;
-  const int32_t* st = (const int32_t*)start;
+  const int32_t* ix = (const int32_t*)idx;
   float* d = (float*)dtbl;
   if (g_bf16) {
     const __nv_bfloat16* gg = (const __nv_bfloat16*)g;
     switch (vec) {
-      case 4: launch_sorted<__nv_bfloat16, 4>(o, st, gg, d, batch, n, q, c, s); break;
-      case 2: launch_sorted<__nv_bfloat16, 2>(o, st, gg, d, batch, n, q, c, s); break;
-      default: launch_sorted<__nv_bfloat16, 1>(o, st, gg, d, batch, n, q, c, s);
+      case 4: launch_ordered<__nv_bfloat16, 4>(ix, gg, d, batch, n, q, c, s); break;
+      case 2: launch_ordered<__nv_bfloat16, 2>(ix, gg, d, batch, n, q, c, s); break;
+      default: launch_ordered<__nv_bfloat16, 1>(ix, gg, d, batch, n, q, c, s);
     }
   } else {
     const float* gg = (const float*)g;
     switch (vec) {
-      case 4: launch_sorted<float, 4>(o, st, gg, d, batch, n, q, c, s); break;
-      case 2: launch_sorted<float, 2>(o, st, gg, d, batch, n, q, c, s); break;
-      default: launch_sorted<float, 1>(o, st, gg, d, batch, n, q, c, s);
+      case 4: launch_ordered<float, 4>(ix, gg, d, batch, n, q, c, s); break;
+      case 2: launch_ordered<float, 2>(ix, gg, d, batch, n, q, c, s); break;
+      default: launch_ordered<float, 1>(ix, gg, d, batch, n, q, c, s);
     }
   }
   return (int)cudaGetLastError();

@@ -14,6 +14,7 @@ drop its gradient, as the TPU kernels do).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -125,6 +126,18 @@ def scatter_vec(c: int, dtype: torch.dtype, ptr: int) -> int:
     return next(v for v in (4, 2, 1) if c % v == 0 and ptr % (v * size) == 0)
 
 
+@contextlib.contextmanager
+def _unfilled():
+    """`torch.empty` without deterministic mode's fill of the new memory."""
+    det = torch.utils.deterministic
+    was = det.fill_uninitialized_memory
+    det.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        det.fill_uninitialized_memory = was
+
+
 def scatter_rows_add(idx: torch.Tensor, g: torch.Tensor, n: int) -> torch.Tensor:
     """`dtbl[b, p, :] = sum of g[b, q, :] over q with idx[b, q] == p`, summed
     in fp32: idx [B, Q] int32, g [B, Q, C] fp32 or bf16 → [B, n, C] fp32.
@@ -134,10 +147,11 @@ def scatter_rows_add(idx: torch.Tensor, g: torch.Tensor, n: int) -> torch.Tensor
     each row's sum changes from run to run), a CPU tensor to the plain
     version; any other device raises.  Under
     `torch.use_deterministic_algorithms(True)` the CUDA tensor goes to the
-    sorted kernel instead: the wrapper sorts each sample's indices (stably)
-    and each table row sums its queries in ascending order, the order of
-    PyTorch's deterministic `index_add_`, so that a run repeats bit for bit.
-    Each kernel launch adds one to `scatter_rows_add.launches`."""
+    ordered kernel instead: no atomics and no sort beside it, each table row
+    summing its queries in ascending order, so that a run repeats bit for
+    bit: the order of `index_add_` on the CPU, and of PyTorch's
+    deterministic `index_add_` on the card for rows of more than one
+    channel.  Each kernel launch adds one to `scatter_rows_add.launches`."""
     if g.dim() != 3:
         raise ValueError(f"expected g [B, Q, C], got {tuple(g.shape)}")
     if g.dtype not in _TABLE_DTYPES:
@@ -152,25 +166,18 @@ def scatter_rows_add(idx: torch.Tensor, g: torch.Tensor, n: int) -> torch.Tensor
     batch, q, c = g.shape
     vec, bf16 = scatter_vec(c, g.dtype, g.data_ptr()), int(g.dtype == torch.bfloat16)
     if torch.are_deterministic_algorithms_enabled():
-        with torch.cuda.device(g.device):
-            key, order = torch.sort(idx, dim=1, stable=True)
-            rows = torch.arange(n + 1, dtype=torch.int32, device=g.device).expand(batch, n + 1)
-            start = torch.searchsorted(key, rows.contiguous(), out_int32=True)
-            order = order.to(torch.int32)
+        # the kernel writes every element: no zero-fill, and none of the
+        # fill that deterministic mode gives `torch.empty`
+        with _unfilled():
             dtbl = torch.empty((batch, n, c), dtype=torch.float32, device=g.device)
-            fn = _entry("anystereo_scatter_rows_sorted",
-                        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3
-                        + [ctypes.c_void_p])
-            err = fn(order.data_ptr(), start.data_ptr(), g.data_ptr(), dtbl.data_ptr(), batch, n, q, c,
-                     bf16, vec, torch.cuda.current_stream().cuda_stream)
+        name = "anystereo_scatter_rows_ordered"
     else:
         dtbl = torch.zeros((batch, n, c), dtype=torch.float32, device=g.device)
-        fn = _entry("anystereo_scatter_rows_add",
-                    [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3
-                    + [ctypes.c_void_p])
-        with torch.cuda.device(g.device):
-            err = fn(idx.data_ptr(), g.data_ptr(), dtbl.data_ptr(), batch, n, q, c, bf16, vec,
-                     torch.cuda.current_stream().cuda_stream)
+        name = "anystereo_scatter_rows_add"
+    fn = _entry(name, [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    with torch.cuda.device(g.device):
+        err = fn(idx.data_ptr(), g.data_ptr(), dtbl.data_ptr(), batch, n, q, c, bf16, vec,
+                 torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"scatter_rows_add kernel failed: CUDA error {err}")
     scatter_rows_add.launches += 1

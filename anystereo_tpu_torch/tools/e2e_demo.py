@@ -6,10 +6,12 @@ pipeline (`StereoDataset` multi-scale sampling, the augmentor,
 `PrefetchLoader`, `train()` with a checkpoint), then validates the held-out
 pairs through `validate_dataset` (padding, dense decode, metrics, a report
 with images) and prints the EPE.  The run uses PyTorch's deterministic
-algorithms, so that it repeats from its seed on the card as on the CPU.  The port's counterpart of the repo's
-`tools/e2e_demo.py`, with its flags, recipe and exit codes (0 PASS, 1 WEAK,
-2 a non-finite EPE); the pairs come from `make_synthetic_datasets`'s numpy
-redo of OpenCV's blur and remap, not from OpenCV.
+algorithms and full fp32 (no TF32), so that it repeats from its seed on the
+card as on the CPU, whatever precision its caller had set.  The port's
+counterpart of the repo's `tools/e2e_demo.py`, with its flags, recipe and
+exit codes (0 PASS, 1 WEAK, 2 a non-finite EPE); the pairs come from
+`make_synthetic_datasets`'s numpy redo of OpenCV's blur and remap, not from
+OpenCV.
 
   python -m anystereo_tpu_torch.tools.e2e_demo --steps 150 --lr 2e-4 \\
       --epe-target 2.1 [--out DIR] [--device cpu]
@@ -95,16 +97,22 @@ def main(argv=None) -> int:
     # The gate is a seeded band, so the run must repeat from its seed: on the
     # card the scatter-add's atomics and cuDNN's fastest backward algorithms
     # sum in an order that changes from run to run, and 150 steps carry that
-    # rounding to a different held-out EPE.  PyTorch's deterministic
-    # algorithms for the run (the scatter-add's sorted kernel among them),
-    # the caller's setting back after it.
-    was = torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled()
+    # rounding to a different held-out EPE; so does TF32, which PyTorch
+    # leaves on for cuDNN's convolutions by default.  PyTorch's
+    # deterministic algorithms for the run (the scatter-add's ordered kernel
+    # among them) and full fp32 (TF32 off in cuDNN and in cuBLAS's matmuls,
+    # the arithmetic of a CPU run); the caller's settings back after it.
+    backends = torch.backends
+    was = (torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled(),
+           backends.cudnn.allow_tf32, backends.cuda.matmul.allow_tf32)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.use_deterministic_algorithms(True)
+    backends.cudnn.allow_tf32 = backends.cuda.matmul.allow_tf32 = False
     try:
         return _run(args)
     finally:
         torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+        backends.cudnn.allow_tf32, backends.cuda.matmul.allow_tf32 = was[2:]
 
 
 def _run(args) -> int:

@@ -944,8 +944,8 @@ def _kernels_gather(torch):
     exact.  The scatter sums with atomics, so a row's sum is taken in another
     order than the plain version's: for each (row, channel),
     |diff| <= 1e-5 * (1 + the sum of |g| over the queries that land there).
-    In PyTorch's deterministic mode the scatter is the sorted kernel: it must
-    repeat its bits and hold the same band."""
+    In PyTorch's deterministic mode the scatter is the ordered kernel
+    (`_scatter_deterministic`): exact."""
     from anystereo_tpu_torch.ops.kernels.gather import (
         gather_rows,
         gather_rows_ref,
@@ -1028,34 +1028,24 @@ def _kernels_gather(torch):
         torch.cuda.synchronize()
         if not bool(((out.view_as(want) - want).abs() <= SCATTER_RTOL * (1.0 + row_abs)).all()):
             raise AssertionError(f"index_add_ {shape} disagrees with the plain version")
-        # PyTorch's deterministic mode (the e2e demo's): the sorted kernel,
-        # which must repeat its bits, against the plain version in that mode
-        torch.use_deterministic_algorithms(True)
-        try:
-            got_d, again = scatter_rows_add(idx, g, n), scatter_rows_add(idx, g, n)
-            want_d = scatter_rows_add_ref(idx, g, n)
-            torch.cuda.synchronize()
-            res["deterministic_ms"] = _time_ms(torch, lambda: scatter_rows_add(idx, g, n))
-        finally:
-            torch.use_deterministic_algorithms(False)
-        ddiff = (got_d - want_d).abs()
-        if not torch.equal(got_d, again) or not bool((ddiff <= SCATTER_RTOL * (1.0 + row_abs)).all()):
-            raise AssertionError(f"scatter_rows_add {shape}, deterministic mode: repeats its bits "
-                                 f"{torch.equal(got_d, again)}, max |kernel - plain| {float(ddiff.max())}")
-        res["deterministic_max_abs_err"] = float(ddiff.max())
         res["bytes"], res["flops"] = idx.numel() * 4 + g.numel() * es + got.numel() * 4, g.numel()
         res["bound_ms"], res["bound_by"] = _bound(res["bytes"], res["flops"])
+        _scatter_deterministic(torch, res, idx, g, n, out, flat, g32)
         parent = "" if not PARENT else (
             f"; parent {res['parent_ms']} / this tree {res['ms_beside_parent']} ms in turns")
+        det_parent = "" if not PARENT else (
+            f"; parent {res['parent_deterministic_ms']} / this tree "
+            f"{res['deterministic_ms_beside_parent']} ms in turns")
         _log(f"[kernels] scatter_rows_add {shape}: max|diff| {res['max_abs_err']:.3g}; kernel "
              f"{res['ms']:.4f} ms ({res['vec']} channels a lane), floor "
              f"{res['floor_ms']:.4f} ms, plain "
              f"{res['plain_ms']:.4f} ms, index_add_ {res['library_ms']:.4f} ms, bound "
-             f"{res['bound_ms']:.4f} ms ({res['bytes']} B); deterministic mode (sorted kernel, "
-             f"bits repeated) max|diff| {res['deterministic_max_abs_err']:.3g}, "
-             f"{res['deterministic_ms']:.4f} ms{parent}")
+             f"{res['bound_ms']:.4f} ms ({res['bytes']} B){parent}; deterministic mode (ordered kernel, "
+             f"one launch and one kernel a call, bits repeated, exact against the plain version) "
+             f"{res['deterministic_ms']:.4f} ms, index_add_ {res['deterministic_library_ms']:.4f} ms, bound "
+             f"{res['deterministic_bound_ms']:.4f} ms{det_parent}")
         bwd.append(res)
-        del table, idx, bad, g, got, got_bad, want, out, g32, idx1, g1, got_d, again, want_d
+        del table, idx, bad, g, got, got_bad, want, out, g32, idx1, g1
     src = "anystereo_tpu_torch/csrc/gather_rows.cu"
     # per decode all three tables go through the gather forward and the
     # scatter backward
@@ -1065,9 +1055,78 @@ def _kernels_gather(torch):
                 main=(0, 1, 2), paths=paths + ("spatial",), library=True),
         dict(_record("scatter_rows_add", src, "anystereo_tpu/ops/pallas/gather_kernel.py:355", bwd,
                      main=(0, 1, 2), paths=paths, library=True),
-             deterministic_ms=sum(c["deterministic_ms"] for c in bwd),
+             **{key: sum(c[key] for c in bwd) for key in (
+                 "deterministic_ms", "deterministic_library_ms", "deterministic_bound_ms")},
              deterministic_max_abs_err=max(c["deterministic_max_abs_err"] for c in bwd)),
     ]
+
+
+def _scatter_deterministic(torch, res, idx, g, n, out, flat, g32):
+    """B2 in PyTorch's deterministic mode (the e2e demo's): the ordered
+    kernel must repeat its bits and equal the plain version in that mode
+    exactly (each row summed in ascending q), launch once a call and run as
+    the one kernel of the call (no sort, no fill: the profiler's kernels
+    over three calls); its time, its bound (the atomics kernel's bytes),
+    `index_add_`'s in that mode, and with --parent the parent's in turns:
+    its wrapper, or where its library has only the sorted kernel, that
+    kernel after the parent wrapper's `torch.sort` and `searchsorted`."""
+    from anystereo_tpu_torch.ops.kernels.gather import scatter_rows_add, scatter_rows_add_ref
+
+    shape = res["table"]
+    call = (lambda: scatter_rows_add(idx, g, n))
+    torch.use_deterministic_algorithms(True)
+    try:
+        before = scatter_rows_add.launches
+        got, again = call(), call()
+        torch.cuda.synchronize()
+        launched = scatter_rows_add.launches - before
+        want = scatter_rows_add_ref(idx, g, n)
+        _, _, kernels, _, _ = _profiled(torch, lambda: [call() for _ in range(3)],
+                                        {"ordered": ("scatter_rows_ordered", scatter_rows_add)})
+        res["deterministic_ms"] = _time_ms(torch, call)
+        res["deterministic_library_ms"] = _time_ms(torch, lambda: out.zero_().index_add_(0, flat, g32))
+        if PARENT:
+            parent = _parent_deterministic(torch, idx, g, n)
+            if not torch.equal(parent(), want):
+                raise AssertionError(f"the parent's scatter_rows_add {shape}, deterministic mode, differs")
+            p1, n1, n2, p2 = (_time_ms(torch, f) for f in (parent, call, call, parent))
+            res["parent_deterministic_ms"], res["deterministic_ms_beside_parent"] = [p1, p2], [n1, n2]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    res["deterministic_max_abs_err"] = float((got - want).abs().max())
+    if launched != 2 or kernels != 3 or not torch.equal(got, again) or not torch.equal(got, want):
+        raise AssertionError(f"scatter_rows_add {shape}, deterministic mode: {launched} launches in 2 calls, "
+                             f"{kernels} kernels in 3, repeats its bits {torch.equal(got, again)}, max "
+                             f"|kernel - plain| {res['deterministic_max_abs_err']}")
+    res["deterministic_bound_ms"] = res["bound_ms"]
+
+
+def _parent_deterministic(torch, idx, g, n):
+    """The parent's deterministic scatter-add, as its wrapper makes it."""
+    from anystereo_tpu_torch.ops.kernels.gather import scatter_rows_add, scatter_vec
+
+    lib = PARENT["gather_rows"]
+    if hasattr(lib, "anystereo_scatter_rows_ordered"):
+        return _as_parent(lambda: scatter_rows_add(idx, g, n))
+    fn = lib.anystereo_scatter_rows_sorted
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    batch, q, c = g.shape
+    vec, bf16 = scatter_vec(c, g.dtype, g.data_ptr()), int(g.dtype == torch.bfloat16)
+
+    def run():
+        key, order = torch.sort(idx, dim=1, stable=True)
+        rows = torch.arange(n + 1, dtype=torch.int32, device=DEVICE).expand(batch, n + 1)
+        start = torch.searchsorted(key, rows.contiguous(), out_int32=True)
+        order = order.to(torch.int32)
+        dtbl = torch.empty((batch, n, c), dtype=torch.float32, device=DEVICE)
+        err = fn(order.data_ptr(), start.data_ptr(), g.data_ptr(), dtbl.data_ptr(), batch, n, q, c, bf16, vec,
+                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"the parent's scatter_rows_sorted failed: CUDA error {err}")
+        return dtbl
+
+    return run
 
 
 def _tile_tables(torch):
@@ -2840,6 +2899,19 @@ SPATIAL_MEDIAN_PX = 0.2
 SPATIAL_PEAK_SHARE = 0.7
 
 
+@contextlib.contextmanager
+def _precision_kept(torch):
+    """The precision flags the phases set (TF32 in cuDNN and in cuBLAS's
+    matmuls, cuDNN's deterministic algorithms) back as they were after the
+    block, so that no later phase inherits them."""
+    b = torch.backends
+    kept = b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32, b.cudnn.deterministic
+    try:
+        yield
+    finally:
+        b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32, b.cudnn.deterministic = kept
+
+
 def _default_precision(torch):
     """PyTorch's own defaults: TF32 in cuDNN, cuDNN's fastest algorithms."""
     torch.backends.cudnn.allow_tf32 = True
@@ -2887,43 +2959,46 @@ def _spatial_requests(torch, kernels, forward, latents, what):
 def _spatial_side(torch, kernels, forward_of, what, floor=False):
     """The bf16 requests (`_spatial_requests`) of a model at `ModelConfig()`
     built from seed 0, and the fp32 check: the 1x384x1248 pair, CHECK_ITERS
-    iterations, TF32 off, cuDNN deterministic.  `forward_of(model, left,
-    right, iters)` gives `forward(coords, stats)`.  `floor`: also the median
-    |Δ| of the dense request from the same frame in a batch of two, from a
-    spatial context of one rank, and from the row-flipped frame flipped
-    back (a planted fault)."""
+    iterations, TF32 off, cuDNN deterministic; the precision flags as they
+    were after it.  `forward_of(model, left, right, iters)` gives
+    `forward(coords, stats)`.  `floor`: also the median |Δ| of the dense
+    request from the same frame in a batch of two, from a spatial context of
+    one rank, and from the row-flipped frame flipped back (a planted
+    fault)."""
     from anystereo_tpu_torch.nn.model import build_model
     from anystereo_tpu_torch.parallel.spatial import infer_spatial_sharded
 
-    _default_precision(torch)
-    base = torch.cuda.memory_allocated()
-    model = build_model(_config("igev"), device=DEVICE, seed=0)
-    left, right = _spatial_images(torch)
-    res = _spatial_requests(torch, kernels, forward_of(model, left, right, ITERS), len(model.liif.posencs), what)
-    res["peak"] -= base
-    if floor:
-        # the one process's own noise: the same frame in a batch of two; and
-        # the tiled arithmetic with no split: a spatial context of one rank
-        pair = forward_of(model, torch.cat([left, left]), torch.cat([right, right]), ITERS)(None, {})
-        res["floor"] = float((pair[:1].cpu() - res["dense"]).abs().median())
-        del pair
-        flipped = forward_of(model, left.flip(1), right.flip(1), ITERS)(None, {}).flip(1)
-        res["flipped_rows"] = float((flipped.cpu() - res["dense"]).abs().median())
-        del flipped
-        torch.distributed.init_process_group(DDP_BACKEND, init_method=f"tcp://127.0.0.1:{_free_port()}",
-                                             world_size=1, rank=0)
-        try:
-            one_rank = infer_spatial_sharded(model, None, left, right, None, None, None, iters=ITERS)
-        finally:
-            torch.distributed.destroy_process_group()
-        res["one_rank"] = float((one_rank.cpu() - res["dense"]).abs().median())
-    del model, left, right
-    torch.cuda.empty_cache()
-    _fp32_deterministic(torch)
-    model = build_model(_config("igev", compute_dtype="float32"), device=DEVICE, seed=0)
-    left, right = _images(torch, 1)
-    res["check"] = forward_of(model, left, right, CHECK_ITERS)(None, {}).cpu()
-    return res
+    with _precision_kept(torch):
+        _default_precision(torch)
+        base = torch.cuda.memory_allocated()
+        model = build_model(_config("igev"), device=DEVICE, seed=0)
+        left, right = _spatial_images(torch)
+        res = _spatial_requests(torch, kernels, forward_of(model, left, right, ITERS), len(model.liif.posencs),
+                                what)
+        res["peak"] -= base
+        if floor:
+            # the one process's own noise: the same frame in a batch of two; and
+            # the tiled arithmetic with no split: a spatial context of one rank
+            pair = forward_of(model, torch.cat([left, left]), torch.cat([right, right]), ITERS)(None, {})
+            res["floor"] = float((pair[:1].cpu() - res["dense"]).abs().median())
+            del pair
+            flipped = forward_of(model, left.flip(1), right.flip(1), ITERS)(None, {}).flip(1)
+            res["flipped_rows"] = float((flipped.cpu() - res["dense"]).abs().median())
+            del flipped
+            torch.distributed.init_process_group(DDP_BACKEND, init_method=f"tcp://127.0.0.1:{_free_port()}",
+                                                 world_size=1, rank=0)
+            try:
+                one_rank = infer_spatial_sharded(model, None, left, right, None, None, None, iters=ITERS)
+            finally:
+                torch.distributed.destroy_process_group()
+            res["one_rank"] = float((one_rank.cpu() - res["dense"]).abs().median())
+        del model, left, right
+        torch.cuda.empty_cache()
+        _fp32_deterministic(torch)
+        model = build_model(_config("igev", compute_dtype="float32"), device=DEVICE, seed=0)
+        left, right = _images(torch, 1)
+        res["check"] = forward_of(model, left, right, CHECK_ITERS)(None, {}).cpu()
+        return res
 
 
 def _spatial_images(torch):
@@ -3084,8 +3159,9 @@ def phase_tools(torch, kernels, card, root):
     `make_synthetic_datasets` writes every tree at seed 0 (its nine
     protocols must resolve); `check_datasets --smoke` on it must exit 0 (its
     20-step train smoke is a CLI subprocess); `e2e_demo` at the JAX gate's
-    recipe (150 steps at lr 2e-4, deterministic) must print E2E PASS
-    (held-out EPE under 2.1 px); `overfit_sanity` at its 400 steps must
+    recipe (150 steps at lr 2e-4, deterministic, fp32 without TF32) must
+    print E2E PASS (held-out EPE under 2.1 px), and the same EPE alone in a
+    process of its own; `overfit_sanity` at its 400 steps must
     print LEARNED;
     `reproduce_baseline` rehearses the 100k-step recipe for 20 steps and
     must write a row for each of the nine protocols (2 frames each) naming
@@ -3140,9 +3216,19 @@ def phase_tools(torch, kernels, card, root):
     found = re.search(r"^E2E (PASS|WEAK) epe=(\S+)$", text, re.M)
     if not found or found.group(1) != "PASS" or len(ms) != steps:
         raise AssertionError(f"e2e_demo {' '.join(TOOLS_E2E)}: {text[-3000:]}")
-    lines.append(f"e2e_demo {' '.join(TOOLS_E2E)}: E2E PASS, held-out EPE {found.group(2)} px; ms a step "
-                 f"(synchronised) {mean(ms)}, min {min(ms[1:]):.2f}, max {max(ms[1:]):.2f}; "
-                 f"{seconds['e2e_demo']:.1f} s")
+    # the demo alone, in a process of its own at PyTorch's default precision:
+    # it pins its own, so it must read the same EPE as here after the phases
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "anystereo_tpu_torch.tools.e2e_demo", "--out",
+                           os.path.join(root, "tools_e2e_alone"), *TOOLS_E2E, "--device", DEVICE],
+                          cwd=HERE, capture_output=True, text=True, timeout=600)
+    alone = re.search(r"^E2E (PASS|WEAK) epe=(\S+)$", proc.stdout, re.M)
+    if proc.returncode != 0 or not alone or alone.group(2) != found.group(2):
+        raise AssertionError(f"e2e_demo alone (exit {proc.returncode}) against {found.group(2)} px in this "
+                             f"process: {proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    lines.append(f"e2e_demo {' '.join(TOOLS_E2E)}: E2E PASS, held-out EPE {found.group(2)} px, the same alone in a "
+                 f"process of its own ({time.perf_counter() - t0:.1f} s); ms a step (synchronised) {mean(ms)}, "
+                 f"min {min(ms[1:]):.2f}, max {max(ms[1:]):.2f}; {seconds['e2e_demo']:.1f} s")
 
     text, _ = stage("overfit_sanity", ["--steps", str(TOOLS_OVERFIT_STEPS), "--device", DEVICE],
                     _tools_launches(kernels, TOOLS_OVERFIT_STEPS, TOOLS_E2E_ITERS, 0, 0))
@@ -3601,7 +3687,9 @@ def _beside_parent_line(records):
     library = ("ms", "library_ms", "library_err", "library_bwd_err", "gather_body_ms", "bound_ms")
     keys = {"gather_pyramid_aligned": ("B1", lambda c: c["call"], common + path + ("copy_ms",)),
             "gather_pyramid_aligned_bwd": ("B1 bwd", lambda c: c["call"], common + clean + ("accumulate_ms",)),
-            "scatter_rows_add": ("B2", lambda c: f"C={c['table'][2]}", common + ("library_ms",)),
+            "scatter_rows_add": ("B2", lambda c: f"C={c['table'][2]}", common + (
+                "library_ms", "deterministic_ms", "parent_deterministic_ms", "deterministic_ms_beside_parent",
+                "deterministic_library_ms")),
             "gather_rows": ("B3", lambda c: f"C={c['table'][2]}", common + clean + ("library_ms",)),
             "gather_pyramid_window_pm": ("B4", lambda c: c["call"], common + path + ("ms_clean",)),
             "gather_pyramid_window_pm_bwd": ("B4 bwd", lambda c: c["call"], common + path + ("ms_clean",)),

@@ -271,31 +271,50 @@ def test_scatter_kernel_vector_widths(card, c, dtype):
 @pytest.mark.parametrize("c", [1, 4, 9, 40, 184])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_scatter_kernel_deterministic_mode(card, c, dtype):
-    """Under `torch.use_deterministic_algorithms(True)` the wrapper sorts the
-    indices and launches the sorted kernel once: a second call gives the same
-    bits, the sum is within the atomics' band of the plain version (in the
-    same mode), indices out of range are dropped, and rows no query reaches
-    are zero."""
+    """Under `torch.use_deterministic_algorithms(True)` the wrapper launches
+    the ordered kernel once a call: a second call gives the same bits, and
+    both equal the plain version bit for bit, each row summed in ascending
+    q; indices out of range are dropped and rows no query reaches are zero.
+    Also with g's address offset by one value (a narrower vector), batches
+    of 1 and 3, n not a multiple of a block's rows, half of the queries on
+    one row, segments of the indices with more queries on a block's rows
+    than a warp stages, and every query on one row (more than a block's
+    list holds: its windows).  The plain version runs on
+    the CPU, whose `index_add_` adds in ascending q: PyTorch's deterministic
+    `index_add_` on the card sums 32 or more queries of a one-channel row
+    across a warp's lanes, in an order of its own."""
     gen = torch.Generator(device=card).manual_seed(6)
     n, q = 300, 5003
     idx = torch.randint(0, n - 20, (2, q), device=card, generator=gen, dtype=torch.int32)
     idx[:, :4] = torch.tensor([-1, n, n + 7, -(2 ** 31)], device=card, dtype=torch.int32)
-    g = torch.randn(2, q, c, device=card, generator=gen).to(dtype)
-    valid = ((idx >= 0) & (idx < n))[..., None]
-    torch.use_deterministic_algorithms(True)
-    try:
-        want = scatter_rows_add_ref(idx.clamp(0, n - 1), g * valid, n)
-        bound = 1e-5 * (1.0 + scatter_rows_add_ref(idx.clamp(0, n - 1), g.abs() * valid, n))
-        before = scatter_rows_add.launches
-        got, again = scatter_rows_add(idx, g, n), scatter_rows_add(idx, g, n)
-        torch.cuda.synchronize()
-    finally:
-        torch.use_deterministic_algorithms(False)
-    assert scatter_rows_add.launches == before + 2
-    assert got.dtype == torch.float32 and got.shape == (2, n, c)
-    assert torch.equal(got, again)
-    assert bool(((got - want).abs() <= bound).all())
-    assert not got[:, n - 20:].any()
+    buf = torch.randn(3 * 20000 * c + 1, device=card, generator=gen).to(dtype)
+    # 40 rows, blocks of 8: the first half of the queries, 4,096, on the
+    # first block's rows, its first segments' 512 queries all on them
+    crowded = torch.randint(8, 40, (1, 8192), device=card, generator=gen, dtype=torch.int32)
+    crowded[:, :4096] = torch.arange(4096, device=card, dtype=torch.int32) % 8
+    half = torch.randint(0, n, (3, q), device=card, generator=gen, dtype=torch.int32)
+    half[:, ::2] = 5
+    cases = [(idx, buf[:2 * q * c].view(2, q, c), n), (idx[:1].contiguous(), buf[1:q * c + 1].view(1, q, c), n),
+             (half, buf[:3 * q * c].view(3, q, c), n), (crowded, buf[:8192 * c].view(1, 8192, c), 40),
+             (torch.full((1, 20000), 7, device=card, dtype=torch.int32), buf[:20000 * c].view(1, 20000, c), n)]
+    results = []
+    for ix, g, rows in cases:
+        valid = ((ix >= 0) & (ix < rows))[..., None]
+        torch.use_deterministic_algorithms(True)
+        try:
+            want = scatter_rows_add_ref(ix.clamp(0, rows - 1).cpu(), (g * valid).cpu(), rows)
+            before = scatter_rows_add.launches
+            got, again = scatter_rows_add(ix, g, rows), scatter_rows_add(ix, g, rows)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        assert scatter_rows_add.launches == before + 2
+        assert got.dtype == torch.float32 and got.shape == (ix.shape[0], rows, c)
+        assert torch.equal(got, again)
+        assert torch.equal(got.cpu(), want), (tuple(ix.shape), scatter_vec(c, dtype, g.data_ptr()),
+                                              float((got.cpu() - want).abs().max()))
+        results.append(got)
+    assert not results[0][:, n - 20:].any() and not results[4][:, torch.arange(n, device=card) != 7].any()
 
 
 @pytest.mark.parametrize("fn,fwd_launches", [(gather_rows, 1), (gather_rows_hybrid, 0)])

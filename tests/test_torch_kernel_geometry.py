@@ -1157,3 +1157,167 @@ def test_grid_sample_is_the_linear_lookups_library_call(rows, length, taps, wind
     tol = chip_smoke._library_atol(length)
     torch.testing.assert_close(fwd(), want, rtol=0, atol=tol)
     torch.testing.assert_close(bwd(), dwant, rtol=0, atol=tol)
+
+
+# ---------------------------------- B2's ordered (deterministic) backward
+
+# `scatter_rows_ordered` in gather_rows.cu, mirrored: a block owns `rows`
+# consecutive table rows of a sample.  The queries are cut into
+# ORDERED_WARPS segments of a multiple of 32 indices, counted from the
+# 16-byte word that holds the first (`off`: the sample's first index's
+# place in its word), one a warp.  A warp reads its segment a word (4
+# indices) a lane, in groups of 32 words; it counts its queries by (row,
+# segment) and stages the first STAGE_CAP of them in ascending q, a lane's
+# slot the hits of the lanes below it.  An exclusive scan over (row, then
+# segment) gives each segment its first slot in each row's list; each warp
+# places its staged queries 32 at a time, a query's rank the number of
+# lower lanes with its row (`__match_any_sync`), then, where its segment
+# found more, the rest one lane after another; each row sums its list in
+# fp32 from zero.  Where the block's rows receive more than LIST_CAP
+# queries, q goes in windows of LIST_CAP, the sums carried from window to
+# window.
+
+ORDERED_THREADS, ORDERED_ROWS_MIN, ORDERED_ROWS_MAX, ORDERED_BLOCKS = 512, 8, 128, 264
+LIST_CAP, STAGE_CAP = 4096, 256
+ORDERED_WARPS = ORDERED_THREADS // 32
+
+
+def _ordered_rows(batch, n):
+    """The launcher's rows a block (`ordered_rows` in the source)."""
+    per_sample = max(ORDERED_BLOCKS // batch, 1)
+    return min(max(-(-n // per_sample), ORDERED_ROWS_MIN), ORDERED_ROWS_MAX)
+
+
+def _word_groups(rel, qa, qb, start, seg, off):
+    """Segment `seg`'s groups of 32 words of [qa, qb) from query `start` on:
+    for each, the 32 lanes' queries [32, 4] and rows (-1: none)."""
+    lo, hi = (qa + off) & ~3, qb + off
+    per_warp = -(-(hi - lo) // ORDERED_WARPS)
+    per = -(-per_warp // 32) * 32
+    s = min(lo + seg * per, hi)
+    e = min(s + per, hi)
+    for a0 in range(max(s, (start + off) & ~3), e, 128):
+        a = a0 + np.arange(128).reshape(32, 4)
+        j = a - off
+        inside = (j >= start) & (a < e)
+        yield j, np.where(inside, rel[np.clip(j, 0, len(rel) - 1)], -1)
+
+
+def _mirror_scatter_rows_ordered(idx, g, n, rows_per_block, off=0, list_cap=LIST_CAP, stage_cap=STAGE_CAP):
+    """The kernel's count, staging, scan, placement and windowed sums in
+    numpy fp32: dtbl [B, n, C] (NaN where no block wrote).  Each placed
+    list is checked against the stable sort's order of its row's queries."""
+    batch, q, c = g.shape
+    dtbl = np.full((batch, n, c), np.nan, np.float32)
+    for b in range(batch):
+        for p0 in range(0, n, rows_per_block):
+            rows = min(rows_per_block, n - p0)
+            rel = (idx[b].astype(np.int64) - p0) % 2 ** 32  # the kernel's unsigned compare
+            rel[rel >= rows] = -1
+
+            def count(qa, qb):
+                cnt = np.zeros((rows, ORDERED_WARPS), np.int64)
+                found, staged = [0] * ORDERED_WARPS, [[] for _ in range(ORDERED_WARPS)]
+                for seg in range(ORDERED_WARPS):
+                    for j, r in _word_groups(rel, qa, qb, qa, seg, off):
+                        hits = (r >= 0).sum(axis=1)
+                        for lane in range(32):
+                            slot = found[seg] + hits[:lane].sum()
+                            for k in np.flatnonzero(r[lane] >= 0):
+                                cnt[r[lane, k], seg] += 1
+                                if slot < stage_cap:
+                                    staged[seg].append((j[lane, k], r[lane, k]))
+                                slot += 1
+                        found[seg] += hits.sum()
+                slots = (np.cumsum(cnt) - cnt.reshape(-1)).reshape(rows, ORDERED_WARPS)
+                return slots, np.append(slots[:, 0], cnt.sum()), found, staged
+
+            slots, begin, found, staged = count(0, q)
+            window = q if begin[rows] <= list_cap else list_cap
+            acc = np.zeros((rows, c), np.float32)
+            qa = 0
+            while True:
+                qb = q if q - qa <= window else qa + window
+                if window != q:
+                    slots, begin, found, staged = count(qa, qb)
+                assert begin[rows] <= list_cap
+                lst = np.full(begin[rows], -1, np.int64)
+                for seg in range(ORDERED_WARPS):
+                    for i0 in range(0, len(staged[seg]), 32):
+                        group = staged[seg][i0:i0 + 32]
+                        for lane, (j, r) in enumerate(group):
+                            rank = sum(1 for _, other in group[:lane] if other == r)
+                            lst[slots[r, seg] + rank] = j
+                        for r in {r for _, r in group}:
+                            slots[r, seg] += sum(1 for _, other in group if other == r)
+                    if found[seg] > stage_cap:  # the rest, one lane after another
+                        for j, r in _word_groups(rel, qa, qb, staged[seg][-1][0] + 1, seg, off):
+                            for lane in range(32):
+                                for k in np.flatnonzero(r[lane] >= 0):
+                                    lst[slots[r[lane, k], seg]] = j[lane, k]
+                                    slots[r[lane, k], seg] += 1
+                for r in range(rows):
+                    mine = lst[begin[r]:begin[r + 1]]
+                    np.testing.assert_array_equal(mine, qa + np.flatnonzero(rel[qa:qb] == r))
+                    for i in mine:
+                        acc[r] = acc[r] + g[b, i]
+                qa = qb
+                if qa >= q:
+                    break
+            dtbl[b, p0:p0 + rows] = acc
+    return dtbl
+
+
+def test_ordered_scatter_constants_and_rows_match_the_source():
+    """The mirror's constants are the kernel's; at the training tables the
+    grid holds two blocks for each of the H100's 132 SMs or nearly: 25 rows
+    a block at N 3,200 (256 blocks), 97 at N 12,800 (264)."""
+    import re
+    from pathlib import Path
+
+    src = (Path(__file__).resolve().parents[1] / "anystereo_tpu_torch" / "csrc" / "gather_rows.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"\b{name} = (\d+)", src).group(1))
+
+    assert (const("kOrderedThreads"), const("kOrderedRowsMin"), const("kOrderedRowsMax"),
+            const("kOrderedBlocks"), const("kListCap"), const("kStageCap")) == (
+        ORDERED_THREADS, ORDERED_ROWS_MIN, ORDERED_ROWS_MAX, ORDERED_BLOCKS, LIST_CAP, STAGE_CAP)
+    assert [_ordered_rows(2, n) for n in (3200, 12800, 300, 10 ** 6)] == [25, 97, 8, 128]
+    assert [2 * -(-n // _ordered_rows(2, n)) for n in (3200, 12800)] == [256, 264]
+    assert _ordered_rows(1, 300) == 8 and _ordered_rows(300, 3200) == 128
+
+
+@pytest.mark.parametrize("batch,n,q,c,rows,off,list_cap,stage_cap,kind,dtype", [
+    (2, 300, 5003, 9, 25, 0, LIST_CAP, STAGE_CAP, "random", torch.float32),  # n not a multiple of the rows
+    (2, 300, 5003, 40, 64, 3, LIST_CAP, STAGE_CAP, "half", torch.bfloat16),  # half on one row: staging full
+    (1, 300, 5003, 184, 32, 1, 1000, STAGE_CAP, "one", torch.bfloat16),      # every query on one row: windows
+    (2, 100, 3000, 1, 128, 2, 256, 8, "random", torch.float32),              # one block of 100 rows, in windows
+    (3, 77, 2000, 40, 32, 1, LIST_CAP, 4, "random", torch.bfloat16),         # three samples, small staging
+    (1, 40, 700, 184, 128, 2, LIST_CAP, STAGE_CAP, "half", torch.float32),   # a segment shorter than a group
+    (1, 40, 8192, 9, 8, 1, LIST_CAP, STAGE_CAP, "crowded", torch.float32),    # more than a warp stages
+])
+def test_ordered_scatter_places_and_sums_as_index_add(batch, n, q, c, rows, off, list_cap, stage_cap, kind,
+                                                       dtype):
+    """The ordered kernel's counts, staging, scan, match-any ranks, the
+    lane-by-lane rest of a full staging and its windows, mirrored in numpy
+    fp32, with the sample's first index at each place in its 16-byte word:
+    each row's list is its queries in ascending q (the stable sort's), and
+    the sums equal the plain version (`index_add_`) bit for bit; indices out
+    of range are dropped."""
+    from anystereo_tpu_torch.ops.kernels.gather import scatter_rows_add_ref
+
+    rng = np.random.default_rng(batch * n + q + c)
+    idx = rng.integers(0, n, (batch, q)).astype(np.int32)
+    if kind == "half":
+        idx[:, ::2] = 5
+    elif kind == "one":
+        idx[:] = 7
+    elif kind == "crowded":  # the first half, LIST_CAP queries, on the first block's rows
+        idx[:, :q // 2] = np.arange(q // 2) % rows
+    idx[:, :4] = np.array([-1, n, n + 7, -(2 ** 31)], np.int32)
+    g = torch.from_numpy(rng.standard_normal((batch, q, c)).astype(np.float32)).to(dtype)
+    got = _mirror_scatter_rows_ordered(idx, g.float().numpy(), n, rows, off, list_cap, stage_cap)
+    valid = torch.from_numpy((idx >= 0) & (idx < n))[..., None]
+    want = scatter_rows_add_ref(torch.from_numpy(idx).clamp(0, n - 1), g * valid, n)
+    np.testing.assert_array_equal(got, want.numpy())

@@ -65,9 +65,10 @@ def test_e2e_demo_two_steps(tmp_path):
 
 
 def test_e2e_demo_trains_deterministically_and_restores_the_setting(tmp_path, monkeypatch):
-    """The demo's run repeats from its seed: it trains under PyTorch's
-    deterministic algorithms (the scatter-add's sorted kernel on the card),
-    and the caller's setting comes back after it, also when the run raises."""
+    """The demo's run repeats from its seed at one precision: it trains
+    under PyTorch's deterministic algorithms (the scatter-add's ordered
+    kernel on the card) with TF32 off in cuDNN and in cuBLAS's matmuls, and
+    the caller's settings come back after it, also when the run raises."""
     from anystereo_tpu_torch.tools import e2e_demo
     from anystereo_tpu_torch.train import trainer
 
@@ -77,15 +78,20 @@ def test_e2e_demo_trains_deterministically_and_restores_the_setting(tmp_path, mo
     seen = []
 
     def train(cfg, loader, device=None):
-        seen.append(torch.are_deterministic_algorithms_enabled())
+        seen.append((torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32))
         raise Stop
 
     monkeypatch.setattr(trainer, "train", train)
+    # a caller with TF32 on everywhere (monkeypatch puts PyTorch's flags back after the test)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     assert not torch.are_deterministic_algorithms_enabled()
     with pytest.raises(Stop):
         e2e_demo.main(["--steps", "1", "--pairs", "1", "--device", "cpu", "--out", str(tmp_path)])
-    assert seen == [True]
+    assert seen == [(True, False, False)]
     assert not torch.are_deterministic_algorithms_enabled()
+    assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
 
 
 def test_overfit_sanity_two_steps():
