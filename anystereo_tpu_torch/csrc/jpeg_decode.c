@@ -1,28 +1,44 @@
-/* Baseline JPEG decoding that gives, bit for bit, the samples libjpeg-turbo
- * gives with its default decompression parameters (the "islow" integer
- * IDCT, fancy upsampling, RGB output), which is what
+/* JPEG decoding that gives, bit for bit, the samples libjpeg-turbo gives
+ * with its default decompression parameters (the "islow" integer IDCT,
+ * fancy upsampling, RGB or CMYK output), which is what
  * `np.array(PIL.Image.open(path))` returns.
  *
- * Scope: baseline and extended sequential Huffman DCT (SOF0, SOF1), 8-bit
- * samples; 1 component (gray) or 3 (YCbCr, or RGB where an Adobe marker
- * says so); sampling factors 1-2 for 3 components (4:4:4, 4:2:2, 4:2:0,
- * 4:4:0); scans interleaved or one component each; restart intervals.
- * Anything else returns JD_UNSUPPORTED; malformed or truncated data
- * returns JD_CORRUPT, with a message.  Every read is bounds-checked, and
- * all state lives in one heap block a call, so threads may decode at once.
+ * Scope: baseline and extended sequential Huffman DCT (SOF0, SOF1) and
+ * progressive Huffman DCT (SOF2), 8-bit samples; 1 component (gray), 3
+ * (YCbCr, or RGB where an Adobe marker says so) or 4 (CMYK, or YCCK where
+ * an Adobe marker's transform is not 0; inverted as PIL's "CMYK;I"
+ * does); sampling factors 1-4 whose ratios to the largest are whole
+ * numbers (libjpeg refuses the others), at most 10 blocks an MCU; scans
+ * interleaved or one component each; restart intervals; files without
+ * DHT segments (the standard tables).  A progressive
+ * file is decoded into every block's coefficients (DC and AC first scans
+ * and refinement scans, jdphuff.c), then transformed after the EOI.
+ * Anything else returns JD_UNSUPPORTED (so does a progressive file whose
+ * scans leave any of AC coefficients 1-9 unfinished, for which libjpeg
+ * would smooth blocks); malformed or truncated data returns JD_CORRUPT,
+ * with a message.  Every read is bounds-checked, and all state lives in
+ * heap blocks of the call, so threads may decode at once.
  *
  * The arithmetic follows libjpeg's public sources:
  *   jidctint.c  jpeg_idct_islow (CONST_BITS 13, PASS1_BITS 2, the
  *               post-IDCT range-limit table of jdmaster.c)
  *   jdsample.c  h2v1_fancy_upsample, h1v2_fancy_upsample,
- *               h2v2_fancy_upsample, and the box upsamplers that replace
- *               the horizontal fancy ones for components 2 samples wide or
- *               less; jdmainct.c's context rows (the first and last sample
- *               rows of a component repeated above and below it)
- *   jdcolor.c   build_ycc_rgb_table (SCALEBITS 16), ycc_rgb_convert
+ *               h2v2_fancy_upsample, the box upsamplers that replace the
+ *               horizontal fancy ones for components 2 samples wide or
+ *               less, and int_upsample for the other whole ratios;
+ *               jdmainct.c's context rows (the first and last sample rows
+ *               of a component repeated above and below it)
+ *   jdcolor.c   build_ycc_rgb_table (SCALEBITS 16), ycc_rgb_convert,
+ *               ycck_cmyk_convert
  *   jdmarker.c  default colour space: JFIF marker, else Adobe transform,
  *               else component ids
- *   jdhuff.c    jpeg_make_d_derived_tbl, the DC and AC decoding.
+ *   jdhuff.c    jpeg_make_d_derived_tbl, the DC and AC decoding
+ *   jdphuff.c   the progressive scans' parameter checks and their four
+ *               decoders (DC first, DC refine, AC first, AC refine), EOB
+ *               runs, restarts
+ *   jdcoefct.c  smoothing_ok: when libjpeg would smooth blocks
+ *   jstdhuff.c  the standard tables for Huffman tables 0 and 1 that no DHT
+ *               defines (Motion-JPEG frames leave them out).
  */
 
 #include <limits.h>
@@ -38,6 +54,8 @@ enum { JD_CORRUPT = 1, JD_UNSUPPORTED = 2, JD_NOMEM = 3 }; /* 0: decoded */
 
 #define LOOKAHEAD 9
 #define MAX_BLOCKS_IN_MCU 10
+#define MAX_COMPS 4
+#define SMOOTH_COEFS 10 /* jdcoefct.c SAVED_COEFS: the coefficients smoothing looks at */
 
 /* zigzag index -> natural index, with libjpeg's 16 guard entries for a
  * corrupt run that steps past coefficient 63 */
@@ -66,7 +84,10 @@ typedef struct {
     int bw, bh;        /* blocks of its plane */
     size_t stride;     /* bytes a plane row */
     uint8_t *plane;
-    int coded;         /* a scan has carried it */
+    int16_t *coef;     /* progressive: bw x bh blocks of 64 coefficients */
+    int16_t q[64];     /* its quantization table, latched at its first scan */
+    int coded;         /* a scan has carried it (and q is latched) */
+    int coef_bits[SMOOTH_COEFS]; /* progressive: the Al of the last scan of each, -1 none */
     int dc_pred;
     int td, ta;
 } comp_t;
@@ -77,9 +98,9 @@ typedef struct {
     size_t msg_len;
     const uint8_t *data;
     size_t len, pos;
-    int width, height, ncomp, sof;
+    int width, height, ncomp, sof, progressive, scans;
     int hmax, vmax;
-    comp_t comp[3];
+    comp_t comp[MAX_COMPS];
     uint16_t qt[4][64]; /* natural order */
     int qt_defined[4];
     huff_t dc[4], ac[4];
@@ -90,6 +111,7 @@ typedef struct {
     int nbits;
     int marker_hit;
     int pad_bits;
+    int eobrun; /* progressive AC scans: blocks left in the current EOB run */
     /* tables */
     uint8_t idct_limit[1024];
     int cr_r[256], cb_b[256];
@@ -144,13 +166,14 @@ static void read_sof(dec_t *d, int marker) {
     size_t n;
     const uint8_t *p = segment(d, &n);
     if (d->sof) fail(d, JD_CORRUPT, "more than one SOF marker");
-    if (marker == 0xC2 || marker == 0xC6 || marker == 0xCA || marker == 0xCE)
-        fail(d, JD_UNSUPPORTED, "progressive JPEG (SOF%d) is not supported", marker - 0xC0);
-    if (marker == 0xC3 || marker == 0xC7 || marker == 0xCB || marker == 0xCF)
-        fail(d, JD_UNSUPPORTED, "lossless JPEG (SOF%d) is not supported", marker - 0xC0);
+    if (marker == 0xC5 || marker == 0xC6 || marker == 0xC7 || marker == 0xCD || marker == 0xCE ||
+        marker == 0xCF)
+        fail(d, JD_UNSUPPORTED, "hierarchical (differential) JPEG (SOF%d) is not supported",
+             marker - 0xC0);
+    if (marker == 0xC3) fail(d, JD_UNSUPPORTED, "lossless JPEG (SOF3) is not supported");
     if (marker >= 0xC9)
         fail(d, JD_UNSUPPORTED, "arithmetic-coded JPEG (SOF%d) is not supported", marker - 0xC0);
-    if (marker == 0xC5) fail(d, JD_UNSUPPORTED, "hierarchical JPEG (SOF5) is not supported");
+    d->progressive = marker == 0xC2;
     if (n < 6) fail(d, JD_CORRUPT, "SOF segment of %zu bytes", n);
     int precision = p[0];
     d->height = (p[1] << 8) | p[2];
@@ -160,8 +183,8 @@ static void read_sof(dec_t *d, int marker) {
         fail(d, JD_UNSUPPORTED, "%d-bit JPEG samples are not supported (8 are)", precision);
     if (d->ncomp == 0 || d->width == 0) fail(d, JD_CORRUPT, "empty image in SOF");
     if (d->height == 0) fail(d, JD_UNSUPPORTED, "image height given by a DNL marker is not supported");
-    if (d->ncomp != 1 && d->ncomp != 3)
-        fail(d, JD_UNSUPPORTED, "JPEG with %d components is not supported (1 and 3 are)", d->ncomp);
+    if (d->ncomp != 1 && d->ncomp != 3 && d->ncomp != 4)
+        fail(d, JD_UNSUPPORTED, "JPEG with %d components is not supported (1, 3 and 4 are)", d->ncomp);
     if (n != 6 + 3 * (size_t)d->ncomp) fail(d, JD_CORRUPT, "SOF segment of %zu bytes", n);
     d->hmax = d->vmax = 1;
     for (int i = 0; i < d->ncomp; i++) {
@@ -176,14 +199,16 @@ static void read_sof(dec_t *d, int marker) {
         if (c->h > d->hmax) d->hmax = c->h;
         if (c->v > d->vmax) d->vmax = c->v;
     }
-    if (d->ncomp == 3) {
-        for (int i = 0; i < 3; i++) {
-            comp_t *c = &d->comp[i];
-            if (c->h > 2 || c->v > 2)
-                fail(d, JD_UNSUPPORTED,
-                     "sampling factors %dx%d,%dx%d,%dx%d are not supported (4:4:4, 4:2:2, 4:2:0 "
-                     "and 4:4:0 are)", d->comp[0].h, d->comp[0].v, d->comp[1].h, d->comp[1].v,
-                     d->comp[2].h, d->comp[2].v);
+    for (int i = 0; d->ncomp > 1 && i < d->ncomp; i++) {
+        /* jdsample.c upsamples by whole ratios only (JERR_FRACT_SAMPLE_NOTIMPL) */
+        comp_t *c = &d->comp[i];
+        if (d->hmax % c->h || d->vmax % c->v) {
+            char f[64] = "";
+            for (int j = 0; j < d->ncomp; j++)
+                snprintf(f + strlen(f), sizeof(f) - strlen(f), "%s%dx%d", j ? "," : "", d->comp[j].h,
+                         d->comp[j].v);
+            fail(d, JD_UNSUPPORTED, "sampling factors %s are not supported: libjpeg upsamples by "
+                 "whole ratios only", f);
         }
     }
     d->sof = marker;
@@ -262,6 +287,65 @@ static void derive_huff(dec_t *d, huff_t *t, int is_dc) {
     }
 }
 
+/* jstdhuff.c: the tables of the JPEG standard's annex K.3 (DC and AC,
+ * luminance then chrominance), 16 code counts then the symbols; libjpeg
+ * gives them to tables 0 and 1 that no DHT has defined when decoding
+ * starts (Motion-JPEG frames leave them out) */
+static const uint8_t std_dc0[28] = {
+    0x00, 0x01, 0x05, 0x01, 0x01, 0x01, 0x01, 0x01, 0x01, 0x00, 0x00, 0x00, 0x00, 0x00, 0x00, 0x00,
+    0x00, 0x01, 0x02, 0x03, 0x04, 0x05, 0x06, 0x07, 0x08, 0x09, 0x0a, 0x0b,
+};
+static const uint8_t std_dc1[28] = {
+    0x00, 0x03, 0x01, 0x01, 0x01, 0x01, 0x01, 0x01, 0x01, 0x01, 0x01, 0x00, 0x00, 0x00, 0x00, 0x00,
+    0x00, 0x01, 0x02, 0x03, 0x04, 0x05, 0x06, 0x07, 0x08, 0x09, 0x0a, 0x0b,
+};
+static const uint8_t std_ac0[178] = {
+    0x00, 0x02, 0x01, 0x03, 0x03, 0x02, 0x04, 0x03, 0x05, 0x05, 0x04, 0x04, 0x00, 0x00, 0x01, 0x7d,
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51, 0x61, 0x07,
+    0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0,
+    0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28,
+    0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49,
+    0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69,
+    0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7,
+    0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5,
+    0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
+    0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8,
+    0xf9, 0xfa,
+};
+static const uint8_t std_ac1[178] = {
+    0x00, 0x02, 0x01, 0x02, 0x04, 0x04, 0x03, 0x04, 0x07, 0x05, 0x04, 0x04, 0x00, 0x01, 0x02, 0x77,
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07, 0x61, 0x71,
+    0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0,
+    0x15, 0x62, 0x72, 0xd1, 0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26,
+    0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48,
+    0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68,
+    0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87,
+    0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5,
+    0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3,
+    0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
+    0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8,
+    0xf9, 0xfa,
+};
+
+static void set_huff(dec_t *d, huff_t *t, const uint8_t *spec, int is_dc) {
+    int count = 0;
+    t->bits[0] = 0;
+    for (int l = 1; l <= 16; l++) count += t->bits[l] = spec[l - 1];
+    memset(t->vals, 0, sizeof(t->vals));
+    memcpy(t->vals, spec + 16, (size_t)count);
+    derive_huff(d, t, is_dc);
+    t->defined = 1;
+}
+
+/* jdhuff.c jinit_huff_decoder / jdphuff.c jinit_phuff_decoder: std_huff_tables */
+static void default_huff(dec_t *d) {
+    if (!d->dc[0].defined) set_huff(d, &d->dc[0], std_dc0, 1);
+    if (!d->dc[1].defined) set_huff(d, &d->dc[1], std_dc1, 1);
+    if (!d->ac[0].defined) set_huff(d, &d->ac[0], std_ac0, 0);
+    if (!d->ac[1].defined) set_huff(d, &d->ac[1], std_ac1, 0);
+}
+
 static void read_dht(dec_t *d) {
     size_t n;
     const uint8_t *p = segment(d, &n);
@@ -270,20 +354,11 @@ static void read_dht(dec_t *d) {
         if (n - i < 17) fail(d, JD_CORRUPT, "truncated DHT segment");
         int tc = p[i] >> 4, th = p[i] & 15;
         if (tc > 1 || th > 3) fail(d, JD_CORRUPT, "DHT table class %d, id %d", tc, th);
-        huff_t *t = tc ? &d->ac[th] : &d->dc[th];
         int count = 0;
-        t->bits[0] = 0;
-        for (int l = 1; l <= 16; l++) {
-            t->bits[l] = p[i + l];
-            count += p[i + l];
-        }
-        i += 17;
-        if (count > 256 || (size_t)count > n - i) fail(d, JD_CORRUPT, "bad Huffman table");
-        memset(t->vals, 0, sizeof(t->vals));
-        memcpy(t->vals, p + i, (size_t)count);
-        i += (size_t)count;
-        derive_huff(d, t, tc == 0);
-        t->defined = 1;
+        for (int l = 1; l <= 16; l++) count += p[i + l];
+        if (count > 256 || (size_t)count > n - i - 17) fail(d, JD_CORRUPT, "bad Huffman table");
+        set_huff(d, tc ? &d->ac[th] : &d->dc[th], p + i + 1, tc == 0);
+        i += 17 + (size_t)count;
     }
 }
 
@@ -493,7 +568,8 @@ static void idct_islow(const int16_t *coef, const int16_t *q, const uint8_t *lim
 /* ------------------------------------------------------------------ scans */
 
 /* one block: Huffman-decode, dequantize, IDCT into the plane at (bx, by) */
-static void decode_block(dec_t *d, comp_t *c, const int16_t *q, int bx, int by) {
+static void decode_block(dec_t *d, comp_t *c, int bx, int by) {
+    const int16_t *q = c->q;
     int16_t coef[64];
     memset(coef, 0, sizeof(coef));
     const huff_t *dc = &d->dc[c->td], *ac = &d->ac[c->ta];
@@ -561,28 +637,126 @@ static void restart(dec_t *d, int *next_rst) {
     *next_rst = (*next_rst + 1) & 7;
 }
 
+/* ------------------------------------------------------ progressive scans */
+
+static inline int16_t *block_at(const comp_t *c, int bx, int by) {
+    return c->coef + ((size_t)by * (size_t)c->bw + (size_t)bx) * 64;
+}
+
+/* jdphuff.c decode_mcu_DC_first, one block */
+static void dc_first(dec_t *d, comp_t *c, int16_t *blk, int al) {
+    int s = huff_decode(d, &d->dc[c->td]);
+    int diff = s ? extend(get_bits(d, s), s) : 0;
+    if ((c->dc_pred >= 0 && diff > INT_MAX - c->dc_pred) ||
+        (c->dc_pred < 0 && diff < INT_MIN - c->dc_pred))
+        fail(d, JD_CORRUPT, "corrupt JPEG data: DC coefficient out of range");
+    c->dc_pred += diff;
+    blk[0] = (int16_t)((unsigned)c->dc_pred << al);
+}
+
+/* jdphuff.c decode_mcu_AC_first */
+static void ac_first(dec_t *d, const huff_t *ac, int16_t *blk, int ss, int se, int al) {
+    if (d->eobrun > 0) { /* a block of the band of zeros */
+        d->eobrun--;
+        return;
+    }
+    for (int k = ss; k <= se; k++) {
+        int rs = huff_decode(d, ac), r = rs >> 4, s = rs & 15;
+        if (s) {
+            k += r;
+            int v = extend(get_bits(d, s), s);
+            blk[natural_order[k]] = (int16_t)((unsigned)v << al);
+        } else if (r == 15) {
+            k += 15; /* ZRL */
+        } else { /* EOBr: this block and 2^r - 1 + the next r bits more */
+            d->eobrun = 1 << r;
+            if (r) d->eobrun += get_bits(d, r);
+            d->eobrun--;
+            break;
+        }
+    }
+}
+
+/* jdphuff.c decode_mcu_AC_refine: a correction bit for every coefficient
+ * already nonzero that the band passes, new coefficients of +-2^al placed
+ * after r zeros */
+static void ac_refine(dec_t *d, const huff_t *ac, int16_t *blk, int ss, int se, int al) {
+    int p1 = 1 << al, m1 = -p1;
+    int k = ss;
+    if (d->eobrun == 0) {
+        for (; k <= se; k++) {
+            int rs = huff_decode(d, ac), r = rs >> 4, s = rs & 15;
+            if (s) { /* a size other than 1 is libjpeg's warning, not its error */
+                s = get_bits(d, 1) ? p1 : m1;
+            } else if (r != 15) {
+                d->eobrun = 1 << r;
+                if (r) d->eobrun += get_bits(d, r);
+                break; /* the rest of the block is the EOB run's */
+            }
+            do {
+                int16_t *t = blk + natural_order[k];
+                if (*t) {
+                    if (get_bits(d, 1) && !(*t & p1)) *t = (int16_t)(*t + (*t >= 0 ? p1 : m1));
+                } else if (--r < 0) {
+                    break; /* the zero the new coefficient takes */
+                }
+                k++;
+            } while (k <= se);
+            if (s) blk[natural_order[k]] = (int16_t)s;
+        }
+    }
+    if (d->eobrun > 0) {
+        for (; k <= se; k++) {
+            int16_t *t = blk + natural_order[k];
+            if (*t && get_bits(d, 1) && !(*t & p1)) *t = (int16_t)(*t + (*t >= 0 ? p1 : m1));
+        }
+        d->eobrun--;
+    }
+}
+
+/* jdphuff.c start_pass_phuff_decoder's checks, then the scan's blocks */
+static void check_progression(dec_t *d, comp_t **sc, int ns, int ss, int se, int ah, int al) {
+    int bad = ss == 0 ? se != 0 : (ss > se || se > 63 || ns != 1);
+    if ((ah && al != ah - 1) || al > 13) bad = 1;
+    if (bad)
+        fail(d, JD_CORRUPT, "invalid progressive scan (Ss %d, Se %d, Ah %d, Al %d)", ss, se, ah, al);
+    for (int i = 0; i < ns; i++) {
+        comp_t *c = sc[i];
+        if (ss == 0 && ah == 0 && !d->dc[c->td].defined)
+            fail(d, JD_CORRUPT, "scan with DC Huffman table %d, which no DHT defines", c->td);
+        if (ss > 0 && !d->ac[c->ta].defined)
+            fail(d, JD_CORRUPT, "scan with AC Huffman table %d, which no DHT defines", c->ta);
+        for (int k = ss; k <= se && k < SMOOTH_COEFS; k++) c->coef_bits[k] = al;
+    }
+}
+
+/* ----------------------------------------------------------------- scans */
+
 static void read_scan(dec_t *d) {
     size_t n;
     const uint8_t *p = segment(d, &n);
     if (!d->sof) fail(d, JD_CORRUPT, "SOS before SOF");
     if (n < 1) fail(d, JD_CORRUPT, "empty SOS segment");
+    if (!d->scans++) default_huff(d);
     int ns = p[0];
     if (ns < 1 || ns > d->ncomp || n != 4 + 2 * (size_t)ns)
         fail(d, JD_CORRUPT, "SOS segment of %zu bytes for %d components", n, ns);
-    comp_t *sc[3];
-    int16_t q[3][64];
+    int ss = p[1 + 2 * ns], se = p[2 + 2 * ns], ah = p[3 + 2 * ns] >> 4, al = p[3 + 2 * ns] & 15;
+    comp_t *sc[MAX_COMPS];
     for (int i = 0; i < ns; i++) {
         comp_t *c = comp_by_id(d, p[1 + 2 * i], sc, i);
         c->td = p[2 + 2 * i] >> 4;
         c->ta = p[2 + 2 * i] & 15;
         if (c->td > 3 || c->ta > 3) fail(d, JD_CORRUPT, "SOS Huffman tables %d, %d", c->td, c->ta);
-        if (!d->dc[c->td].defined || !d->ac[c->ta].defined)
-            fail(d, JD_UNSUPPORTED, "scan without its Huffman tables (Motion-JPEG's implied "
-                 "tables are not supported)");
-        if (!d->qt_defined[c->tq]) fail(d, JD_CORRUPT, "quantization table %d is not defined", c->tq);
-        for (int k = 0; k < 64; k++) q[i][k] = (int16_t)d->qt[c->tq][k];
+        if (!d->progressive && (!d->dc[c->td].defined || !d->ac[c->ta].defined))
+            fail(d, JD_CORRUPT, "scan with Huffman tables %d and %d, which no DHT defines", c->td, c->ta);
+        if (!c->coded) { /* jdinput.c latch_quant_tables: the table as the first scan finds it */
+            if (!d->qt_defined[c->tq]) fail(d, JD_CORRUPT, "quantization table %d is not defined", c->tq);
+            for (int k = 0; k < 64; k++) c->q[k] = (int16_t)d->qt[c->tq][k];
+        }
         sc[i] = c;
     }
+    if (d->progressive) check_progression(d, sc, ns, ss, se, ah, al);
     int mcux, mcuy;
     if (ns == 1) {
         mcux = (sc[0]->dw + 7) / 8;
@@ -598,7 +772,11 @@ static void read_scan(dec_t *d) {
         sc[i]->dc_pred = 0;
         sc[i]->coded = 1;
     }
+    /* the progressive scan's kind: 0 DC first, 1 DC refine, 2 AC first, 3 AC refine */
+    int kind = ss == 0 ? (ah ? 1 : 0) : (ah ? 3 : 2);
+    const huff_t *ac = &d->ac[sc[0]->ta];
     bits_reset(d);
+    d->eobrun = 0;
     int left = d->restart_interval, next_rst = 0;
     for (int my = 0; my < mcuy; my++) {
         for (int mx = 0; mx < mcux; mx++) {
@@ -606,18 +784,31 @@ static void read_scan(dec_t *d) {
                 if (left == 0) {
                     restart(d, &next_rst);
                     for (int i = 0; i < ns; i++) sc[i]->dc_pred = 0;
+                    d->eobrun = 0;
                     left = d->restart_interval;
                 }
                 left--;
             }
-            if (ns == 1) {
-                decode_block(d, sc[0], q[0], mx, my);
-            } else {
-                for (int i = 0; i < ns; i++) {
-                    comp_t *c = sc[i];
-                    for (int by = 0; by < c->v; by++)
-                        for (int bx = 0; bx < c->h; bx++)
-                            decode_block(d, c, q[i], mx * c->h + bx, my * c->v + by);
+            for (int i = 0; i < ns; i++) {
+                comp_t *c = sc[i];
+                int bh = ns == 1 ? 1 : c->v, bwid = ns == 1 ? 1 : c->h;
+                for (int by = 0; by < bh; by++) {
+                    for (int bx = 0; bx < bwid; bx++) {
+                        int x = mx * bwid + bx, y = my * bh + by;
+                        if (!d->progressive) {
+                            decode_block(d, c, x, y);
+                            continue;
+                        }
+                        int16_t *blk = block_at(c, x, y);
+                        if (kind == 0)
+                            dc_first(d, c, blk, al);
+                        else if (kind == 1)
+                            blk[0] = (int16_t)(blk[0] | (get_bits(d, 1) << al));
+                        else if (kind == 2)
+                            ac_first(d, ac, blk, ss, se, al);
+                        else
+                            ac_refine(d, ac, blk, ss, se, al);
+                    }
                 }
             }
             if (d->pad_bits > d->nbits)
@@ -625,6 +816,33 @@ static void read_scan(dec_t *d) {
         }
     }
     bits_reset(d);
+}
+
+/* after the EOI of a progressive file: refuse what libjpeg would smooth
+ * (jdcoefct.c smoothing_ok), then transform every block into the planes */
+static void finish_progressive(dec_t *d) {
+    int smooth = 0;
+    for (int i = 0; i < d->ncomp; i++) {
+        const comp_t *c = &d->comp[i];
+        static const int qpos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+        for (int k = 0; k < 10; k++)
+            if (c->q[qpos[k]] == 0) return; /* no smoothing where a quantizer is 0 */
+        if (c->coef_bits[0] < 0) return;    /* nor while a DC is not known */
+        for (int k = 1; k < SMOOTH_COEFS; k++) smooth |= c->coef_bits[k] != 0;
+    }
+    if (smooth)
+        fail(d, JD_UNSUPPORTED, "progressive JPEG whose scans leave AC coefficients 1-9 unfinished "
+             "is not supported (libjpeg smooths its blocks)");
+}
+
+static void idct_planes(dec_t *d) {
+    for (int i = 0; i < d->ncomp; i++) {
+        comp_t *c = &d->comp[i];
+        for (int by = 0; by < (c->dh + 7) / 8; by++)
+            for (int bx = 0; bx < (c->dw + 7) / 8; bx++)
+                idct_islow(block_at(c, bx, by), c->q, d->idct_limit,
+                           c->plane + (size_t)by * 8 * c->stride + (size_t)bx * 8, c->stride);
+    }
 }
 
 /* ------------------------------------------------------------ upsampling */
@@ -636,10 +854,15 @@ static inline const uint8_t *plane_row(const comp_t *c, int r) {
 }
 
 /* the component's samples for output row y, upsampled to (at least) the
- * output width; tmp has room for 2 * stride bytes */
+ * output width; tmp has room for (hmax / h) * stride bytes */
 static const uint8_t *comp_row(const dec_t *d, const comp_t *c, int y, uint8_t *tmp) {
     int rh = d->hmax / c->h, rv = d->vmax / c->v, dw = c->dw;
     if (rh == 1 && rv == 1) return plane_row(c, y);
+    if (rh > 2 || rv > 2) { /* int_upsample: each sample rh x rv times */
+        const uint8_t *in = plane_row(c, y / rv);
+        for (int x = 0; x < dw; x++) memset(tmp + (size_t)x * rh, in[x], (size_t)rh);
+        return tmp;
+    }
     if (rh == 1) { /* h1v2_fancy_upsample */
         const uint8_t *near = plane_row(c, y >> 1);
         const uint8_t *far = plane_row(c, (y & 1) ? (y >> 1) + 1 : (y >> 1) - 1);
@@ -705,10 +928,47 @@ static void build_ycc_tables(dec_t *d) {
 
 static inline uint8_t clamp255(int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); }
 
+static size_t tmp_room(const dec_t *d) {
+    size_t room = 0;
+    for (int i = 0; i < d->ncomp; i++) {
+        const comp_t *c = &d->comp[i];
+        size_t need = (size_t)(d->hmax / c->h > 2 ? d->hmax / c->h : 2) * c->stride;
+        if (need > room) room = need;
+    }
+    return room;
+}
+
+/* jdcolor.c ycck_cmyk_convert, then PIL's "CMYK;I" (every sample
+ * inverted); CMYK is only inverted */
+static void emit_cmyk(dec_t *d, uint8_t *out) {
+    size_t w = (size_t)d->width, room = tmp_room(d);
+    int ycck = d->saw_adobe && d->adobe_transform != 0;
+    for (int y = 0; y < d->height; y++) {
+        const uint8_t *c[4];
+        for (int i = 0; i < 4; i++) c[i] = comp_row(d, &d->comp[i], y, d->rows + (size_t)i * room);
+        uint8_t *o = out + (size_t)y * w * 4;
+        for (size_t x = 0; x < w; x++) {
+            if (ycck) {
+                int yy = c[0][x], cb = c[1][x], cr = c[2][x];
+                o[4 * x] = (uint8_t)~clamp255(255 - (yy + d->cr_r[cr]));
+                o[4 * x + 1] = (uint8_t)~clamp255(255 - (yy + ((d->cb_g[cb] + d->cr_g[cr]) >> SCALEBITS)));
+                o[4 * x + 2] = (uint8_t)~clamp255(255 - (yy + d->cb_b[cb]));
+            } else {
+                for (int i = 0; i < 3; i++) o[4 * x + i] = (uint8_t)~c[i][x];
+            }
+            o[4 * x + 3] = (uint8_t)~c[3][x];
+        }
+    }
+}
+
 static void emit(dec_t *d, uint8_t *out) {
     size_t w = (size_t)d->width;
     if (d->ncomp == 1) {
         for (int y = 0; y < d->height; y++) memcpy(out + (size_t)y * w, plane_row(&d->comp[0], y), w);
+        return;
+    }
+    if (d->ncomp == 4) {
+        emit_cmyk(d, out);
         return;
     }
     /* jdapimin.c default_decompress_parms: a JFIF marker says YCbCr, else an
@@ -716,9 +976,7 @@ static void emit(dec_t *d, uint8_t *out) {
     int ycc = d->saw_jfif ? 1
               : d->saw_adobe ? d->adobe_transform != 0
               : !(d->comp[0].id == 82 && d->comp[1].id == 71 && d->comp[2].id == 66);
-    size_t room = 0;
-    for (int i = 0; i < 3; i++)
-        if (2 * d->comp[i].stride > room) room = 2 * d->comp[i].stride;
+    size_t room = tmp_room(d);
     for (int y = 0; y < d->height; y++) {
         const uint8_t *c0 = comp_row(d, &d->comp[0], y, d->rows);
         const uint8_t *c1 = comp_row(d, &d->comp[1], y, d->rows + room);
@@ -746,7 +1004,6 @@ static void emit(dec_t *d, uint8_t *out) {
 static void alloc_planes(dec_t *d) {
     int mcux = (d->width + 8 * d->hmax - 1) / (8 * d->hmax);
     int mcuy = (d->height + 8 * d->vmax - 1) / (8 * d->vmax);
-    size_t room = 0;
     for (int i = 0; i < d->ncomp; i++) {
         comp_t *c = &d->comp[i];
         if (d->ncomp == 1) c->h = c->v = d->hmax = d->vmax = 1; /* a lone component is never subsampled */
@@ -757,9 +1014,13 @@ static void alloc_planes(dec_t *d) {
         c->stride = (size_t)c->bw * 8;
         c->plane = malloc(c->stride * (size_t)c->bh * 8);
         if (!c->plane) fail(d, JD_NOMEM, "out of memory for a %dx%d JPEG", d->width, d->height);
-        if (2 * c->stride > room) room = 2 * c->stride;
+        if (d->progressive) { /* libjpeg zeroes a progressive file's coefficients */
+            c->coef = calloc((size_t)c->bw * (size_t)c->bh * 64, sizeof(int16_t));
+            if (!c->coef) fail(d, JD_NOMEM, "out of memory for a %dx%d JPEG", d->width, d->height);
+        }
+        for (int k = 0; k < SMOOTH_COEFS; k++) c->coef_bits[k] = -1;
     }
-    d->rows = malloc(3 * room);
+    d->rows = malloc((size_t)d->ncomp * tmp_room(d));
     if (!d->rows) fail(d, JD_NOMEM, "out of memory for a %dx%d JPEG", d->width, d->height);
 }
 
@@ -796,6 +1057,10 @@ static void parse(dec_t *d, uint8_t *out, int64_t out_len) {
             if (stop_at_sof || !d->sof) fail(d, JD_CORRUPT, "no SOF marker before EOI");
             for (int i = 0; i < d->ncomp; i++)
                 if (!d->comp[i].coded) fail(d, JD_CORRUPT, "component %d is in no scan", d->comp[i].id);
+            if (d->progressive) {
+                finish_progressive(d);
+                idct_planes(d);
+            }
             emit(d, out);
             return;
         } else if ((m >= 0xE0 && m <= 0xEF)) {
@@ -824,12 +1089,15 @@ static dec_t *new_dec(const uint8_t *data, int64_t len, char *msg, int64_t msg_l
 }
 
 static void free_dec(dec_t *d) {
-    for (int i = 0; i < 3; i++) free(d->comp[i].plane);
+    for (int i = 0; i < MAX_COMPS; i++) {
+        free(d->comp[i].plane);
+        free(d->comp[i].coef);
+    }
     free(d->rows);
     free(d);
 }
 
-/* dims: height, width, components (1 or 3) */
+/* dims: height, width, components (1, 3 or 4) */
 int jpeg_info(const uint8_t *data, int64_t len, int32_t *dims, char *msg, int64_t msg_len) {
     dec_t *d = new_dec(data, len, msg, msg_len);
     if (!d) return JD_NOMEM;

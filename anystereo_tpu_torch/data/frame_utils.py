@@ -5,12 +5,14 @@ occlusion mask, FallingThings' depth turned into disparity by the camera's
 focal length, TartanAir's depth (.npy, disparity = 80 / depth), and
 Middlebury's PFM with its non-occluded mask.
 
-Images are decoded by the port itself, with no OpenCV or PIL: PNG by
-`data/png.py` (its unfilter in the port's own C, `csrc/png_unfilter.c`; the
-numpy walk there is the plain version), JPEG (FallingThings) by
-`data/jpeg.py` (the port's own baseline decoder in C,
-`csrc/jpeg_decode.c`), both built at first use by the host C compiler into
-`build/kernels/`, and PPM by `read_ppm`.  PFM is read by the port's C
+Images are decoded by the port itself, with no OpenCV or PIL, into the
+arrays the JAX package's PIL and OpenCV calls give, the format picked by
+the file's content as `PIL.Image.open` picks it: PNG by `data/png.py` (its
+unfilter in the port's own C, `csrc/png_unfilter.c`; the numpy walk there
+is the plain version), JPEG (FallingThings) by `data/jpeg.py` (the port's
+own decoder in C, `csrc/jpeg_decode.c`), both built at first use by the
+host C compiler into `build/kernels/`, and the Netpbm formats by
+`read_ppm`.  PFM is read by the port's C
 (`data/native_io.read_pfm`, `csrc/native_io.c`, as the JAX package reads it
 with its native module); `read_pfm(path, impl="numpy")` is the plain
 version.
@@ -28,7 +30,7 @@ import numpy as np
 
 from anystereo_tpu_torch.data import native_io
 from anystereo_tpu_torch.data.jpeg import read_jpeg
-from anystereo_tpu_torch.data.png import read_png
+from anystereo_tpu_torch.data.png import pil_bool, pil_luminance, read_png
 from anystereo_tpu_torch.utils import host_c
 
 
@@ -94,54 +96,207 @@ def write_flo(path: str, uv: np.ndarray) -> None:
         uv.astype(np.float32).tofile(f)
 
 
+_WHITESPACE = b" \t\n\x0b\x0c\r"
+_PPM_MODES = {b"P1": "1", b"P2": "L", b"P3": "RGB", b"P4": "1", b"P5": "L", b"P6": "RGB"}
+
+
+def _ppm_header(data: bytes, path: str):
+    """PIL's header parse: the magic (up to 6 bytes, to the first
+    whitespace), then tokens of at most 10 bytes, each ended by one
+    whitespace byte; a '#' anywhere in a token's run skips to the end of
+    its line.  Returns (magic, width, height, maxval or None, data offset)."""
+    pos, magic = 0, b""
+    while pos < len(data) and len(magic) < 6:
+        c = data[pos:pos + 1]
+        pos += 1
+        if c in _WHITESPACE:
+            break
+        magic += c
+    if magic not in _PPM_MODES:
+        raise ValueError(f"{path}: not a PPM file (magic {magic!r})")
+
+    def token():
+        nonlocal pos
+        tok = b""
+        while len(tok) <= 10:
+            c = data[pos:pos + 1]
+            pos += 1 if c else 0
+            if not c:
+                break
+            if c in _WHITESPACE:
+                if not tok:
+                    continue
+                break
+            if c == b"#":
+                while data[pos:pos + 1] not in (b"\r", b"\n", b""):
+                    pos += 1
+                pos += 1 if data[pos:pos + 1] else 0
+                continue
+            tok += c
+        if not tok:
+            raise ValueError(f"{path}: PPM header ends early")
+        if len(tok) > 10:
+            raise ValueError(f"{path}: PPM header token {tok[:11]!r} too long")
+        return int(tok)
+
+    w, h = token(), token()
+    maxval = None
+    if _PPM_MODES[magic] != "1":
+        maxval = token()
+        if not 0 < maxval < 65536:
+            raise ValueError(f"{path}: PPM maxval {maxval} is not in 1-65535")
+    return magic, w, h, maxval, pos
+
+
+def _plain_tokens(body: bytes) -> list:
+    """The whitespace-separated tokens of a plain PNM body, comments ('#'
+    to the end of its line) taken out."""
+    parts, pos = [], 0
+    while True:
+        i = body.find(b"#", pos)
+        if i < 0:
+            parts.append(body[pos:])
+            break
+        parts.append(body[pos:i])
+        ends = [e for e in (body.find(b"\n", i), body.find(b"\r", i)) if e >= 0]
+        if not ends:
+            break
+        pos = min(ends) + 1
+    return b"".join(parts).split()
+
+
 def read_ppm(path: str) -> np.ndarray:
-    """Binary PPM (P6, [H, W, 3]) or PGM (P5, [H, W]); uint8, or uint16
-    for a maximum value above 255."""
+    """Netpbm images as PIL reads them (`np.array(Image.open(path))`):
+    bitmaps (P1 plain, P4 raw) as [H, W] bool, True where the file says 0
+    (white), its bytes 0 and 255 as PIL's are; graymaps (P2, P5) as
+    [H, W] and pixmaps (P3, P6) as [H, W, 3], at any maxval from 1 to 65535
+    and with '#' comments.  PIL's modes:
+    uint8 ("L", "RGB"), except a graymap with maxval above 255, which is
+    int32 (mode "I"): a raw one at maxval 65535 keeps its values, any other
+    is scaled to 0-65535.  Every other maxval scales to 0-255 as
+    round(value / maxval * 255) in double, half to even, values above
+    maxval clipped (raw) or refused (plain)."""
     with open(path, "rb") as f:
         data = f.read()
-    fields, pos = [], 0
-    while len(fields) < 4:  # magic, width, height, maxval; '#' starts a comment
-        m = re.compile(rb"\s*(?:#[^\n]*\n\s*)*(\S+)").match(data, pos)
-        if m is None:
-            raise ValueError(f"{path}: malformed PPM header")
-        fields.append(m.group(1))
-        pos = m.end()
-    magic, w, h, maxval = fields[0], int(fields[1]), int(fields[2]), int(fields[3])
-    if magic not in (b"P5", b"P6"):
-        raise NotImplementedError(f"{path}: PPM type {magic!r} is not supported (P5 and P6 are)")
-    ch = 3 if magic == b"P6" else 1
-    dtype = np.dtype(">u2" if maxval > 255 else np.uint8)
-    img = np.frombuffer(data, dtype, count=h * w * ch, offset=pos + 1)
-    img = img.astype(np.uint16 if maxval > 255 else np.uint8).reshape(h, w, ch)
-    return img[..., 0] if ch == 1 else img
+    magic, w, h, maxval, pos = _ppm_header(data, path)
+    mode = _PPM_MODES[magic]
+    bands = 3 if mode == "RGB" else 1
+    n = w * h * bands
+    if magic == b"P4":
+        row = (w + 7) // 8
+        body = np.frombuffer(data, np.uint8, offset=pos, count=min(h * row, len(data) - pos))
+        if body.size < h * row:
+            raise ValueError(f"{path}: PBM data of {body.size} bytes, expected {h * row}")
+        return pil_bool(np.unpackbits(body.reshape(h, row), axis=1)[:, :w] == 0)
+    if magic == b"P1":
+        digits = b"".join(_plain_tokens(data[pos:]))  # plain bitmaps need no space between pixels
+        if digits.translate(None, b"01"):
+            raise ValueError(f"{path}: PBM data holds bytes other than 0 and 1")
+        if len(digits) < n:
+            raise ValueError(f"{path}: PBM data of {len(digits)} pixels, expected {n}")
+        return pil_bool(np.frombuffer(digits, np.uint8, count=n) == ord("0")).reshape(h, w)
+    wide = mode == "L" and maxval > 255  # PIL's mode "I"
+    out_max = 65535 if wide else 255
+    if magic in (b"P2", b"P3"):
+        tokens = _plain_tokens(data[pos:])
+        if len(tokens) < n:
+            raise ValueError(f"{path}: PNM data of {len(tokens)} values, expected {n}")
+        if any(len(t) > 10 for t in tokens[:n]):
+            raise ValueError(f"{path}: PNM value longer than 10 bytes")
+        values = np.array([int(t) for t in tokens[:n]], np.int64)
+        if values.min(initial=0) < 0 or values.max(initial=0) > maxval:
+            raise ValueError(f"{path}: PNM value outside 0-{maxval}")
+    else:
+        dtype = np.dtype(">u2" if maxval > 255 else np.uint8)
+        count = min(n, (len(data) - pos) // dtype.itemsize)
+        if count < n:
+            raise ValueError(f"{path}: PNM data of {count} values, expected {n}")
+        values = np.frombuffer(data, dtype, count=n, offset=pos)
+        if maxval == 255 or (wide and maxval == 65535):
+            return values.astype(np.int32 if wide else np.uint8).reshape((h, w, 3) if bands == 3 else (h, w))
+    scaled = np.minimum(np.round(values / maxval * out_max), out_max)
+    img = scaled.astype(np.int32 if wide else np.uint8)
+    return img.reshape((h, w, 3) if bands == 3 else (h, w))
 
 
-def _imread(path: str) -> np.ndarray:
-    ext = splitext(path)[1].lower()
-    if ext == ".png":
-        return read_png(path)
-    if ext == ".ppm":
-        return read_ppm(path)
-    if ext in (".jpg", ".jpeg"):
+# leading bytes of other formats PIL opens, to name them in the error
+_OTHER_FORMATS = ((b"GIF8", "GIF"), (b"BM", "BMP"), (b"II*\0", "TIFF"), (b"MM\0*", "TIFF"),
+                  (b"RIFF", "RIFF (WebP)"), (b"Pf", "PFM"))
+
+
+def _format(path: str) -> str:
+    """The image format of the file at `path` from its leading bytes, as
+    PIL's `Image.open` picks its plugin: "png", "jpeg" or "ppm"; anything
+    else raises `ValueError` naming what it found."""
+    with open(path, "rb") as f:
+        head = f.read(16)
+    if head.startswith(b"\x89PNG\r\n\x1a\n"):
+        return "png"
+    if head.startswith(b"\xff\xd8\xff"):
+        return "jpeg"
+    if head[:2] in _PPM_MODES:
+        return "ppm"
+    found = next((name for sig, name in _OTHER_FORMATS if head.startswith(sig)), None)
+    found = f"a {found} file" if found else f"unknown data starting {head[:8]!r}"
+    raise ValueError(f"{path}: not a PNG, JPEG or PPM file (found {found})")
+
+
+def read_image(path: str) -> np.ndarray:
+    """`np.array(PIL.Image.open(path))` for a PNG, JPEG or PPM file, the
+    format picked by the file's content, not its name."""
+    kind = _format(path)
+    if kind == "png":
+        return read_png(path, mode="pil")
+    if kind == "jpeg":
         return read_jpeg(path)
-    raise ValueError(f"{path}: not an image format the readers know")
+    return read_ppm(path)
+
+
+def _muldiv255(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    t = a * b + 128
+    return ((t >> 8) + t) >> 8
+
+
+def read_luminance(path: str) -> np.ndarray:
+    """`np.asarray(PIL.Image.open(path).convert("L"))` for a PNG, JPEG or PPM
+    file: a palette through its `PLTE`, bitmaps 0/255, 16-bit and 32-bit
+    gray clipped to 0-255, colour by PIL's (19595 R + 38470 G + 7471 B +
+    2^15) >> 16, CMYK through PIL's CMYK to RGB."""
+    if _format(path) == "png":
+        return read_png(path, mode="L")
+    img = read_image(path)
+    if img.dtype == bool:
+        return np.where(img, 255, 0).astype(np.uint8)
+    if img.ndim == 2:
+        return np.clip(img, 0, 255).astype(np.uint8)
+    x = img.astype(np.int64)
+    if img.shape[-1] == 4:  # CMYK: r = k' - k' c / 255 with k' = 255 - k, clipped
+        nk = 255 - x[..., 3:]
+        x = np.clip(nk - _muldiv255(x[..., :3], nk), 0, 255)
+    return pil_luminance(x)
 
 
 def read_disp_kitti(path: str) -> Tuple[np.ndarray, np.ndarray]:
-    """16-bit PNG / 256; zero = invalid."""
-    disp = read_png(path).astype(np.float32) / 256.0
+    """KITTI's disparity PNG / 256 as float32 (zero = invalid), from the
+    array `cv2.imread(path, cv2.IMREAD_ANYDEPTH)` gives: a gray file's
+    samples at its depth (16-bit whole), a colour file turned gray at its
+    depth (`read_png(..., mode="opencv")`)."""
+    if _format(path) != "png":
+        raise NotImplementedError(f"{path}: OpenCV's gray decode of a JPEG or PPM disparity map is "
+                                  f"not supported (a PNG is)")
+    disp = read_png(path, mode="opencv").astype(np.float32) / 256.0
     return disp, disp > 0.0
 
 
 def read_disp_sintel(path: str) -> Tuple[np.ndarray, np.ndarray]:
-    a = _imread(path).astype(np.float32)
+    a = read_image(path).astype(np.float32)
     disp = a[..., 0] * 4 + a[..., 1] / 2**6 + a[..., 2] / 2**14
-    mask = _imread(path.replace("disparities", "occlusions"))
+    mask = read_image(path.replace("disparities", "occlusions"))
     return disp, (mask == 0) & (disp > 0)
 
 
 def read_disp_falling_things(path: str) -> Tuple[np.ndarray, np.ndarray]:
-    a = _imread(path).astype(np.float32)
+    a = read_image(path).astype(np.float32)
     with open(os.path.join(os.path.dirname(path), "_camera_settings.json")) as f:
         intr = json.load(f)
     fx = intr["camera_settings"][0]["intrinsic_settings"]["fx"]
@@ -158,7 +313,7 @@ def read_disp_tartanair(path: str) -> Tuple[np.ndarray, np.ndarray]:
 def read_disp_middlebury(path: str):
     if basename(path) == "disp0GT.pfm":
         disp = read_pfm(path)
-        nocc = _imread(path.replace("disp0GT.pfm", "mask0nocc.png")) == 255
+        nocc = read_image(path.replace("disp0GT.pfm", "mask0nocc.png")) == 255
         return disp, nocc
     if basename(path) == "disp0.pfm":
         disp = read_pfm(path)
@@ -172,7 +327,7 @@ def read_gen(path: str) -> Union[np.ndarray, list]:
     extension."""
     ext = splitext(path)[-1]
     if ext in (".png", ".jpeg", ".ppm", ".jpg"):
-        return _imread(path)
+        return read_image(path)
     if ext in (".bin", ".raw"):
         return np.load(path)
     if ext == ".flo":

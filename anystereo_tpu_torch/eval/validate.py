@@ -40,8 +40,7 @@ import torch
 
 from anystereo_tpu_torch.config import CoreType, ModelConfig
 from anystereo_tpu_torch.data.datasets import ETH3D, KittiMixed, Middlebury, SceneFlowDataset
-from anystereo_tpu_torch.data.frame_utils import read_pfm
-from anystereo_tpu_torch.data.png import read_png
+from anystereo_tpu_torch.data.frame_utils import read_image, read_luminance, read_pfm
 from anystereo_tpu_torch.eval import reporting
 from anystereo_tpu_torch.eval.metrics import AverageMeterDict, compute_metrics
 from anystereo_tpu_torch.eval.occlusion import occ_mask
@@ -162,12 +161,13 @@ def lr_consistency_occ_provider(device=None) -> Callable:
 
 def kitti_occ_provider(dataset, index) -> Optional[np.ndarray]:
     """Occlusion mask for KITTI: True where the disp_occ and disp_noc ground
-    truth images differ (the pixels only the occluded ground truth covers)."""
+    truth images differ (the pixels only the occluded ground truth covers),
+    each read as PIL reads it (16-bit gray whole)."""
     occ_path = dataset.disparity_list[index]
     noc_path = occ_path.replace("disp_occ_0", "disp_noc_0").replace("disp_occ", "disp_noc")
     if noc_path == occ_path or not os.path.exists(noc_path):
         return None
-    return read_png(occ_path) != read_png(noc_path)
+    return read_image(occ_path) != read_image(noc_path)
 
 
 def sceneflow_occ_provider(dataset, index, device=None) -> Optional[np.ndarray]:
@@ -183,14 +183,15 @@ def sceneflow_occ_provider(dataset, index, device=None) -> Optional[np.ndarray]:
 
 def nocc_mask_occ_provider(dataset, index) -> Optional[np.ndarray]:
     """Middlebury/ETH3D: occluded = complement of mask0nocc.png beside
-    disp0GT.pfm (`== 255` is non-occluded; a colour mask counts by its
-    luminance).  Middlebury 2014 (disp0.pfm) ships no occlusion ground
+    disp0GT.pfm (`== 255` is non-occluded, of the mask's PIL `convert("L")`,
+    `frame_utils.read_luminance`: a palette through its colours, a bitmap
+    as 0/255).  Middlebury 2014 (disp0.pfm) ships no occlusion ground
     truth: None, rather than its reader's disp < 1e3 validity mask.  A reader
     that returns (disp, nocc) gives the mask otherwise."""
     path = dataset.disparity_list[index]
     mask_path = path.replace("disp0GT.pfm", "mask0nocc.png")
     if mask_path != path and os.path.exists(mask_path):
-        return _luminance(read_png(mask_path)) != 255
+        return read_luminance(mask_path) != 255
     if os.path.basename(path) == "disp0.pfm":
         return None
     disp = dataset.reader(path)
@@ -198,18 +199,6 @@ def nocc_mask_occ_provider(dataset, index) -> Optional[np.ndarray]:
         _, nocc = disp
         return ~np.asarray(nocc, bool)
     return None
-
-
-def _luminance(img: np.ndarray) -> np.ndarray:
-    """PIL's `convert("L")` of a gray, gray+alpha, RGB or RGBA uint8 image:
-    (19595 R + 38470 G + 7471 B + 2^15) >> 16 for colour, the gray channel
-    otherwise."""
-    if img.ndim == 2:
-        return img
-    if img.shape[-1] <= 2:
-        return img[..., 0]
-    x = img[..., :3].astype(np.int64)
-    return ((19595 * x[..., 0] + 38470 * x[..., 1] + 7471 * x[..., 2] + 0x8000) >> 16).astype(np.uint8)
 
 
 class Validator:

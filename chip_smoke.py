@@ -119,11 +119,15 @@ Phases (any failure raises, and the exit code is not 0):
            2015 tree (2 frames of 375x1242, 16-bit disparity PNGs) written
            by the port's writers, and a FallingThings tree (3 frames, each
            the committed 540x960 JPEG pair of `tests/data/jpeg/` and a
-           16-bit depth PNG); first the readers line: the C PNG unfilter
-           beside the plain numpy one on both PNG kinds, None- and
-           Paeth-filtered, the C JPEG decode of the committed 540x960 file,
-           every committed JPEG held to its recorded PIL digest, and the
-           host compiler's version; the augment line: each host C function
+           16-bit depth PNG; the left view of temple_4/000000 the committed
+           progressive JPEG of the same view, `tests/data/formats/`); first
+           the readers line: the C PNG unfilter beside the plain numpy one
+           on both PNG kinds, None- and Paeth-filtered, and on the SceneFlow
+           frame written Adam7-interlaced, the C JPEG decode of the
+           committed 540x960 baseline and progressive files, every
+           committed JPEG and every file of `tests/data/formats/` (PNG,
+           JPEG and PPM of every form) held to its recorded PIL digest, and
+           the host compiler's version; the augment line: each host C function
            of the augmentor at the path's shapes (the uint8 and float32
            bilinear resizes of a 540x960 frame and its flow by a stretched
            scale, the bicubic 400x800 -> 160x320, gray, RGB->HSV and
@@ -1786,6 +1790,8 @@ KITTI_FRAMES = 2
 FT_NAMES = ("kitchen_0/000000", "kitchen_0/000001", "temple_4/000000")  # FallingThings frames
 FT_FX = 768.1605  # FallingThings' left camera, _camera_settings.json
 JPEG_FIXTURES = os.path.join("tests", "data", "jpeg")  # committed JPEGs and PIL's digests of them
+FORMAT_FIXTURES = os.path.join("tests", "data", "formats")  # every PNG, JPEG and PPM form, PIL's digests
+FT_PROGRESSIVE = "temple_4/000000"  # the FallingThings frame whose left view is the progressive JPEG
 READER_REPS = 5
 AUG_SCALE = (1.31, 1.17)  # a stretched scale the dense augmentor draws
 SPARSE_SCALE = 2 ** 0.3  # one the sparse augmentor draws (no stretch)
@@ -1852,7 +1858,9 @@ def _write_trees(np, root):
 def _write_ft(np, root):
     """A FallingThings tree: `filenames.txt`, each frame's left and right
     views a copy of the committed 540x960 JPEG pair (`JPEG_FIXTURES`, made
-    by `_stereo_pair` at the seed in its `digests.json`), its 16-bit
+    by `_stereo_pair` at the seed in its `digests.json`), except the left
+    view of FT_PROGRESSIVE, the committed progressive JPEG of the same view
+    (`FORMAT_FIXTURES`, same seed, PIL quality 75), its 16-bit
     `*.left.depth.png` the pair's disparity turned into FallingThings' depth
     (fx * 600 / d, written by `write_png`), and `_camera_settings.json`
     beside them."""
@@ -1863,6 +1871,10 @@ def _write_ft(np, root):
     with open(os.path.join(JPEG_FIXTURES, "digests.json")) as f:
         record = json.load(f)
     pair, (h, w, _) = record["stereo"], record["files"]["stereo.left.jpg"]["shape"]
+    with open(os.path.join(FORMAT_FIXTURES, "digests.json")) as f:
+        progressive = json.load(f)["stereo"]
+    if any(progressive[k] != pair[k] for k in ("seed", "dmin", "dmax")):
+        raise AssertionError(f"the progressive fixture's view {progressive} is not the JPEG pair's {pair}")
     _, _, disp = _stereo_pair(np, np.random.RandomState(pair["seed"]), h, w, pair["dmin"], pair["dmax"])
     depth = np.round(FT_FX * 6.0 * 100 / disp).astype(np.uint16)
     ft = os.path.join(root, "falling_things")
@@ -1870,8 +1882,10 @@ def _write_ft(np, root):
         d = os.path.join(ft, os.path.dirname(name))
         os.makedirs(d, exist_ok=True)
         for view in ("left", "right"):
-            shutil.copy(os.path.join(JPEG_FIXTURES, f"stereo.{view}.jpg"),
-                        os.path.join(ft, f"{name}.{view}.jpg"))
+            src = os.path.join(JPEG_FIXTURES, f"stereo.{view}.jpg")
+            if name == FT_PROGRESSIVE and view == "left":
+                src = os.path.join(FORMAT_FIXTURES, progressive["file"])
+            shutil.copy(src, os.path.join(ft, f"{name}.{view}.jpg"))
         write_png(os.path.join(ft, f"{name}.left.depth.png"), depth)
         with open(os.path.join(d, "_camera_settings.json"), "w") as f:
             json.dump({"camera_settings": [{"intrinsic_settings": {"fx": FT_FX}}]}, f)
@@ -1893,27 +1907,64 @@ def _ms(fn, reps=READER_REPS):
     return times[0], times[len(times) // 2], out
 
 
+def _write_adam7(np, path, img):
+    """`img` ([H, W, 3] uint8) as an Adam7-interlaced PNG: seven sub-images
+    (the reader's `_ADAM7`: first column, first row, steps), each with its
+    own rows of filter bytes, every row Paeth-filtered."""
+    import struct
+    import zlib
+
+    from anystereo_tpu_torch.data.png import _ADAM7, _filter
+
+    def chunk(kind, body):
+        crc = zlib.crc32(kind + body) & 0xFFFFFFFF
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", crc)
+
+    h, w, c = img.shape
+    stream = []
+    for x0, y0, dx, dy in _ADAM7:
+        sub = np.ascontiguousarray(img[y0::dy, x0::dx])
+        if sub.size:
+            rows = _filter(sub.reshape(sub.shape[0], -1), c, 4)
+            stream.append(np.concatenate([np.full((rows.shape[0], 1), 4, np.uint8), rows], axis=1).tobytes())
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 1)) +
+                chunk(b"IDAT", zlib.compress(b"".join(stream))) + chunk(b"IEND", b""))
+
+
+def _digests_hold(np, folder, read):
+    """Raise unless `read` gives every file of `folder` its recorded PIL
+    digest (shape, dtype where recorded, sha256 of the bytes); the count."""
+    import hashlib
+
+    with open(os.path.join(folder, "digests.json")) as f:
+        files = json.load(f)["files"]
+    for name, want in files.items():
+        got = np.asarray(read(os.path.join(folder, name)))
+        have = {"shape": list(got.shape), "dtype": str(got.dtype),
+                "sha256": hashlib.sha256(got.tobytes()).hexdigest()}
+        if any(have[k] != want[k] for k in want):
+            raise AssertionError(f"the port's decode of {folder}/{name} is not PIL's: {have} against {want}")
+    return len(files)
+
+
 def _readers_line(np, root, sf, kitti, card):
     """A line of the readers' times on the card's host, the C decode beside
     the plain version (`read_png(..., impl="numpy")`) on the same files: a
     SceneFlow frame and a KITTI 16-bit disparity as the tree's writer
-    filters them (None) and with every row Paeth-filtered, and the committed
-    540x960 JPEG (no plain version: its reference is PIL, whose digests of
-    every committed JPEG the C decodes must give); the host compiler's
+    filters them (None) and with every row Paeth-filtered, the SceneFlow
+    frame Adam7-interlaced (`_write_adam7`), and the committed 540x960
+    baseline and progressive JPEGs of one view (no plain version: their
+    reference is PIL, whose digests of every committed JPEG and of every
+    file of `FORMAT_FIXTURES` the C decodes must give); the host compiler's
     version."""
-    import hashlib
-
+    from anystereo_tpu_torch.data import frame_utils
     from anystereo_tpu_torch.data.jpeg import read_jpeg
     from anystereo_tpu_torch.data.png import read_png, write_png
     from anystereo_tpu_torch.ops.kernels import build
 
-    with open(os.path.join(JPEG_FIXTURES, "digests.json")) as f:
-        record = json.load(f)
-    for name, want in record["files"].items():
-        got = read_jpeg(os.path.join(JPEG_FIXTURES, name))
-        if list(got.shape) != want["shape"] or hashlib.sha256(got.tobytes()).hexdigest() != want["sha256"]:
-            raise AssertionError(f"the C decode of {name} is not PIL's (shape {list(got.shape)}, "
-                                 f"recorded {want['shape']})")
+    n_jpeg = _digests_hold(np, JPEG_FIXTURES, read_jpeg)
+    n_formats = _digests_hold(np, FORMAT_FIXTURES, frame_utils.read_gen)
     frames = {f"{SF_H}x{SF_W} RGB": os.path.join(sf, "frames_finalpass", "TRAIN", "A", "0000", "left",
                                                   "0000.png"),
               f"{EVAL_H}x{EVAL_W} 16-bit": os.path.join(kitti, "training", "disp_occ_0", "000000_10.png")}
@@ -1930,16 +1981,27 @@ def _readers_line(np, root, sf, kitti, card):
                                      f"the plain one disagree")
             parts.append(f"{kind} {filt}: C {c_best:.2f} (median {c_med:.2f}), numpy {n_best:.2f} "
                          f"(median {n_med:.2f})")
-    jpg = os.path.join(JPEG_FIXTURES, "stereo.left.jpg")
-    j_best, j_med, decoded = _ms(lambda: read_jpeg(jpg))
-    parts.append(f"{decoded.shape[0]}x{decoded.shape[1]} JPEG ({os.path.getsize(jpg)} bytes, PIL quality 75, "
-                 f"4:2:0): C {j_best:.2f} (median {j_med:.2f})")
+        if kind.endswith("RGB"):
+            adam7 = os.path.join(root, "adam7.png")
+            _write_adam7(np, adam7, img)
+            c_best, c_med, got = _ms(lambda: read_png(adam7))
+            n_best, n_med, plain = _ms(lambda: read_png(adam7, impl="numpy"))
+            if not (np.array_equal(got, img) and np.array_equal(plain, img)):
+                raise AssertionError(f"read_png of the Adam7 {kind} file: the C decode and the plain one "
+                                     f"are not the frame")
+            parts.append(f"{kind} Adam7 Paeth: C {c_best:.2f} (median {c_med:.2f}), numpy {n_best:.2f} "
+                         f"(median {n_med:.2f})")
+    for name, form in (("stereo.left.jpg", "baseline"), ("stereo.left.progressive.jpg", "progressive")):
+        jpg = os.path.join(JPEG_FIXTURES if form == "baseline" else FORMAT_FIXTURES, name)
+        j_best, j_med, decoded = _ms(lambda: read_jpeg(jpg))
+        parts.append(f"{decoded.shape[0]}x{decoded.shape[1]} {form} JPEG ({os.path.getsize(jpg)} bytes, PIL "
+                     f"quality 75, 4:2:0): C {j_best:.2f} (median {j_med:.2f})")
     cc = build._cc(build.CSRC / "jpeg_decode.c")
     version = subprocess.run([cc, "--version"], capture_output=True, text=True,
                              timeout=60).stdout.splitlines()[0]
     return (f"[trainer] readers ms (best of {READER_REPS}, on the card's host): " + "; ".join(parts) +
-            f"; {len(record['files'])} committed JPEGs decode to PIL's digests; compiler {cc}: "
-            f"{version}; {card}")
+            f"; {n_jpeg} committed JPEGs and all {n_formats} files of {FORMAT_FIXTURES} (PNG, JPEG and PPM "
+            f"of every form) decode to PIL's digests; compiler {cc}: {version}; {card}")
 
 
 def _identical(got, want, what):
@@ -2049,7 +2111,7 @@ def _counted_reads():
 
     from anystereo_tpu_torch.data import frame_utils
 
-    counts = {"jpeg": 0, "png": 0}
+    counts = {"jpeg": 0, "png": 0, "progressive": 0}
     own = {"jpeg": frame_utils.read_jpeg, "png": frame_utils.read_png}
     lock = threading.Lock()
 
@@ -2057,6 +2119,7 @@ def _counted_reads():
         def read(path, *a, **kw):
             with lock:
                 counts[kind] += 1
+                counts["progressive"] += path.endswith(f"{FT_PROGRESSIVE}.left.jpg")
             return own[kind](path, *a, **kw)
         return read
 
@@ -2178,9 +2241,9 @@ def phase_trainer(torch, kernels, card, root):
     if [s for s, _, _ in log["val"]] != list(range(TRAINER_CKPT_EVERY, TRAINER_RESUMED + 1,
                                                     TRAINER_CKPT_EVERY)):
         raise AssertionError(f"validations at steps {[s for s, _, _ in log['val']]}")
-    if not (reads["jpeg"] and reads["png"]):
-        raise AssertionError(f"train() decoded {reads} images: FallingThings' JPEGs and depth PNGs "
-                             f"are in its mix")
+    if not (reads["jpeg"] and reads["png"] and reads["progressive"]):
+        raise AssertionError(f"train() decoded {reads} images: FallingThings' JPEGs (the progressive "
+                             f"{FT_PROGRESSIVE} left view among them) and depth PNGs are in its mix")
     state = runs[1]["state"]
     # the loader alone: LOADER_BATCHES batches, the start of its threads included
     t0 = time.perf_counter()
@@ -2277,7 +2340,8 @@ def phase_trainer(torch, kernels, card, root):
          f"in flight; thread start included), {wide_rate:.2f} with {TRAINER_WORKERS} in flight ({wide_batches} "
          f"batches of {TRAINER_WORKERS}), one sample alone on one thread {serial_ms:.1f} ms "
          f"({1e3 / serial_ms:.2f} samples/s) for SceneFlow and {ft_serial_ms:.1f} ms for FallingThings; "
-         f"train() decoded {reads['jpeg']} JPEGs and {reads['png']} PNGs (the mix: {SF_TRAIN} "
+         f"train() decoded {reads['jpeg']} JPEGs ({reads['progressive']} of them the progressive "
+         f"{FT_PROGRESSIVE} left view) and {reads['png']} PNGs (the mix: {SF_TRAIN} "
          f"SceneFlow pairs and {len(FT_NAMES)} FallingThings pairs x 5); {card}")
     lines.append(f"[trainer] checkpoint {mb:.1f} MB: save {save_ms:.1f} ms, restore {restore_ms:.1f} ms; "
          f"validation {sum(v[2] for v in log['val']) / len(log['val']) / TRAINER_VAL_FRAMES:.2f} ms/frame "

@@ -39,7 +39,7 @@ from anystereo_tpu_torch.data import augment as taug  # noqa: E402
 from anystereo_tpu_torch.data import datasets as tds  # noqa: E402
 from anystereo_tpu_torch.data import frame_utils as tfu  # noqa: E402
 from anystereo_tpu_torch.data.loader import PrefetchLoader  # noqa: E402
-from anystereo_tpu_torch.data.png import read_png, write_png  # noqa: E402
+from anystereo_tpu_torch.data.png import decode_png, read_png, write_png  # noqa: E402
 from anystereo_tpu_torch.utils.resize import resize  # noqa: E402
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools"))
@@ -73,13 +73,16 @@ def test_png_filter_types(tmp_path, filter_type, kind, impl):
     raw = zlib.decompress(data[data.index(b"IDAT") + 4:data.index(b"IEND") - 8])
     row = raw[:len(raw) // arr.shape[0]]
     assert row[0] == filter_type  # the file really carries the chosen filter
-    got = read_png(p, impl=impl)
+    got = decode_png(p, impl=impl).samples  # every sample whole, 16-bit colour too
+    got = got[..., 0] if arr.ndim == 2 else got
     assert got.dtype == arr.dtype and got.shape == arr.shape
     np.testing.assert_array_equal(got, arr)
-    if kind == "rgb16":  # PIL keeps the high byte of 16-bit colour; OpenCV all of it
+    if kind == "rgb16":  # OpenCV keeps all of 16-bit colour, PIL the high byte
         np.testing.assert_array_equal(got, cv2.imread(p, cv2.IMREAD_UNCHANGED)[..., ::-1])
-    else:
-        np.testing.assert_array_equal(got, np.array(Image.open(p)))
+    pil = read_png(p, impl=impl)
+    want = np.array(Image.open(p))
+    assert pil.dtype == want.dtype and pil.shape == want.shape
+    np.testing.assert_array_equal(pil, want)
 
 
 @pytest.mark.parametrize("mode", ["L", "LA", "RGB", "RGBA", "P", "I;16"])
@@ -134,13 +137,20 @@ def _set_ihdr(path, **fields):
 
 
 def test_png_refuses_what_it_does_not_decode(tmp_path):
+    """Every file the PNG specification allows decodes, interlaced and 1-,
+    2- and 4-bit ones too (`tests/test_torch_formats.py`); a file it does
+    not allow raises ValueError naming the file and the fault."""
     p = str(tmp_path / "x.png")
     write_png(p, np.zeros((4, 5), np.uint8))
-    _set_ihdr(p, interlace=1)
-    with pytest.raises(NotImplementedError, match="x.png"):
+    _set_ihdr(p, interlace=1)  # the header says Adam7, the data is one pass
+    with pytest.raises(ValueError, match="x.png: PNG image data of 24 bytes, expected 28"):
         read_png(p)
-    Image.fromarray(np.zeros((4, 5), bool)).save(p)  # a 1-bit file
-    with pytest.raises(NotImplementedError, match="bit depth 1"):
+    _set_ihdr(p, interlace=2)
+    with pytest.raises(ValueError, match="x.png: PNG interlace method 2"):
+        read_png(p)
+    write_png(p, np.zeros((4, 5, 3), np.uint8))
+    _set_ihdr(p, depth=4)  # RGB allows 8 and 16 bits
+    with pytest.raises(ValueError, match="x.png: PNG bit depth 4 is not defined for colour type 2"):
         read_png(p)
     with open(p, "wb") as f:
         f.write(b"not a png")

@@ -99,23 +99,27 @@ def _image(rng, h, w, depth, colour):
     return arr
 
 
-def _reference(path, depth, colour):
-    """What the JAX package's readers give: PIL, except 16-bit colour, of
-    which PIL keeps only the high byte and OpenCV all (as [H, W, samples])."""
-    if depth == 8 or colour == 0:
-        return np.array(Image.open(path))
+def _unchanged(path, depth, colour):
+    """The samples OpenCV's IMREAD_UNCHANGED gives, as [H, W, samples] in the
+    file's order: PIL gives no whole 16-bit colour to compare with."""
     x = cv2.imread(path, cv2.IMREAD_UNCHANGED)
     return {2: lambda: x[..., ::-1], 4: lambda: x[..., [0, 3]], 6: lambda: x[..., [2, 1, 0, 3]]}[colour]()
 
 
 def _check_png(path, arr, depth, colour):
-    got = read_png(path)
-    plain = read_png(path, impl="numpy")
-    want = arr[..., 0] if _SAMPLES[colour] == 1 else arr
-    assert got.dtype == want.dtype and got.shape == want.shape
-    np.testing.assert_array_equal(got, want)
+    """The samples (`decode_png`, C and numpy) equal the image written, and
+    OpenCV's whole 16-bit colour; `read_png` gives PIL's array."""
+    got = tpng.decode_png(path).samples
+    plain = tpng.decode_png(path, impl="numpy").samples
+    assert got.dtype == arr.dtype and got.shape == arr.shape
+    np.testing.assert_array_equal(got, arr)
     np.testing.assert_array_equal(got, plain)
-    np.testing.assert_array_equal(got, _reference(path, depth, colour))
+    if depth == 16 and colour != 0:
+        np.testing.assert_array_equal(got, _unchanged(path, depth, colour))
+    pil = read_png(path)
+    want = np.array(Image.open(path))
+    assert pil.dtype == want.dtype and pil.shape == want.shape
+    np.testing.assert_array_equal(pil, want)
 
 
 FORMATS = [(8, 0), (16, 0), (8, 2), (16, 2), (8, 3), (8, 4), (16, 4), (8, 6), (16, 6)]
@@ -438,16 +442,44 @@ def test_jpeg_one_component_a_scan(tmp_path, subsampling, size):
 
 
 def test_jpeg_refuses_progressive(tmp_path):
+    """Progressive Huffman files decode (`tests/test_torch_formats.py`); what
+    is left of progressive JPEG is refused by name: arithmetic coding
+    (SOF10), and a file whose scans stop before AC coefficients 1-9 are
+    finished, which libjpeg would smooth (here the file cut after its first
+    scan)."""
     p = _jpeg_pil(str(tmp_path / "prog.jpg"), _texture(np.random.RandomState(1), (17, 33, 3)),
                   progressive=True)
-    with pytest.raises(NotImplementedError, match="prog.jpg.*progressive"):
+    data = open(p, "rb").read()
+    np.testing.assert_array_equal(tfu.read_gen(p), jfu.read_gen(p))
+    with open(p, "wb") as f:
+        f.write(data.replace(b"\xff\xc2", b"\xff\xca", 1))
+    with pytest.raises(NotImplementedError, match="prog.jpg.*arithmetic-coded JPEG \\(SOF10\\)"):
+        tfu.read_gen(p)
+    second_scan = data.index(b"\xff\xda", data.index(b"\xff\xda") + 2)
+    with open(p, "wb") as f:
+        f.write(data[:second_scan] + b"\xff\xd9")
+    assert jfu.read_gen(p).shape == (17, 33, 3)  # PIL reads it, smoothed
+    with pytest.raises(NotImplementedError, match="prog.jpg: progressive JPEG whose scans leave AC "
+                                                  "coefficients 1-9 unfinished"):
         tfu.read_gen(p)
 
 
 def test_jpeg_refuses_411(tmp_path):
+    """4:1:1 decodes (`tests/test_torch_formats.py`); sampling factors whose
+    ratios are not whole numbers, which libjpeg refuses too, are refused by
+    name (4:1:1's chroma factors rewritten to 3x1 and 2x1)."""
     p = _jpeg_cv2(str(tmp_path / "s411.jpg"), _texture(np.random.RandomState(2), (17, 33, 3)),
                   cv2.IMWRITE_JPEG_SAMPLING_FACTOR, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411)
-    with pytest.raises(NotImplementedError, match="s411.jpg.*sampling factors 4x1"):
+    _check_jpeg(p)
+    data = bytearray(open(p, "rb").read())
+    sof = data.index(b"\xff\xc0")
+    assert data[sof + 11:sof + 20:3] == b"\x41\x11\x11"
+    data[sof + 14], data[sof + 17] = 0x31, 0x21
+    with open(p, "wb") as f:
+        f.write(bytes(data))
+    with pytest.raises(OSError):
+        jfu.read_gen(p)
+    with pytest.raises(NotImplementedError, match="s411.jpg.*sampling factors 4x1,3x1,2x1"):
         tfu.read_gen(p)
 
 
