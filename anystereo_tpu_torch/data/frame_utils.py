@@ -12,7 +12,10 @@ unfilter in the port's own C, `csrc/png_unfilter.c`; the numpy walk there
 is the plain version), JPEG (FallingThings) by `data/jpeg.py` (the port's
 own decoder in C, `csrc/jpeg_decode.c`), both built at first use by the
 host C compiler into `build/kernels/`, and the Netpbm formats by
-`read_ppm`.  PFM is read by the port's C
+`read_ppm`.  `read_disp_kitti` gives OpenCV's `IMREAD_ANYDEPTH` gray of a
+PNG, JPEG or Netpbm map (`read_png(mode="opencv")`, `read_jpeg(mode=
+"opencv")`, `read_ppm_opencv`), turned by its EXIF orientation as OpenCV
+turns it (`data/exif.py`).  PFM is read by the port's C
 (`data/native_io.read_pfm`, `csrc/native_io.c`, as the JAX package reads it
 with its native module); `read_pfm(path, impl="numpy")` is the plain
 version.
@@ -28,8 +31,8 @@ from typing import Optional, Tuple, Union
 
 import numpy as np
 
-from anystereo_tpu_torch.data import native_io
-from anystereo_tpu_torch.data.jpeg import read_jpeg
+from anystereo_tpu_torch.data import exif, native_io
+from anystereo_tpu_torch.data.jpeg import decode_jpeg, read_jpeg
 from anystereo_tpu_torch.data.png import pil_bool, pil_luminance, read_png
 from anystereo_tpu_torch.utils import host_c
 
@@ -276,15 +279,118 @@ def read_luminance(path: str) -> np.ndarray:
     return pil_luminance(x)
 
 
+_C_SPACE = b" \t\n\x0b\x0c\r"
+
+
+def _pxm_numbers(data: bytes, pos: int, count: int, path: str, maxdigits: int = 0):
+    """OpenCV's PxM ReadNumber `count` times from `pos`: whitespace and '#'
+    comments (to the end of the line) skipped, any other byte before a
+    digit refused; a number ends at (and takes) the first byte after its
+    digits, or after `maxdigits` digits; data that ends first is refused.
+    Returns (numbers, position)."""
+    out = []
+    for _ in range(count):
+        def byte():
+            nonlocal pos
+            if pos >= len(data):
+                raise ValueError(f"{path}: Netpbm data ends early (OpenCV's PxM decoder reads no more)")
+            pos += 1
+            return data[pos - 1]
+        code = byte()
+        while not 48 <= code <= 57:
+            if code == 35:  # '#'
+                while code not in (10, 13):
+                    code = byte()
+                code = byte()
+            elif code in _C_SPACE:
+                while code in _C_SPACE:
+                    code = byte()
+            else:
+                raise ValueError(f"{path}: byte 0x{code:02x} where OpenCV's PxM decoder wants a number")
+        val = digits = 0
+        while True:
+            val = val * 10 + code - 48
+            digits += 1
+            if val > 2**31 - 1:
+                raise ValueError(f"{path}: Netpbm number too large for OpenCV's PxM decoder")
+            if maxdigits and digits >= maxdigits:
+                break
+            code = byte()  # a number must end in a byte, even the last of the file
+            if not 48 <= code <= 57:
+                break
+        out.append(val)
+    return out, pos
+
+
+def read_ppm_opencv(path: str) -> np.ndarray:
+    """`cv2.imread(path, cv2.IMREAD_ANYDEPTH)` of a Netpbm file (OpenCV's
+    PxM decoder, its own header and number parse), always gray: bitmaps
+    (P1, P4) 255 where the file says 0, else 0; a plain graymap or pixmap
+    (P2, P3) at maxval 255 or below scaled as value * 255 // maxval (values
+    above maxval taken as maxval), a raw one (P5, P6) kept as its bytes; at
+    maxval above 255 the 16-bit values whole, as uint16 (plain ones clipped
+    to maxval); a pixmap turned gray by OpenCV's BGR-to-gray fixed point,
+    (4899 R + 9617 G + 1868 B + 2^13) >> 14, at its depth."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if len(data) < 2 or data[0] != ord("P") or not ord("1") <= data[1] <= ord("6"):
+        raise ValueError(f"{path}: not a Netpbm file")
+    magic = data[1] - ord("0")
+    plain = magic <= 3
+    (w, h), pos = _pxm_numbers(data, 2, 2, path)
+    maxval = 1
+    if magic not in (1, 4):
+        (maxval,), pos = _pxm_numbers(data, pos, 1, path)
+    if not (w > 0 and h > 0 and 0 < maxval < 65536):
+        raise ValueError(f"{path}: Netpbm header {w}x{h}, maxval {maxval}, which OpenCV's PxM decoder refuses")
+    bands = 3 if magic in (3, 6) else 1
+    n = w * h * bands
+    wide = maxval > 255
+    if magic == 4:
+        row = (w + 7) // 8
+        if len(data) - pos < h * row:
+            raise ValueError(f"{path}: PBM data of {len(data) - pos} bytes, expected {h * row}")
+        bits = np.unpackbits(np.frombuffer(data, np.uint8, h * row, pos).reshape(h, row), axis=1)[:, :w]
+        return np.where(bits == 0, 255, 0).astype(np.uint8)
+    if plain:
+        values, _ = _pxm_numbers(data, pos, n, path, maxdigits=1 if magic == 1 else 0)
+        values = np.array(values, np.int64)
+        if magic == 1:
+            return np.where(values == 0, 255, 0).astype(np.uint8).reshape(h, w)
+        values = np.minimum(values, maxval)
+        if not wide:
+            values = values * 255 // maxval
+    else:
+        dtype = np.dtype(">u2" if wide else np.uint8)
+        count = min(n, (len(data) - pos) // dtype.itemsize)
+        if count < n:
+            raise ValueError(f"{path}: PNM data of {count} values, expected {n}")
+        values = np.frombuffer(data, dtype, count=n, offset=pos).astype(np.int64)
+    values = values.reshape(h, w, bands)
+    if bands == 3:
+        r, g, b = values[..., 0], values[..., 1], values[..., 2]
+        values = (4899 * r + 9617 * g + 1868 * b + (1 << 13)) >> 14
+    return values.reshape(h, w).astype(np.uint16 if wide else np.uint8)
+
+
 def read_disp_kitti(path: str) -> Tuple[np.ndarray, np.ndarray]:
     """KITTI's disparity PNG / 256 as float32 (zero = invalid), from the
-    array `cv2.imread(path, cv2.IMREAD_ANYDEPTH)` gives: a gray file's
-    samples at its depth (16-bit whole), a colour file turned gray at its
-    depth (`read_png(..., mode="opencv")`)."""
-    if _format(path) != "png":
-        raise NotImplementedError(f"{path}: OpenCV's gray decode of a JPEG or PPM disparity map is "
-                                  f"not supported (a PNG is)")
-    disp = read_png(path, mode="opencv").astype(np.float32) / 256.0
+    array `cv2.imread(path, cv2.IMREAD_ANYDEPTH)` gives, the format picked by
+    the file's content: a PNG's gray at its depth (`read_png(...,
+    mode="opencv")`, libpng's gray with its gamma), a JPEG's libjpeg gray
+    (`read_jpeg(..., mode="opencv")`), a Netpbm file's (`read_ppm_opencv`);
+    turned by the EXIF orientation of a PNG or JPEG as OpenCV turns it
+    (`data/exif.py`)."""
+    kind = _format(path)
+    with open(path, "rb") as f:
+        data = f.read()
+    if kind == "png":
+        img = exif.apply(read_png(path, mode="opencv"), exif.png_orientation(data))
+    elif kind == "jpeg":
+        img = exif.apply(decode_jpeg(data, path, mode="opencv"), exif.jpeg_orientation(data))
+    else:
+        img = read_ppm_opencv(path)
+    disp = img.astype(np.float32) / 256.0
     return disp, disp > 0.0
 
 

@@ -16,14 +16,17 @@ samples into one of three arrays:
   "P"); 16-bit RGB and RGBA keep the high byte of each sample, and 16-bit
   gray+alpha becomes RGBA (gray, gray, gray, alpha; high bytes).  A `tRNS`
   chunk changes none of these.
-- "opencv": `cv2.imread(path, cv2.IMREAD_ANYDEPTH)`, libpng's transforms
+- "opencv": `cv2.imread(path, cv2.IMREAD_ANYDEPTH)` (unrotated:
+  `data/exif.py` applies a file's `eXIf` orientation), libpng's transforms
   as OpenCV asks for them: sub-byte gray scaled to 8 bits, alpha dropped,
   a palette expanded through its `PLTE` (entries it lacks are black), and
-  colour turned gray at the file's depth by libpng's `rgb_to_gray` (red
+  colour turned gray at the file's depth by libpng 1.6's `rgb_to_gray` (red
   0.299, green 0.587; 15-bit fixed point, truncated at 8 bits, rounded at
-  16, and a pixel with R = G = B kept at 8).  A colour file with an `sRGB`
-  chunk or a `gAMA` other than 1.0 would have libpng convert through its
-  gamma tables: `NotImplementedError`.
+  16, and a pixel with R = G = B kept at 8).  A colour file with a gamma
+  libpng takes (`sRGB`, or a `gAMA` further than 0.05 from 1 or whose
+  reciprocal is, before the `PLTE` and the image data) is turned gray in
+  linear light through libpng's gamma tables (`_gamma_gray`; 16-bit tables
+  shortened by an `sBIT` chunk); a palette file's colour never is.
 - "L": PIL's `convert("L")` of its image: (19595 R + 38470 G + 7471 B +
   2^15) >> 16 of RGB, RGBA and palette entries, 0/255 for 1-bit, 16-bit
   gray clipped at 255, 16-bit colour from its high bytes.
@@ -50,6 +53,8 @@ whose rows use only None, Sub and Up are unfiltered a row at a time.
 
 from __future__ import annotations
 
+import functools
+import math
 import struct
 import zlib
 from typing import NamedTuple, Optional
@@ -67,12 +72,14 @@ MODES = ("pil", "opencv", "L")
 
 
 def _chunks(data: bytes, path: str):
+    """(kind, body, whether its CRC holds) of each chunk up to the IEND."""
     if data[:8] != _SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
     pos = 8
     while pos + 8 <= len(data):
         length, kind = struct.unpack(">I4s", data[pos:pos + 8])
-        yield kind, data[pos + 8:pos + 8 + length]
+        body, crc = data[pos + 8:pos + 8 + length], data[pos + 8 + length:pos + 12 + length]
+        yield kind, body, len(crc) == 4 and struct.unpack(">I", crc)[0] == zlib.crc32(kind + body) & 0xFFFFFFFF
         pos += 12 + length
         if kind == b"IEND":
             return
@@ -153,13 +160,14 @@ class Png(NamedTuple):
     """A decoded PNG: `samples` [H, W, samples a pixel] at the file's depth
     (uint8 up to 8 bits, the sub-byte values unscaled; uint16 at 16), its
     colour type and bit depth, its `PLTE` as [entries, 3] uint8 (or None),
-    and whether it carries an `sRGB` chunk or a `gAMA` other than 1.0 (as
-    libpng rounds it)."""
+    the gamma libpng takes for the file (x 100000; 0 for none; `_gamma`)
+    and its `sBIT` significant bits (0 for none; `_sbit`)."""
     samples: np.ndarray
     colour: int
     depth: int
     palette: Optional[np.ndarray]
-    gamma: bool
+    gamma: int
+    sbit: int
 
 
 def _unpack(rows: np.ndarray, depth: int, width: int) -> np.ndarray:
@@ -181,10 +189,27 @@ def _samples(img: np.ndarray, h: int, w: int, depth: int, ch: int) -> np.ndarray
     return img.reshape(h, w, ch)
 
 
-def _significant(gamma: int) -> bool:
-    """libpng's png_gamma_significant of a `gAMA` (x 100000) or of its
-    reciprocal, which libpng takes as the screen's: 1.0 +- 0.05 is none."""
-    return gamma != 0 and any(not 95_000 <= g <= 105_000 for g in (gamma, int(1e10 / gamma + 0.5)))
+def _gamma(kind: bytes, body: bytes, gamma: int, srgb: bool):
+    """The (gamma, sRGB seen) after a `gAMA` or `sRGB` chunk, as libpng
+    takes them before the `PLTE` and the image data: a valid `sRGB` (1
+    byte, intent 0-3) sets 45455 over any `gAMA`; the first valid `gAMA`
+    (4 bytes, 1 to 2^31 - 1) counts where no `sRGB` is."""
+    if kind == b"sRGB" and len(body) == 1 and body[0] <= 3:
+        return 45455, True
+    if kind == b"gAMA" and len(body) == 4 and not srgb and not gamma:
+        value = struct.unpack(">I", body)[0]
+        return (value if 0 < value < 1 << 31 else 0), False
+    return gamma, srgb
+
+
+def _sbit(body: bytes, colour: int, depth: int) -> int:
+    """The significant bits libpng's 16-bit gamma tables take from an
+    `sBIT` chunk of a colour file (the most of red, green and blue); 0 where
+    there is none or libpng finds it invalid."""
+    need = {2: 3, 6: 4}.get(colour)
+    if need is None or len(body) != need or any(not 0 < b <= depth for b in body):
+        return 0
+    return max(body[:3])
 
 
 def decode_png(path: str, impl: str = "c") -> Png:
@@ -194,8 +219,8 @@ def decode_png(path: str, impl: str = "c") -> Png:
         raise ValueError(f"read_png: impl {impl!r} is not one of {sorted(_UNFILTER)}")
     with open(path, "rb") as f:
         data = f.read()
-    header, idat, palette, gamma = None, [], None, False
-    for kind, body in _chunks(data, path):
+    header, idat, palette, gamma, srgb, sbit = None, [], None, 0, False, 0
+    for kind, body, crc_ok in _chunks(data, path):
         if kind == b"IHDR":
             if len(body) != 13:
                 raise ValueError(f"{path}: IHDR chunk of {len(body)} bytes")
@@ -206,8 +231,11 @@ def decode_png(path: str, impl: str = "c") -> Png:
             if len(body) % 3 or not body:
                 raise ValueError(f"{path}: PLTE chunk of {len(body)} bytes")
             palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
-        elif kind == b"sRGB" or (kind == b"gAMA" and len(body) == 4):
-            gamma = gamma or kind == b"sRGB" or _significant(struct.unpack(">I", body)[0])
+        elif kind in (b"gAMA", b"sRGB", b"sBIT") and crc_ok and header and not idat and palette is None:
+            if kind == b"sBIT":
+                sbit = sbit or _sbit(body, header[3], header[2])
+            else:
+                gamma, srgb = _gamma(kind, body, gamma, srgb)
     if header is None:
         raise ValueError(f"{path}: PNG without an IHDR chunk")
     w, h, depth, colour, _, _, interlace = header
@@ -245,7 +273,7 @@ def decode_png(path: str, impl: str = "c") -> Png:
             out = img
         else:
             out[y0::dy, x0::dx] = img
-    return Png(out, colour, depth, palette, gamma)
+    return Png(out, colour, depth, palette, gamma, sbit)
 
 
 def pil_luminance(rgb: np.ndarray) -> np.ndarray:
@@ -288,14 +316,81 @@ def _as_pil(p: Png) -> np.ndarray:
     return x
 
 
-def _as_opencv(p: Png, path: str) -> np.ndarray:
+def _recip(a: int) -> int:
+    """png_reciprocal: 1/a in libpng's fixed point (x 100000), 0 where it
+    overflows 32 bits."""
+    r = math.floor(1e10 / a + .5) if a else 0
+    return int(r) if -2**31 <= r < 2**31 else 0
+
+
+def _recip2(a: int, b: int) -> int:
+    """png_reciprocal2: 1/(a b), fixed point."""
+    if not (a and b):
+        return 0
+    r = math.floor(1e15 / a / b + .5)
+    return int(r) if -2**31 <= r < 2**31 else 0
+
+
+def _significant(g: int) -> bool:
+    """png_gamma_significant: further than 0.05 from 1."""
+    return not 95_000 <= g <= 105_000
+
+
+@functools.lru_cache(maxsize=32)
+def _gamma_table(g: int, depth: int, shift: int = 0) -> np.ndarray:
+    """png_build_8bit_table (depth 8) or png_build_16bit_table (16; `shift`
+    the insignificant bits, the table read at sample >> shift) of exponent
+    g / 100000, in libpng's floating point (C's pow); read-only, as the
+    cache hands every caller the same array."""
+    if depth == 8:
+        t = np.arange(256) if not _significant(g) else np.array(
+            [v if v in (0, 255) else int(math.floor(255 * math.pow(v / 255., g * .00001) + .5)) for v in range(256)])
+    else:
+        top = (1 << (16 - shift)) - 1
+        if not _significant(g):
+            t = np.arange(top + 1)
+            t = t if not shift else (t * 65535 + (1 << (15 - shift))) // top
+        else:
+            fmax = 1.0 / top
+            t = np.array([int(math.floor(65535. * math.pow(ig * fmax, g * .00001) + .5)) for ig in range(top + 1)])
+    t.flags.writeable = False
+    return t
+
+
+def _gamma_gray(rgb: np.ndarray, p: Png) -> Optional[np.ndarray]:
+    """libpng 1.6's png_do_rgb_to_gray through its gamma tables, or None
+    where it takes none.  OpenCV sets no screen gamma, so libpng takes the
+    file's reciprocal for it; the tables (png_build_gamma_table) take the
+    colour to linear light (gamma_to_1, exponent 1 / gamma), the gray back
+    (gamma_from_1) and a pixel with R = G = B through gamma_table."""
+    gamma = p.gamma
+    if not gamma:
+        return None
+    screen = _recip(gamma)
+    if not (_significant(gamma) or _significant(screen)):
+        return None
+    to_1, from_1 = _recip(gamma), _recip(screen) if screen > 0 else gamma
+    same = _recip2(gamma, screen) if screen > 0 else 100_000
+    r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
+    if p.depth == 16:
+        shift = min(16 - p.sbit, 8) if 0 < p.sbit < 16 else 0
+        t_to, t_from, t_same = (_gamma_table(x, 16, shift) for x in (to_1, from_1, same))
+        gray = t_from[((9797 * t_to[r >> shift] + 19234 * t_to[g >> shift] + 3737 * t_to[b >> shift] + 16384)
+                       >> 15) >> shift]
+        return np.where((r == g) & (r == b), t_same[r >> shift], gray).astype(np.uint16)
+    t_to, t_from, t_same = (_gamma_table(x, 8) for x in (to_1, from_1, same))
+    gray = t_from[(9797 * t_to[r] + 19234 * t_to[g] + 3737 * t_to[b] + 16384) >> 15]
+    return np.where((r == g) & (r == b), t_same[r], gray).astype(np.uint8)
+
+
+def _as_opencv(p: Png) -> np.ndarray:
     x, colour, depth = p.samples, p.colour, p.depth
     if colour in (0, 4):
         return _expand_gray(x[..., 0], depth)
-    if p.gamma:
-        raise NotImplementedError(f"{path}: a colour PNG with a gAMA or sRGB chunk, which libpng turns "
-                                  f"gray through its gamma tables for OpenCV, is not supported as a "
-                                  f"disparity map")
+    if colour != 3:  # libpng converts a palette file's colour without its gamma
+        gray = _gamma_gray(x[..., :3], p)
+        if gray is not None:
+            return gray
     rgb = _palette_rgb(p) if colour == 3 else x[..., :3]
     r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
     # png_set_rgb_to_gray(0.299, 0.587): coefficients 29900 and 58700 of
@@ -326,7 +421,7 @@ def read_png(path: str, impl: str = "c", mode: str = "pil") -> np.ndarray:
         raise ValueError(f"read_png: mode {mode!r} is not one of {MODES}")
     p = decode_png(path, impl)
     if mode == "opencv":
-        return _as_opencv(p, path)
+        return _as_opencv(p)
     if mode == "L":
         return _as_l(p)
     return _as_pil(p)

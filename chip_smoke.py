@@ -124,10 +124,13 @@ Phases (any failure raises, and the exit code is not 0):
            the readers line: the C PNG unfilter beside the plain numpy one
            on both PNG kinds, None- and Paeth-filtered, and on the SceneFlow
            frame written Adam7-interlaced, the C JPEG decode of the
-           committed 540x960 baseline and progressive files, every
+           committed 540x960 baseline and progressive files and, at that
+           size, of the progressive file cut short (smoothed) and of
+           arithmetic-coded and lossless files written there, every
            committed JPEG and every file of `tests/data/formats/` (PNG,
-           JPEG and PPM of every form) held to its recorded PIL digest, and
-           the host compiler's version; the augment line: each host C function
+           JPEG and PPM of every form) held to its recorded PIL digest and
+           every one OpenCV reads to its recorded `read_disp_kitti`
+           (OpenCV's) digest, and the host compiler's version; the augment line: each host C function
            of the augmentor at the path's shapes (the uint8 and float32
            bilinear resizes of a 540x960 frame and its flow by a stretched
            scale, the bicubic 400x800 -> 160x320, gray, RGB->HSV and
@@ -1932,20 +1935,62 @@ def _write_adam7(np, path, img):
                 chunk(b"IDAT", zlib.compress(b"".join(stream))) + chunk(b"IEND", b""))
 
 
-def _digests_hold(np, folder, read):
-    """Raise unless `read` gives every file of `folder` its recorded PIL
-    digest (shape, dtype where recorded, sha256 of the bytes); the count."""
+def _digests_hold(np, folder, read, record="digests.json"):
+    """Raise unless `read` gives every file named in `folder`'s `record`
+    its recorded digest (shape, dtype where recorded, sha256 of the bytes):
+    PIL's decode in digests.json, OpenCV's KITTI disparity in
+    opencv_digests.json; the count."""
     import hashlib
 
-    with open(os.path.join(folder, "digests.json")) as f:
+    with open(os.path.join(folder, record)) as f:
         files = json.load(f)["files"]
     for name, want in files.items():
         got = np.asarray(read(os.path.join(folder, name)))
         have = {"shape": list(got.shape), "dtype": str(got.dtype),
                 "sha256": hashlib.sha256(got.tobytes()).hexdigest()}
         if any(have[k] != want[k] for k in want):
-            raise AssertionError(f"the port's decode of {folder}/{name} is not PIL's: {have} against {want}")
+            raise AssertionError(f"the port's decode of {folder}/{name} is not the one {record} records: "
+                                 f"{have} against {want}")
     return len(files)
+
+
+def _new_forms_part(np, root):
+    """The C decode of the JPEG forms the readers took on last, at the
+    committed pair's 540x960, beside the Huffman files of that size: the
+    committed progressive view cut after its first and third scans
+    (smoothed; the DC interpolated while no AC scan has come), sequential
+    and progressive arithmetic-coded 4:2:0 files (SOF9, SOF10; restarts
+    every MCU row) of seeded coefficients, and a lossless file (SOF3,
+    predictor 7, restarts every 8 rows) of a 540x960 gray view, all written
+    by `tests/jpeg_writers.py` here (PIL, the reference for their bytes in
+    the tests, is not on this host).  Returns the line's part."""
+    import importlib.util
+
+    from anystereo_tpu_torch.data.jpeg import decode_jpeg, read_jpeg
+
+    spec = importlib.util.spec_from_file_location("jpeg_writers", os.path.join("tests", "jpeg_writers.py"))
+    writers = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(writers)
+    prog = open(os.path.join(FORMAT_FIXTURES, "stereo.left.progressive.jpg"), "rb").read()
+    scans = [i for i in range(len(prog) - 1) if prog[i] == 0xFF and prog[i + 1] == 0xDA]
+    rng = np.random.RandomState(23)
+    sampling = [(2, 2), (1, 1), (1, 1)]
+    blocks = [writers.random_blocks(rng, 68, 120, 0.5), writers.random_blocks(rng, 34, 60, 0.5),
+              writers.random_blocks(rng, 34, 60, 0.5)]
+    gray = read_jpeg(os.path.join(JPEG_FIXTURES, "stereo.left.jpg"))[..., 1]
+    files = {"progressive cut after scan 1 (DC only, smoothed)": prog[:scans[1]] + b"\xff\xd9",
+             "progressive cut after scan 3 (smoothed)": prog[:scans[3]] + b"\xff\xd9",
+             "arithmetic sequential (SOF9)": writers.arith_jpeg(540, 960, sampling, blocks, restart=60),
+             "arithmetic progressive (SOF10)": writers.arith_jpeg(540, 960, sampling, blocks, progressive=True,
+                                                                  restart=60, script=writers.PROGRESSION),
+             "lossless gray (SOF3)": writers.lossless_jpeg([gray], [(1, 1)], 7, 0, restart=960 * 8)}
+    parts = []
+    for form, data in files.items():
+        best, med, out = _ms(lambda: decode_jpeg(data, form))
+        if out.shape[:2] != (540, 960) or (form.startswith("lossless") and not np.array_equal(out, gray)):
+            raise AssertionError(f"the {form} file decodes to {out.shape}, not the 540x960 it was written as")
+        parts.append(f"{form} ({len(data)} bytes): C {best:.2f} (median {med:.2f})")
+    return "; ".join(parts)
 
 
 def _readers_line(np, root, sf, kitti, card):
@@ -1953,11 +1998,13 @@ def _readers_line(np, root, sf, kitti, card):
     the plain version (`read_png(..., impl="numpy")`) on the same files: a
     SceneFlow frame and a KITTI 16-bit disparity as the tree's writer
     filters them (None) and with every row Paeth-filtered, the SceneFlow
-    frame Adam7-interlaced (`_write_adam7`), and the committed 540x960
-    baseline and progressive JPEGs of one view (no plain version: their
-    reference is PIL, whose digests of every committed JPEG and of every
-    file of `FORMAT_FIXTURES` the C decodes must give); the host compiler's
-    version."""
+    frame Adam7-interlaced (`_write_adam7`), the committed 540x960
+    baseline and progressive JPEGs of one view and the forms of
+    `_new_forms_part` (no plain version: their reference is PIL, whose
+    digests of every committed JPEG and of every file of `FORMAT_FIXTURES`
+    the C decodes must give, and OpenCV, whose KITTI disparity of every
+    file of `FORMAT_FIXTURES` it reads `read_disp_kitti` must give); the
+    host compiler's version."""
     from anystereo_tpu_torch.data import frame_utils
     from anystereo_tpu_torch.data.jpeg import read_jpeg
     from anystereo_tpu_torch.data.png import read_png, write_png
@@ -1965,6 +2012,8 @@ def _readers_line(np, root, sf, kitti, card):
 
     n_jpeg = _digests_hold(np, JPEG_FIXTURES, read_jpeg)
     n_formats = _digests_hold(np, FORMAT_FIXTURES, frame_utils.read_gen)
+    n_opencv = _digests_hold(np, FORMAT_FIXTURES, lambda p: frame_utils.read_disp_kitti(p)[0],
+                             "opencv_digests.json")
     frames = {f"{SF_H}x{SF_W} RGB": os.path.join(sf, "frames_finalpass", "TRAIN", "A", "0000", "left",
                                                   "0000.png"),
               f"{EVAL_H}x{EVAL_W} 16-bit": os.path.join(kitti, "training", "disp_occ_0", "000000_10.png")}
@@ -1996,12 +2045,15 @@ def _readers_line(np, root, sf, kitti, card):
         j_best, j_med, decoded = _ms(lambda: read_jpeg(jpg))
         parts.append(f"{decoded.shape[0]}x{decoded.shape[1]} {form} JPEG ({os.path.getsize(jpg)} bytes, PIL "
                      f"quality 75, 4:2:0): C {j_best:.2f} (median {j_med:.2f})")
+    parts.append(_new_forms_part(np, root))
     cc = build._cc(build.CSRC / "jpeg_decode.c")
     version = subprocess.run([cc, "--version"], capture_output=True, text=True,
                              timeout=60).stdout.splitlines()[0]
     return (f"[trainer] readers ms (best of {READER_REPS}, on the card's host): " + "; ".join(parts) +
             f"; {n_jpeg} committed JPEGs and all {n_formats} files of {FORMAT_FIXTURES} (PNG, JPEG and PPM "
-            f"of every form) decode to PIL's digests; compiler {cc}: {version}; {card}")
+            f"of every form) decode to PIL's digests, and {n_opencv} of them (every one OpenCV reads) to "
+            f"OpenCV's KITTI disparity (EXIF orientation, gamma gray, JPEG and Netpbm maps); compiler {cc}: "
+            f"{version}; {card}")
 
 
 def _identical(got, want, what):

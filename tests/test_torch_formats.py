@@ -5,9 +5,11 @@ against `anystereo_tpu.data.frame_utils.read_gen` (PIL's
 (`cv2.imread(path, cv2.IMREAD_ANYDEPTH)`), and the KITTI and Middlebury
 occlusion providers of both `eval/validate.py` (PIL, and PIL's
 `convert("L")`).  The files are made here: by PIL and OpenCV where they
-write the form (progressive, CMYK and 4:1:1 JPEGs, PNG bitmaps), and by the
+write the form (progressive, CMYK and 4:1:1 JPEGs, PNG bitmaps), by the
 small numpy writers below for the rest (every PNG colour type and depth,
-Adam7, `tRNS`, every Netpbm type and maxval).
+Adam7, `tRNS`, every Netpbm type and maxval), and by `tests/jpeg_writers.py`
+for arithmetic-coded and lossless JPEGs (`tests/test_torch_reader_forms.py`
+holds those forms, EXIF and OpenCV's gray decodes).
 
 Tolerances: none.  Every array equals its reference in shape, dtype and
 bytes, and the PNG C unfilter equals its numpy plain version on every file.
@@ -15,11 +17,12 @@ bytes, and the PNG C unfilter equals its numpy plain version on every file.
 The fixtures under `tests/data/formats/` (read on the card's host, which
 has no PIL) are written by `write_format_fixtures()`:
 
-    JAX_PLATFORMS=cpu PYTHONPATH=. python -c "import tests.conftest, \\
-        tests.test_torch_formats as t; t.write_format_fixtures()"
+    JAX_PLATFORMS=cpu PYTHONPATH=.:tests python -c "import tests.conftest, \\
+        test_torch_formats as t; t.write_format_fixtures()"
 
 and `test_format_fixture_digests_are_pils` holds their recorded digests to
-PIL's decode of the committed files.
+PIL's decode of the committed files, `test_format_fixture_opencv_digests`
+the JAX package's `read_disp_kitti` ones (OpenCV's) to cv2's.
 """
 
 import hashlib
@@ -44,10 +47,16 @@ from anystereo_tpu.eval import validate as jval  # noqa: E402
 from anystereo_tpu_torch.data import frame_utils as tfu  # noqa: E402
 from anystereo_tpu_torch.data import png as tpng  # noqa: E402
 from anystereo_tpu_torch.eval import validate as tval  # noqa: E402
+from jpeg_writers import PROGRESSION, arith_jpeg, lossless_jpeg, random_blocks  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 FIXTURES = ROOT / "tests" / "data" / "formats"
 FIXTURE_CAP = 300_000  # bytes of the whole folder
+OPENCV_DIGESTS = "opencv_digests.json"  # the JAX package's read_disp_kitti (cv2's) of the fixtures
+NEW_FORMS = {"small_progressive_cut.jpg", "small_progressive_dc_only.jpg", "small_arith_sof9.jpg",
+             "small_arith_sof10.jpg", "small_lossless_gray.jpg", "small_lossless_rgb.jpg", "small_c2d8_srgb.png",
+             "small_c2d16_gama.png", "small_c6d16_gama_sbit.png", "small_c0d16_exif6.png", "disp_gray.jpg",
+             "disp_exif8.jpg"}
 STEREO_SEED = 15  # `chip_smoke._stereo_pair` seed of the 540x960 pair
 SIZES = [(1, 1), (1, 9), (5, 3), (7, 7), (13, 17)]
 PNG_TYPES = [(colour, depth) for colour, depths in tpng._DEPTHS.items() for depth in depths]
@@ -258,8 +267,11 @@ def test_the_four_faults(tmp_path):
 
 def test_opencv_gamma_refused_by_name(tmp_path):
     """libpng turns colour gray through its gamma tables when a gAMA (other
-    than 1.0) or sRGB chunk is there; OpenCV's array then differs, and the
-    port's KITTI reader refuses such a file; PIL's readers ignore it."""
+    than 1.0) or sRGB chunk is there, so OpenCV's array differs from the
+    one without the chunk; the port's KITTI reader, which refused such a
+    file by name until libpng's tables were ported, gives OpenCV's array
+    (`tests/test_torch_reader_forms.py` holds every colour type, depth and
+    chunk form); PIL's readers ignore the chunk."""
     samples = _texture(np.random.RandomState(3), (6, 9, 3))
     plain = write_png_any(str(tmp_path / "plain.png"), samples, 8, 2)
     unit = write_png_any(str(tmp_path / "unit.png"), samples, 8, 2,
@@ -268,8 +280,7 @@ def test_opencv_gamma_refused_by_name(tmp_path):
     for kind, body in ((b"gAMA", struct.pack(">I", 45455)), (b"sRGB", b"\0")):
         p = write_png_any(str(tmp_path / f"{kind.decode()}.png"), samples, 8, 2, extra=_chunk(kind, body))
         assert not np.array_equal(jfu.read_disp_kitti(p)[0], jfu.read_disp_kitti(plain)[0])
-        with pytest.raises(NotImplementedError, match=f"{kind.decode()}.png: a colour PNG with a gAMA"):
-            tfu.read_disp_kitti(p)
+        _same(tfu.read_disp_kitti(p)[0], jfu.read_disp_kitti(p)[0], p)
         _check(p)
         _same(tfu.read_luminance(p), np.asarray(Image.open(p).convert("L")))
 
@@ -473,41 +484,45 @@ def test_files_without_huffman_tables(tmp_path, kind):
     _check(p)
 
 
-def _rewrite_sof(data, marker=None, precision=None, ncomp=None):
+def _rewrite_sof(data, marker=None, precision=None, ncomp=None, height=None):
     data = bytearray(data)
     sof = next(pos for m, pos in _markers(bytes(data)) if 0xC0 <= m <= 0xCF and m not in (0xC4, 0xC8, 0xCC))
     if marker is not None:
         data[sof + 1] = marker
     if precision is not None:
         data[sof + 4] = precision
+    if height is not None:
+        data[sof + 5:sof + 7] = struct.pack(">H", height)
     if ncomp is not None:
         data[sof + 9] = ncomp
     return bytes(data)
 
 
 REFUSED = {
-    "SOF3 lossless": (dict(marker=0xC3), "lossless JPEG \\(SOF3\\)"),
-    "SOF9 arithmetic": (dict(marker=0xC9), "arithmetic-coded JPEG \\(SOF9\\)"),
-    "SOF10 arithmetic": (dict(marker=0xCA), "arithmetic-coded JPEG \\(SOF10\\)"),
-    "SOF11 arithmetic": (dict(marker=0xCB), "arithmetic-coded JPEG \\(SOF11\\)"),
+    "SOF3 lossless": (dict(marker=0xC3), "lossless JPEG in YCbCr"),
+    "SOF11 arithmetic": (dict(marker=0xCB), "arithmetic-coded lossless JPEG \\(SOF11\\)"),
     "SOF5 hierarchical": (dict(marker=0xC5), "hierarchical \\(differential\\) JPEG \\(SOF5\\)"),
     "12-bit": (dict(precision=12), "12-bit JPEG samples"),
     "2 components": (dict(ncomp=2), "JPEG with 2 components"),
+    "height from a DNL marker": (dict(height=0), "image height given by a DNL marker"),
 }
 
 
 @pytest.mark.parametrize("case", list(REFUSED))
 def test_refusals_name_their_form(tmp_path, case):
     """What the port does not decode raises NotImplementedError naming the
-    file and the form; PIL refuses 12-bit and 2-component files too."""
+    file and the form, and PIL refuses each too: a lossless frame in YCbCr
+    (this file's JFIF marker; libjpeg converts no colour in lossless mode),
+    an arithmetic-coded lossless one, a hierarchical one, a height left to a
+    DNL marker; PIL reads 8-bit samples and 1, 3 or 4 components.  (Arithmetic-coded SOF9 and SOF10
+    files decode: `tests/test_torch_reader_forms.py`.)"""
     p = _pil_jpeg(str(tmp_path / "r.jpg"), _texture(np.random.RandomState(1), (9, 17, 3)), progressive=True)
     kw, pattern = REFUSED[case]
     data = _rewrite_sof(open(p, "rb").read(), **kw)
     with open(p, "wb") as f:
         f.write(data)
-    if case in ("12-bit", "2 components"):
-        with pytest.raises((OSError, SyntaxError)):
-            jfu.read_gen(p)
+    with pytest.raises((OSError, SyntaxError)):
+        jfu.read_gen(p)
     with pytest.raises(NotImplementedError, match=f"r.jpg: .*{pattern}"):
         tfu.read_gen(p)
 
@@ -515,7 +530,8 @@ def test_refusals_name_their_form(tmp_path, case):
 def test_smoothing_refused_by_name(tmp_path):
     """A progressive file cut after any of its scans but the last leaves AC
     coefficients 1-9 unfinished: libjpeg smooths such blocks and PIL reads
-    it; the port refuses it by name."""
+    it.  The port refused it by name until libjpeg's block smoothing was
+    ported; it now gives PIL's array for every cut."""
     p = _pil_jpeg(str(tmp_path / "cut.jpg"), _texture(np.random.RandomState(2), (17, 33, 3)),
                   progressive=True)
     data = open(p, "rb").read()
@@ -524,15 +540,17 @@ def test_smoothing_refused_by_name(tmp_path):
         with open(p, "wb") as f:
             f.write(data[:scans[k]] + b"\xff\xd9")
         assert jfu.read_gen(p).shape == (17, 33, 3)
-        with pytest.raises(NotImplementedError, match="cut.jpg: progressive JPEG whose scans leave AC"):
-            tfu.read_gen(p)
+        _check(p)
 
 
 def test_disparity_that_is_no_png_refused_by_name(tmp_path):
+    """OpenCV reads a JPEG under any name; the port refused a disparity map
+    that is no PNG until OpenCV's gray decode was ported, and now gives
+    OpenCV's array (libjpeg's Y plane)."""
     p = _pil_jpeg(str(tmp_path / "000000_10.png"), _texture(np.random.RandomState(3), (9, 13)))
-    assert jfu.read_disp_kitti(p)[0].shape == (9, 13)  # OpenCV reads a JPEG under any name
-    with pytest.raises(NotImplementedError, match="000000_10.png: OpenCV's gray decode of a JPEG"):
-        tfu.read_disp_kitti(p)
+    assert jfu.read_disp_kitti(p)[0].shape == (9, 13)
+    _same(tfu.read_disp_kitti(p)[0], jfu.read_disp_kitti(p)[0])
+    _same(tfu.read_disp_kitti(p)[1], jfu.read_disp_kitti(p)[1])
 
 
 # --------------------------------------------------- format by content
@@ -581,7 +599,7 @@ def sof_shape(b):
         if b[pos] != 0xFF:
             return None
         m, n = b[pos + 1], (b[pos + 2] << 8) | b[pos + 3]
-        if m in (0xC0, 0xC1, 0xC2):
+        if m in (0xC0, 0xC1, 0xC2, 0xC3, 0xC9, 0xCA):
             h, w, c = (b[pos + 5] << 8) | b[pos + 6], (b[pos + 7] << 8) | b[pos + 8], b[pos + 9]
             return (h, w, c) if c > 1 else (h, w)
         pos += 2 + n
@@ -605,19 +623,35 @@ print(outcomes)
 """
 
 
-@pytest.mark.parametrize("kind", ["progressive 4:2:0 restarts", "progressive CMYK", "4:1:1"])
+@pytest.mark.parametrize("kind", ["progressive 4:2:0 restarts", "progressive CMYK", "4:1:1",
+                                  "arithmetic progressive restarts", "lossless restarts", "cut progressive"])
 def test_fuzzed_files_never_crash(tmp_path, kind):
     """150 seeded truncations and byte flips of a progressive file with
-    restart intervals, a progressive CMYK file and a 4:1:1 file: each raises
-    ValueError or NotImplementedError or gives an array of the header's
-    shape.  In a subprocess, so that a crash fails this test and not the
-    worker."""
+    restart intervals, a progressive CMYK file, a 4:1:1 file, an
+    arithmetic-coded progressive file (SOF10) with restarts and a DAC
+    segment, a lossless file (SOF3) with restarts and a progressive file
+    cut after its third scan (smoothed): each raises ValueError or
+    NotImplementedError or gives an array of the header's shape.  In a
+    subprocess, so that a crash fails this test and not the worker."""
     rng = np.random.RandomState(len(kind))
     p = str(tmp_path / "fuzz.jpg")
     if kind == "progressive CMYK":
         _pil_jpeg(p, _texture(rng, (19, 29, 4)), progressive=True)
     elif kind == "4:1:1":
         _cv2_jpeg(p, _texture(rng, (19, 37, 3)), cv2.IMWRITE_JPEG_SAMPLING_FACTOR, SAMPLING["411"])
+    elif kind == "arithmetic progressive restarts":
+        blocks = [random_blocks(rng, 4, 6), random_blocks(rng, 2, 3), random_blocks(rng, 2, 3)]
+        with open(p, "wb") as f:
+            f.write(arith_jpeg(21, 33, [(2, 2), (1, 1), (1, 1)], blocks, progressive=True, restart=2,
+                               dac={(0, 0): 0x41, (1, 4): 8}, script=PROGRESSION))
+    elif kind == "lossless restarts":
+        with open(p, "wb") as f:
+            f.write(lossless_jpeg([rng.randint(0, 256, (13, 17)).astype(np.uint8) for _ in range(3)],
+                                  [(1, 1)] * 3, 5, 1, restart=17))
+    elif kind == "cut progressive":
+        data = open(_pil_jpeg(p, _texture(rng, (21, 33, 3)), progressive=True), "rb").read()
+        with open(p, "wb") as f:
+            f.write(data[:[pos for m, pos in _markers(data) if m == 0xDA][3]] + b"\xff\xd9")
     else:
         _cv2_jpeg(p, _texture(rng, (21, 33, 3)), cv2.IMWRITE_JPEG_PROGRESSIVE, 1,
                   cv2.IMWRITE_JPEG_RST_INTERVAL, 2)
@@ -670,6 +704,7 @@ def write_format_fixtures(out: Path = FIXTURES) -> None:
         bands = 3 if magic in ("P3", "P6") else 1
         values = rng.randint(0, maxval + 1, (9, 13, 3) if bands == 3 else (9, 13))
         _write_ppm(str(out / f"small_{magic}.ppm"), magic, values, maxval)
+    _write_new_forms(out, rng)
     with open(out / "digests.json", "w") as f:
         json.dump(_digests(out) | {"made_by": {
             "Pillow": PIL.__version__, "libjpeg_turbo": PIL.features.version("libjpeg_turbo"),
@@ -677,6 +712,49 @@ def write_format_fixtures(out: Path = FIXTURES) -> None:
             "stereo": {"seed": STEREO_SEED, "dmin": 8.0, "dmax": 60.0, "made_by": "chip_smoke._stereo_pair",
                        "file": "stereo.left.progressive.jpg", "quality": 75}}, f, indent=1, sort_keys=True)
         f.write("\n")
+    with open(out / OPENCV_DIGESTS, "w") as f:
+        json.dump(_opencv_digests(out) | {"made_by": {"opencv": cv2.__version__}}, f, indent=1, sort_keys=True)
+        f.write("\n")
+
+
+def _write_new_forms(out: Path, rng) -> None:
+    """The forms the readers took on last: a progressive file cut after its
+    first and third scans (libjpeg smooths it), arithmetic-coded files
+    (SOF9 and SOF10, 4:2:0, restarts, a DAC segment), lossless files (SOF3,
+    gray and RGB, restarts), colour PNGs with sRGB, gAMA and sBIT chunks,
+    a 16-bit gray PNG with an eXIf orientation, and JPEG disparity maps (one
+    with an Exif orientation)."""
+    from jpeg_writers import segment
+
+    prog = open(_pil_jpeg(str(out / "small_progressive_cut.jpg"), _texture(rng, (21, 33, 3)), quality=90,
+                          progressive=True), "rb").read()
+    scans = [pos for m, pos in _markers(prog) if m == 0xDA]
+    for name, k in (("small_progressive_cut.jpg", 3), ("small_progressive_dc_only.jpg", 1)):
+        (out / name).write_bytes(prog[:scans[k]] + b"\xff\xd9")
+    blocks = [random_blocks(rng, 4, 6), random_blocks(rng, 2, 3), random_blocks(rng, 2, 3)]
+    dac = {(0, 0): 0x52, (0, 1): 0x21, (1, 4): 10, (1, 5): 3}
+    for name, progressive in (("small_arith_sof9.jpg", False), ("small_arith_sof10.jpg", True)):
+        (out / name).write_bytes(arith_jpeg(21, 33, [(2, 2), (1, 1), (1, 1)], blocks, progressive=progressive,
+                                            restart=2, dac=dac, script=PROGRESSION))
+    gray = _texture(rng, (17, 23))
+    (out / "small_lossless_gray.jpg").write_bytes(lossless_jpeg([gray], [(1, 1)], 7, 1, restart=23))
+    rgb = [_texture(rng, (17, 23)) for _ in range(3)]
+    (out / "small_lossless_rgb.jpg").write_bytes(lossless_jpeg(rgb, [(1, 1)] * 3, 4, 0, restart=46))
+    for name, colour, depth, extra in (
+            ("small_c2d8_srgb.png", 2, 8, _chunk(b"sRGB", b"\0")),
+            ("small_c2d16_gama.png", 2, 16, _chunk(b"gAMA", struct.pack(">I", 45455))),
+            ("small_c6d16_gama_sbit.png", 6, 16, _chunk(b"sBIT", bytes([12, 12, 12, 16])) +
+             _chunk(b"gAMA", struct.pack(">I", 70000)))):
+        samples, _ = _png_case(rng, 13, 19, colour, depth)
+        write_png_any(str(out / name), samples, depth, colour, extra=extra)
+    tiff = b"MM\0*\0\0\0\x08\0\x01" + struct.pack(">HHIHH", 0x0112, 3, 1, 6, 0) + b"\0\0\0\0"
+    write_png_any(str(out / "small_c0d16_exif6.png"), _texture(rng, (9, 14, 1), np.uint16), 16, 0,
+                  extra=_chunk(b"eXIf", tiff))
+    disp = _texture(rng, (15, 26))
+    _cv2_jpeg(str(out / "disp_gray.jpg"), disp, cv2.IMWRITE_JPEG_QUALITY, 95)
+    data = open(_cv2_jpeg(str(out / "disp_exif8.jpg"), disp, cv2.IMWRITE_JPEG_QUALITY, 90), "rb").read()
+    tiff = b"II*\0\x08\0\0\0\x01\0" + struct.pack("<HHIHH", 0x0112, 3, 1, 8, 0) + b"\0\0\0\0"
+    (out / "disp_exif8.jpg").write_bytes(data[:2] + segment(0xE1, b"Exif\0\0" + tiff) + data[2:])
 
 
 def _digest(a) -> dict:
@@ -689,6 +767,13 @@ def _digests(folder: Path) -> dict:
                       if p.suffix in (".png", ".jpg", ".ppm")}}
 
 
+def _opencv_digests(folder: Path) -> dict:
+    """The JAX package's `read_disp_kitti` (OpenCV's) of every file OpenCV
+    reads."""
+    return {"files": {p.name: _digest(jfu.read_disp_kitti(str(p))[0]) for p in sorted(folder.iterdir())
+                      if p.suffix in (".png", ".jpg", ".ppm") and cv2.imread(str(p), cv2.IMREAD_ANYDEPTH) is not None}}
+
+
 def test_format_fixture_digests_are_pils():
     """The recorded digests are PIL's decode of the committed files, the
     folder holds every form the card's host checks and stays under its cap,
@@ -697,7 +782,7 @@ def test_format_fixture_digests_are_pils():
     assert record["files"] == _digests(FIXTURES)["files"]
     forms = {"stereo.left.progressive.jpg", "small_cmyk.jpg", "small_411.jpg", "small_progressive_gray.jpg",
              "small_adam7_rgb.png", "small_c0d1.png", "small_c0d2.png", "small_c0d4.png", "small_c2d16.png",
-             "small_c4d16.png", "small_c6d16.png"} | {f"small_P{i}.ppm" for i in range(1, 7)}
+             "small_c4d16.png", "small_c6d16.png"} | {f"small_P{i}.ppm" for i in range(1, 7)} | NEW_FORMS
     assert forms <= set(record["files"])
     assert record["files"]["stereo.left.progressive.jpg"]["shape"] == [540, 960, 3]
     assert open(FIXTURES / "stereo.left.progressive.jpg", "rb").read().count(b"\xff\xc2") == 1
@@ -707,3 +792,17 @@ def test_format_fixture_digests_are_pils():
         if name.endswith(".png"):
             p = str(FIXTURES / name)
             _same(tpng.decode_png(p, "c").samples, tpng.decode_png(p, "numpy").samples, name)
+
+
+def test_format_fixture_opencv_digests():
+    """The recorded read_disp_kitti digests are OpenCV's decode of the
+    committed files (every file cv2 reads: the gamma and EXIF PNGs, the
+    JPEG and Netpbm maps among them), and the port's read_disp_kitti gives
+    each."""
+    record = json.loads((FIXTURES / OPENCV_DIGESTS).read_text())
+    assert record["files"] == _opencv_digests(FIXTURES)["files"]
+    assert {"small_c2d8_srgb.png", "small_c2d16_gama.png", "small_c0d16_exif6.png", "disp_gray.jpg",
+            "disp_exif8.jpg", "small_P5.ppm", "small_P6.ppm", "small_arith_sof9.jpg"} <= set(record["files"])
+    assert record["files"]["small_c0d16_exif6.png"]["shape"] == [14, 9]
+    for name, want in record["files"].items():
+        assert _digest(tfu.read_disp_kitti(str(FIXTURES / name))[0]) == want, name
