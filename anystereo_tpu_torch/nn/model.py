@@ -48,6 +48,7 @@ from anystereo_tpu_torch.ops.upsample import (
 )
 from anystereo_tpu_torch.parallel.spatial import frame_rows
 from anystereo_tpu_torch.utils.device import resolve_device
+from anystereo_tpu_torch.utils.profiling import span
 
 
 class StereoOutput(NamedTuple):
@@ -267,11 +268,14 @@ class AnyStereo(nn.Module):
                 coords = dense_query_coords(b, h, w, dev)
             else:
                 dense_grid = (_axis_centers(h, device=dev, rows=True), _axis_centers(w, device=dev))
-        left = self._normalize(left)
-        right = self._normalize(right)
-        match_l, match_r, feats_l, stems = self._matching(left, right)
-        pyr, init_disp = self._cost_stage(match_l, match_r, feats_l)
-        net, ctx = self._context(left)
+        with span("matching"):
+            left = self._normalize(left)
+            right = self._normalize(right)
+            match_l, match_r, feats_l, stems = self._matching(left, right)
+        with span("cost"):
+            pyr, init_disp = self._cost_stage(match_l, match_r, feats_l)
+        with span("context"):
+            net, ctx = self._context(left)
         if init_disp is None:  # RAFT: zero initial disparity
             disp = torch.zeros((b, *match_l.shape[2:]), dtype=torch.float32, device=dev)
         else:
@@ -284,26 +288,31 @@ class AnyStereo(nn.Module):
                 return (disp, self._upsample(disp, net[0], stems, coords, scale), *net)
 
             preds = []
-            for _ in range(iters):
-                if self.cfg.remat:
-                    # keep only the carried state per iteration; the body is
-                    # run again in the backward pass
-                    out = checkpoint(body, disp, *net, use_reentrant=False)
-                else:
-                    out = body(disp, *net)
+            for i in range(iters):
+                # outside the body, which remat runs again: one span an
+                # iteration, the query decode included
+                with span("gru", i=i):
+                    if self.cfg.remat:
+                        # keep only the carried state per iteration; the body
+                        # is run again in the backward pass
+                        out = checkpoint(body, disp, *net, use_reentrant=False)
+                    else:
+                        out = body(disp, *net)
                 disp, disp_up, net = out[0], out[1], list(out[2:])
                 preds.append(disp_up)
             disp_preds = torch.stack(preds)  # [iters, B, Q]
             return StereoOutput(init_disp=init_disp, disp_preds=disp_preds,
                                 disp_final=disp_preds[-1], disp_lowres=disp)
 
-        for _ in range(iters):
-            net, disp = self._gru_update(net, disp, pyr, ctx)
-        if dense_grid is not None:
-            ys, xs = dense_grid
-            disp_up = self._upsample_dense(disp, net[0], stems, ys, xs, scale)
-        else:
-            disp_up = self._upsample(disp, net[0], stems, coords, scale)
+        for i in range(iters):
+            with span("gru", i=i):
+                net, disp = self._gru_update(net, disp, pyr, ctx)
+        with span("decode"):
+            if dense_grid is not None:
+                ys, xs = dense_grid
+                disp_up = self._upsample_dense(disp, net[0], stems, ys, xs, scale)
+            else:
+                disp_up = self._upsample(disp, net[0], stems, coords, scale)
         return StereoOutput(init_disp=init_disp, disp_preds=None, disp_final=disp_up,
                             disp_lowres=disp)
 

@@ -34,6 +34,7 @@ from anystereo_tpu_torch.parallel.spatial import gather_batch, infer_spatial_sha
 from anystereo_tpu_torch.train.loss import init_disp_loss, low_mask, query_mask, sequence_loss_queries
 from anystereo_tpu_torch.train.state import TrainState
 from anystereo_tpu_torch.utils.device import model_device, process_topology
+from anystereo_tpu_torch.utils.profiling import span
 
 
 def loss_and_metrics(model: AnyStereo, tcfg: TrainConfig, batch: Dict[str, torch.Tensor],
@@ -43,13 +44,15 @@ def loss_and_metrics(model: AnyStereo, tcfg: TrainConfig, batch: Dict[str, torch
     valid 1/4-res ground-truth entries to divide by ([2]; default: this
     batch's)."""
     q_count, low_count = (None, None) if counts is None else counts
-    out = model(batch["left"], batch["right"], iters=tcfg.train_iters, coords=batch["coords"],
-                scale=batch["scale"], mode="train")
-    loss, metrics = sequence_loss_queries(out.disp_preds, batch["gt"], batch["valid"],
-                                          max_disp=tcfg.max_disp_loss, gamma=tcfg.loss_gamma,
-                                          count=q_count)
-    if tcfg.supervise_init and out.init_disp is not None:
-        loss = loss + init_disp_loss(out.init_disp, batch["gt_low"], tcfg.max_disp_loss, low_count)
+    with span("forward"):
+        out = model(batch["left"], batch["right"], iters=tcfg.train_iters, coords=batch["coords"],
+                    scale=batch["scale"], mode="train")
+    with span("loss"):
+        loss, metrics = sequence_loss_queries(out.disp_preds, batch["gt"], batch["valid"],
+                                              max_disp=tcfg.max_disp_loss, gamma=tcfg.loss_gamma,
+                                              count=q_count)
+        if tcfg.supervise_init and out.init_disp is not None:
+            loss = loss + init_disp_loss(out.init_disp, batch["gt_low"], tcfg.max_disp_loss, low_count)
     return loss, metrics
 
 
@@ -80,26 +83,30 @@ def make_train_step(
     distributed = process_topology()[1] > 1
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        state.optimizer.zero_grad()
-        counts = _global_counts(tcfg, batch) if distributed else None
-        loss, metrics = loss_and_metrics(model, tcfg, batch, counts)
-        loss.backward()
-        metrics = dict(metrics, loss=loss.detach())
-        if distributed:
-            for p in state.optimizer.params:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-            all_reduce_sum_([p.grad for p in state.optimizer.params])
-            names = sorted(metrics)
-            shares = torch.stack([metrics[k] for k in names])
-            all_reduce_sum_([shares])
-            metrics = dict(zip(names, shares.unbind()))
-        info = state.optimizer.step()
-        state.step += 1
-        metrics["grad_norm"] = info["grad_norm"]
-        metrics["lr"] = info["lr"]
-        metrics["nonfinite_skips"] = state.optimizer.notfinite_count
-        return state, metrics
+        with span("train_step"):
+            state.optimizer.zero_grad()
+            counts = _global_counts(tcfg, batch) if distributed else None
+            loss, metrics = loss_and_metrics(model, tcfg, batch, counts)
+            with span("backward"):
+                loss.backward()
+            metrics = dict(metrics, loss=loss.detach())
+            if distributed:
+                with span("grad_sum"):
+                    for p in state.optimizer.params:
+                        if p.grad is None:
+                            p.grad = torch.zeros_like(p)
+                    all_reduce_sum_([p.grad for p in state.optimizer.params])
+                    names = sorted(metrics)
+                    shares = torch.stack([metrics[k] for k in names])
+                    all_reduce_sum_([shares])
+                    metrics = dict(zip(names, shares.unbind()))
+            with span("optimizer"):
+                info = state.optimizer.step()
+            state.step += 1
+            metrics["grad_norm"] = info["grad_norm"]
+            metrics["lr"] = info["lr"]
+            metrics["nonfinite_skips"] = state.optimizer.notfinite_count
+            return state, metrics
 
     return step
 
@@ -125,10 +132,7 @@ def make_eval_step(
         return model(left, right, iters=valid_iters, coords=coords, scale=scale,
                      mode="eval").disp_final
 
-    if mesh is None or mesh.data == 1:
-        return forward
-
-    def step(left, right, coords, scale):
+    def gathered(left, right, coords, scale):
         b = left.shape[0]
         if b % mesh.data:
             raise ValueError(f"batch {b} does not split over the mesh's data axis of {mesh.data}")
@@ -139,5 +143,11 @@ def make_eval_step(
 
         out = forward(mine(left), mine(right), mine(coords), mine(scale))
         return gather_batch(out, mesh.data_group)
+
+    run = forward if mesh is None or mesh.data == 1 else gathered
+
+    def step(left, right, coords, scale):
+        with span("eval_step"):
+            return run(left, right, coords, scale)
 
     return step

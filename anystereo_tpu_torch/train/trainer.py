@@ -53,6 +53,7 @@ from anystereo_tpu_torch.train.state import (
 )
 from anystereo_tpu_torch.train.step import make_train_step
 from anystereo_tpu_torch.utils.device import process_topology, resolve_device
+from anystereo_tpu_torch.utils.profiling import span
 
 log = logging.getLogger(__name__)
 
@@ -114,6 +115,12 @@ def _save_loader_state(ckpt_dir: str, step: int, state_bytes) -> None:
                 pass
 
 
+def _wait(it):
+    """The loader's next batch, in a `loader_wait` span."""
+    with span("loader_wait"):
+        return next(it)
+
+
 def train(
     cfg: Config,
     loader,
@@ -165,7 +172,7 @@ def train(
         return device_prefetch(it, device=dev)
 
     it = prefetch(raw_it)
-    first = next(it)
+    first = _wait(it)
 
     if state is None:
         model = build_model(cfg.model, dev, seed=tcfg.seed)
@@ -208,7 +215,7 @@ def train(
                     # rebuild the prefetch over the restored order (its
                     # buffered batch predates the set_state)
                     it = prefetch(raw_it)
-                    first = next(it)
+                    first = _wait(it)
                     log.info("restored loader state from %s", lp)
                 else:
                     log.warning("no loader state saved for step %d — the data order "
@@ -296,7 +303,7 @@ def train(
                 log.info("stopping at step %d on request", i + 1)
                 break
             if i + 1 < total:
-                batch = next(it)
+                batch = _wait(it)
     finally:
         for sig, h in prev_handlers.items():
             signal.signal(sig, h)

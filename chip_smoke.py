@@ -2856,18 +2856,11 @@ class _Warnings:
 
 
 def _launch_counters():
-    """Every kernel wrapper that counts launches; the main paths reach the
-    first nine."""
-    from anystereo_tpu_torch.ops.kernels import lookup_linear as tl
-    from anystereo_tpu_torch.ops.kernels import lookup_window as tw
-    from anystereo_tpu_torch.ops.kernels.gather import gather_rows, scatter_rows_add
-    from anystereo_tpu_torch.ops.kernels.lookup import gather_pyramid_aligned, gather_pyramid_aligned_bwd
+    """Every kernel wrapper that counts launches (B1-B8, forward and
+    backward)."""
+    from anystereo_tpu_torch.utils.profiling import kernel_wrappers
 
-    return [gather_pyramid_aligned, gather_pyramid_aligned_bwd, tw.gather_pyramid_window_pm,
-            tw.gather_pyramid_window_pm_bwd, gather_rows, scatter_rows_add,
-            tl.gather_window_linear, tl.gather_window_linear_bwd, tl.gather_rows_linear,
-            tl.gather_rows_linear_bwd, tw.gather_pyramid_window_t, tw.gather_pyramid_window_t_bwd,
-            tw.gather_pyramid_window, tw.gather_pyramid_window_bwd]
+    return list(kernel_wrappers().values())
 
 
 def _ddp_config(ckpt_dir, batch, data):

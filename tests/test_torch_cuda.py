@@ -33,7 +33,8 @@ from anystereo_tpu_torch.ops.kernels.lookup import (
     gather_pyramid_aligned_ref,
 )
 from anystereo_tpu_torch.ops.sampling import set_gather_plain
-from anystereo_tpu_torch.train.step import loss_and_metrics
+from anystereo_tpu_torch.train.step import loss_and_metrics, make_eval_step
+from anystereo_tpu_torch.utils.profiling import record_spans
 
 pytestmark = pytest.mark.cuda
 
@@ -926,6 +927,34 @@ def test_eval_forward_counts_and_flavors_agree(card, monkeypatch, core, flavor):
     plain = model(left, right, iters=3)
     torch.testing.assert_close(out.disp_final, plain.disp_final, rtol=0, atol=1e-3)
     torch.testing.assert_close(out.disp_final, other_out.disp_final, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("core", sorted(_CORES))
+def test_spans_time_each_stage_on_the_trace_clock(card, monkeypatch, core):
+    """Spans over a small bf16 eval step under a device-only profiler: every
+    stage has stream time, the stages lie within the step's, B1 launches in
+    the `gru` spans alone (one a volume and iteration), and each boundary's
+    own cudaEventRecord call starts within 50 us of the host stamps around
+    it on the trace's clock."""
+    monkeypatch.setenv("ANYSTEREO_LOOKUP_KERNEL", "aligned")
+    step = make_eval_step(build_model(_CORES[core](max_disp=32), device=card, seed=0), valid_iters=3,
+                          device=card)
+    g = torch.Generator(device=card).manual_seed(1)
+    left = torch.rand(2, 64, 160, 3, device=card, generator=g) * 255
+    args = (left, torch.roll(left, shifts=-4, dims=2), None, torch.ones(2, device=card))
+    step(*args).cpu()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with record_spans() as rec:
+            step(*args).cpu()
+    records = rec.collect(prof)
+    assert [r["name"] for r in records] == ["eval_step", "matching", "cost", "context"] + ["gru"] * 3 + ["decode"]
+    per_iter = _lookup_launches(core, "aligned", 1)[0]
+    for r in records[1:]:
+        assert r["stream_ms"] > 0 and r["parent"] == records[0]["id"]
+        assert r["launches"] == ({"B1 fwd": per_iter} if r["name"] == "gru" else {}), r["name"]
+    assert sum(r["stream_ms"] for r in records[1:]) <= records[0]["stream_ms"]
+    gaps = [max(0.0, a - x, x - b) for r in records for x, a, b in zip(r["anchor_us"], r["trace_us"], r["record_us"])]
+    assert max(gaps) < 50.0, gaps
 
 
 # ------------------------------------------------- the single-level lookups
