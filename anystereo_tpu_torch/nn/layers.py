@@ -1,6 +1,8 @@
 """Conv / norm building blocks (twin of `anystereo_tpu/nn/layers.py`).
 
-Layout inside the modules is channels-first (NCHW / NCDHW).  Every module
+Shapes are channels-first ([B, C, H, W] / [B, C, D, H, W]); the memory
+layout is the maps' own: the encoders' are contiguous, the update block's
+channels-last (`nn/update.py`).  Every module
 names its children the way flax's compact auto-naming names the JAX twin's
 (`Conv_0`, `GroupNorm_1`, ...), so the flax variables load by path
 (`utils/weights.from_flax`).
@@ -38,6 +40,16 @@ IntOrSeq = Union[int, Sequence[int]]
 
 def _tup(v: IntOrSeq, n: int):
     return tuple(v) if isinstance(v, (tuple, list)) else (v,) * n
+
+
+def nhwc(x: torch.Tensor) -> torch.Tensor:
+    """[B, C, H, W] → [B, H, W, C], a view (contiguous for a channels-last x)."""
+    return x.permute(0, 2, 3, 1)
+
+
+def nchw(x: torch.Tensor) -> torch.Tensor:
+    """[B, H, W, C] → [B, C, H, W], a view (channels-last for a contiguous x)."""
+    return x.permute(0, 3, 1, 2)
 
 
 def _bcast(v: torch.Tensor, nd: int) -> torch.Tensor:
@@ -99,10 +111,39 @@ class Conv(nn.Module):
             k, s, p = self.weight.shape[-2], self.stride[-2], padding[-2]
             x = ctx.halo(x, p, k - s - p, x.dim() - 2)
             padding = padding[:-2] + (0, padding[-1])
-        y = conv(x.to(dt), self.weight.to(dt), None, self.stride, padding, 1, self.groups)
+        x, w = x.to(dt), self.weight.to(dt)
+        # channels-last: C innermost, on a map of more than one pixel (a
+        # one-pixel map lies the same either way)
+        if self.dims == 2 and self.groups == 1 and x.stride(1) == 1 and x.shape[2] * x.shape[3] > 1:
+            y = nhwc_conv2d(x, w, self.stride, padding)
+        else:
+            y = conv(x, w, None, self.stride, padding, 1, self.groups)
         if self.bias is not None:
             y = y + _bcast(self.bias.to(dt), y.dim())
         return y
+
+
+def nhwc_conv2d(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int], padding: Sequence[int]
+                ) -> torch.Tensor:
+    """`F.conv2d(x, w, None, stride, padding)` of a channels-last map, with
+    the operands shaped for cuDNN's NHWC kernels, which take channel counts
+    in multiples of 8 and otherwise pad or transpose them around the product
+    (`nhwcAddPadding`, `nchwToNhwc`, `nhwcToNchw` kernels): a one-channel
+    map's taps along W become the channels of a kh x 1 convolution (zeros
+    up to 8), and filters are added as zeros up to a multiple of 8 and their
+    outputs dropped.  The same products, summed in the kernel's order; the
+    result is channels-last."""
+    o, i, kh, kw = w.shape
+    cl = torch.channels_last
+    if i == 1 and kw > 1:
+        (ph, pw), (sh, sw), c8 = padding, stride, -(-kw // 8) * 8
+        taps = F.pad(x[:, 0], (pw, pw, ph, ph)).unfold(2, kw, sw)  # [B, H + 2ph, W', kw]
+        x = nchw(F.pad(taps, (0, c8 - kw)))
+        w = F.pad(w[:, 0].transpose(1, 2)[..., None], (0, 0, 0, 0, 0, c8 - kw))  # [O, c8, kh, 1]
+        stride, padding = (sh, 1), (0, 0)
+    if o % 8:
+        w = F.pad(w, (0, 0, 0, 0, 0, 0, 0, -(-o // 8) * 8 - o))
+    return F.conv2d(x, w.contiguous(memory_format=cl), None, stride, padding)[:, :o]
 
 
 class TorchConvTranspose(nn.Module):

@@ -10,10 +10,14 @@ at the end in eval mode (densely over an output grid, or at scattered
 queries), after every iteration at the queries in train mode.
 
 Inputs and outputs keep the JAX package's layout ([B, H, W, 3] images in,
-[B, H', W'] or [B, Q] disparity out); the modules run channels-first
-inside.  Autograd follows `mode`: the eval forward records no graph, the
-train forward does, and its lookups and query gathers are
-`torch.autograd.Function`s whose backward is a kernel on the card.
+[B, H', W'] or [B, Q] disparity out).  Inside, the maps keep channels-first
+shapes: the encoders', the cost stage's and the decoder's contiguous, the
+GRU loop's channels-last in memory (`nn/update.py`), from the hidden states
+and gate biases `_context` makes to the hidden state the eval forward makes
+contiguous again for the decoder.  Autograd follows `mode`: the eval
+forward records no graph, the train forward does, and its lookups and
+query gathers are `torch.autograd.Function`s whose backward is a kernel on
+the card.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ from torch.utils.checkpoint import checkpoint
 from anystereo_tpu_torch.config import AggregationType, CoreType, ModelConfig, NormType, raft_config
 from anystereo_tpu_torch.nn.aggregation import CostAggregation
 from anystereo_tpu_torch.nn.extractor import BasicEncoder, FeaturePyramid, MultiBasicEncoder
-from anystereo_tpu_torch.nn.layers import Conv, ConvNormAct, init_parameters
+from anystereo_tpu_torch.nn.layers import Conv, ConvNormAct, init_parameters, nhwc
 from anystereo_tpu_torch.nn.liif import LiifDecoder
 from anystereo_tpu_torch.nn.stems import StemBranch, stem_channels
 from anystereo_tpu_torch.nn.update import BasicMultiUpdateBlock
@@ -61,10 +65,6 @@ class StereoOutput(NamedTuple):
     disp_preds: Optional[torch.Tensor]
     disp_final: torch.Tensor
     disp_lowres: torch.Tensor
-
-
-def _nhwc(x: torch.Tensor) -> torch.Tensor:
-    return x.permute(0, 2, 3, 1)
 
 
 def dense_query_coords(b: int, out_h: int, out_w: int,
@@ -130,10 +130,10 @@ class AnyStereo(nn.Module):
         """The lookup pyramids and (IGEV) the initial disparity."""
         cfg = self.cfg
         if cfg.core is CoreType.RAFT:
-            corr = all_pairs_correlation(_nhwc(match_l), _nhwc(match_r))  # fp32 [B, H, W, W2]
+            corr = all_pairs_correlation(nhwc(match_l), nhwc(match_r))  # fp32 [B, H, W, W2]
             return build_pyramid(corr, None, cfg.corr_levels, cfg.corr_radius), None
         d = cfg.volume_disp
-        gwc, corr = build_gwc_and_corr(_nhwc(match_l), _nhwc(match_r), d, cfg.gwc_groups)
+        gwc, corr = build_gwc_and_corr(nhwc(match_l), nhwc(match_r), d, cfg.gwc_groups)
         vol = gwc.permute(0, 3, 4, 1, 2).to(self.dt)  # [B, G, D, H, W]
         gev = self.cost_agg(vol, feats_l)  # [B, 8, D, H, W]
         logits = self.classifier(gev.float())[:, 0]  # [B, D, H, W] fp32
@@ -143,12 +143,17 @@ class AnyStereo(nn.Module):
         return build_pyramid(corr, geo, cfg.corr_levels, cfg.corr_radius), init_disp
 
     def _context(self, left):
+        """The GRU loop's initial hidden states and per-level gate biases
+        (cz, cr, cq), each a channels-last contiguous map of its own (the
+        layout of `nn/update.py`), made once a forward: the gates are not
+        read 32 times as strided chunks of one map, and a level's map is
+        freed as soon as its three copies are made."""
         cnet_out = self.cnet(left)
-        net = [torch.tanh(n) for n, _ in cnet_out]
-        ctx = [
-            tuple(getattr(self, f"context_zqr_{i}")(F.relu(inp)).chunk(3, dim=1))
-            for i, (_, inp) in enumerate(cnet_out)
-        ]
+        cl = torch.channels_last
+        net = [torch.tanh(n).contiguous(memory_format=cl) for n, _ in cnet_out]
+        ctx = [tuple(g.contiguous(memory_format=cl)
+                     for g in getattr(self, f"context_zqr_{i}")(F.relu(inp)).chunk(3, dim=1))
+               for i, (_, inp) in enumerate(cnet_out)]
         return net, ctx
 
     def _gru_update(self, net, disp, pyr, ctx):
@@ -169,8 +174,10 @@ class AnyStereo(nn.Module):
         if cfg.slow_fast_gru and n >= 2:
             net, _ = self.update_block(net, ctx, iter04=False, iter08=True, iter16=n == 3,
                                        update=False)
-        net, delta = self.update_block(net, ctx, corr=geo, disp=disp[:, None].to(self.dt),
-                                       iter16=n == 3, iter08=n >= 2)
+        # a [B, 1, H, W] map with channels-last strides, which a concatenation
+        # with channels-last maps keeps channels-last
+        disp_cl = disp[:, None].to(self.dt, memory_format=torch.channels_last)
+        net, delta = self.update_block(net, ctx, corr=geo, disp=disp_cl, iter16=n == 3, iter08=n >= 2)
         return net, disp + delta[:, 0].float()
 
     def _scale_disp(self, disp, scale):
@@ -198,11 +205,11 @@ class AnyStereo(nn.Module):
         and the 1/2 stem; type2 stems put the full-resolution stem first
         ([s1x, s2x, x]); without stems the hidden state alone."""
         s1x, s2x, s4x = stems
-        x = _nhwc(hidden if s4x is None else torch.cat([s4x, hidden], dim=1))
+        x = nhwc(hidden if s4x is None else torch.cat([s4x, hidden], dim=1))
         if s1x is not None:
-            return [_nhwc(s1x), _nhwc(s2x), x]
+            return [nhwc(s1x), nhwc(s2x), x]
         if s2x is not None:
-            return [x, _nhwc(s2x)]
+            return [x, nhwc(s2x)]
         return [x]
 
     def _upsample(self, disp, hidden, stems, coords, scale):
@@ -307,12 +314,15 @@ class AnyStereo(nn.Module):
         for i in range(iters):
             with span("gru", i=i):
                 net, disp = self._gru_update(net, disp, pyr, ctx)
+        # the decoder reads contiguous maps; the loop's channels-last states go
+        hidden = net[0].contiguous()
+        del net
         with span("decode"):
             if dense_grid is not None:
                 ys, xs = dense_grid
-                disp_up = self._upsample_dense(disp, net[0], stems, ys, xs, scale)
+                disp_up = self._upsample_dense(disp, hidden, stems, ys, xs, scale)
             else:
-                disp_up = self._upsample(disp, net[0], stems, coords, scale)
+                disp_up = self._upsample(disp, hidden, stems, coords, scale)
         return StereoOutput(init_disp=init_disp, disp_preds=None, disp_final=disp_up,
                             disp_lowres=disp)
 

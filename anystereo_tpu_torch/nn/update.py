@@ -4,6 +4,14 @@ encoder, multi-level coupled ConvGRUs and the disparity head.
 The JAX package's schedule rewrites (fused z/r gates, the joint q-conv,
 the block-diagonal motion convs, the shift-matmul disparity head) keep the
 parameter tree of the plain convs; the port computes the plain convs.
+
+Layout: the maps keep [B, C, H, W] shapes and lie channels-last in memory
+(`torch.channels_last`), as do the block's conv weights, so cuDNN's NHWC
+convolutions read and write them with no transpose, and the gate math, the
+concatenations along C and the [B, H, W, C] ops (pooling, resize, the
+lookup's features) see contiguous tensors.  The caller hands in
+channels-last hidden states and gate biases (`AnyStereo._context`) and a
+channels-last disparity.
 """
 
 from __future__ import annotations
@@ -14,7 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from anystereo_tpu_torch.nn.layers import Conv
+from anystereo_tpu_torch.nn.layers import Conv, nchw, nhwc
 from anystereo_tpu_torch.ops.sampling import avg_pool2d, interp_bilinear
 
 
@@ -22,21 +30,18 @@ def _conv3(in_ch: int, features: int, dtype) -> Conv:
     return Conv(in_ch, features, 3, 1, 1, dtype=dtype)
 
 
-def _nhwc(x: torch.Tensor) -> torch.Tensor:
-    return x.permute(0, 2, 3, 1)
-
-
-def _nchw(x: torch.Tensor) -> torch.Tensor:
-    return x.permute(0, 3, 1, 2)
-
-
 def pool2x(x: torch.Tensor) -> torch.Tensor:
-    """[B, H, W, C] average pool, window 3, stride 2, pad 1."""
-    return avg_pool2d(x, 3, 2, 1)
+    """[B, C, H, W] average pool, window 3, stride 2, pad 1."""
+    return nchw(avg_pool2d(nhwc(x), 3, 2, 1))
 
 
 def pool4x(x: torch.Tensor) -> torch.Tensor:
-    return avg_pool2d(x, 5, 4, 1)
+    return nchw(avg_pool2d(nhwc(x), 5, 4, 1))
+
+
+def _interp(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """[B, C, H, W] x resized bilinearly (align_corners=True) to like's H, W."""
+    return nchw(interp_bilinear(nhwc(x), like.shape[2:]))
 
 
 class ConvGRU(nn.Module):
@@ -86,10 +91,13 @@ class BasicMotionEncoder(nn.Module):
     """Lookup features + current disparity → 128-ch motion features (the
     last channel is the disparity itself).
 
-    `corr` is the [B, H, W, C] lookup or a tuple of its parts (pyramid_lookup
-    split=True: (geo, corr) for the IGEV core, (corr,) for RAFT); for a tuple, convc1's 1x1 kernel is sliced per part and the
-    partial products are summed in fp32 before one cast to the compute
-    dtype, as in the JAX twin."""
+    `disp` is [B, 1, H, W] (channels-last strides, (H*W, 1, W, 1), so that
+    the closing concatenation keeps the layout).  `corr` is the [B, H, W, C]
+    lookup or a tuple of its parts (pyramid_lookup split=True: (geo, corr)
+    for the IGEV core, (corr,) for RAFT); for a tuple, convc1's 1x1 kernel
+    is sliced per part and the partial products are summed in fp32 before
+    one cast to the compute dtype, as in the JAX twin.  Either way its
+    [B, C, H, W] view is channels-last."""
 
     def __init__(self, corr_channels: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -111,9 +119,9 @@ class BasicMotionEncoder(nn.Module):
                 wp = w[:, off:off + n].to(dt).float()
                 acc = acc + torch.matmul(p.to(dt).float(), wp.t())
                 off += n
-            c = F.relu(_nchw(acc.to(dt)))
+            c = F.relu(nchw(acc.to(dt)))
         else:
-            c = F.relu(self.convc1(_nchw(corr)))
+            c = F.relu(self.convc1(nchw(corr)))
         d = F.relu(self.convd1(disp))
         c = F.relu(self.convc2(c))
         d = F.relu(self.convd2(d))
@@ -132,9 +140,10 @@ class DispHead(nn.Module):
 
 
 class BasicMultiUpdateBlock(nn.Module):
-    """net: hidden states [1/4, 1/8, 1/16] (NCHW); context: per-level
-    (cz, cr, cq) gate biases.  Each GRU sees the pooled finer state and the
-    upsampled coarser state."""
+    """net: hidden states [1/4, 1/8, 1/16] ([B, C, H, W], channels-last);
+    context: per-level (cz, cr, cq) gate biases, each a channels-last map.
+    Each GRU sees the pooled finer state and the upsampled coarser state.
+    The conv weights are kept channels-last."""
 
     def __init__(self, hidden_dims: Sequence[int] = (128, 128, 128), n_layers: int = 3,
                  corr_channels: int = 162, gru_type: str = "conv",
@@ -152,25 +161,22 @@ class BasicMultiUpdateBlock(nn.Module):
         self.encoder = BasicMotionEncoder(corr_channels, dtype)
         self.gru04 = gru(hd[2], 128 + (hd[1] if n_layers > 1 else 0), dtype)
         self.disp_head = DispHead(hd[2], 256, dtype)
+        self.to(memory_format=torch.channels_last)
 
     def forward(self, net: List[torch.Tensor], context, corr=None, disp=None,
                 iter04: bool = True, iter08: bool = True, iter16: bool = True,
                 update: bool = True):
         net = list(net)
-
-        def interp(x, like):
-            return _nchw(interp_bilinear(_nhwc(x), like.shape[2:]))
-
         if iter16 and self.n_layers == 3:
-            net[2] = self.gru16(net[2], context[2], _nchw(pool2x(_nhwc(net[1]))))
+            net[2] = self.gru16(net[2], context[2], pool2x(net[1]))
         if iter08 and self.n_layers >= 2:
-            inputs = [_nchw(pool2x(_nhwc(net[0])))]
+            inputs = [pool2x(net[0])]
             if self.n_layers > 2:
-                inputs.append(interp(net[2], net[1]))
+                inputs.append(_interp(net[2], net[1]))
             net[1] = self.gru08(net[1], context[1], *inputs)
         if iter04:
             motion = self.encoder(disp, corr)
-            inputs = [motion] + ([interp(net[1], net[0])] if self.n_layers > 1 else [])
+            inputs = [motion] + ([_interp(net[1], net[0])] if self.n_layers > 1 else [])
             net[0] = self.gru04(net[0], context[0], *inputs)
         if not update:
             return net, None

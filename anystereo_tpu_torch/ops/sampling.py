@@ -138,8 +138,9 @@ def _linear_resize_matrix(n_in: int, n_out: int, dtype, device) -> torch.Tensor:
 
 def interp_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     """Bilinear align_corners=True resize of [B, H, W, C] as two small
-    matmuls (the resize matrices take x's dtype, as in the JAX twin)."""
-    _, h, w, _ = x.shape
+    matmuls (the resize matrices take x's dtype, as in the JAX twin); a
+    resized result is a contiguous [B, H', W', C]."""
+    b, h, w, c = x.shape
     oh, ow = out_hw
     ctx = spatial.current()
     if ctx is None:
@@ -153,8 +154,12 @@ def interp_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
             return x
         mh, x = ctx.local_matrix(x, _host_resize_matrix, oh, 1)
     mw = _linear_resize_matrix(w, ow, x.dtype, x.device)
-    y = torch.einsum("oh,bhwc->bowc", mh, x)
-    return torch.einsum("pw,bowc->bopc", mw, y)
+    # batched products over contiguous rows, [B, H', W*C] then [B*H', W', C]
+    # (a 2-D matrix times a batch is folded into one product under autograd,
+    # which would return a transposed result)
+    y = torch.matmul(mh.expand(b, *mh.shape), x.reshape(b, x.shape[1], w * c))
+    rows = b * y.shape[1]
+    return torch.matmul(mw.expand(rows, *mw.shape), y.view(rows, w, c)).view(b, y.shape[1], ow, c)
 
 
 def _host_resize_matrix(n_in: int, n_out: int) -> torch.Tensor:

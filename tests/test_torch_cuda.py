@@ -957,6 +957,33 @@ def test_spans_time_each_stage_on_the_trace_clock(card, monkeypatch, core):
     assert max(gaps) < 50.0, gaps
 
 
+@pytest.mark.parametrize("core", sorted(_CORES))
+def test_no_layout_transposes_in_the_gru_loop(card, monkeypatch, core):
+    """A bf16 eval step with cuDNN's default choices, under a device-only
+    profiler, each device activity put in the span whose launch call started
+    it: every activity has its call, the `gru` spans launch kernels, and none
+    of theirs is one of cuDNN's layout transposes (`nchwToNhwc`,
+    `nhwcToNchw`), since the update block's maps and weights are
+    channels-last."""
+    from stereo_bench.layout_trace import NO_CALL, launched_in, transposes_by_span
+
+    monkeypatch.setenv("ANYSTEREO_LOOKUP_KERNEL", "aligned")
+    step = make_eval_step(build_model(_CORES[core](max_disp=64), device=card, seed=0), valid_iters=3,
+                          device=card)
+    g = torch.Generator(device=card).manual_seed(1)
+    left = torch.rand(2, 128, 320, 3, device=card, generator=g) * 255
+    args = (left, torch.roll(left, shifts=-4, dims=2), None, torch.ones(2, device=card))
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False):
+        step(*args).cpu()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            with record_spans() as rec:
+                step(*args).cpu()
+    ops = launched_in(rec.collect(prof), prof)
+    assert ops and [name for owner, name, _ in ops if owner == NO_CALL] == []
+    assert sum(owner == "gru" for owner, _, _ in ops) >= 3 * 100
+    assert "gru" not in transposes_by_span(ops), transposes_by_span(ops)
+
+
 # ------------------------------------------------- the single-level lookups
 
 _LINEAR_FAR = (-3e9, 3e9, -1e6, 1e6)

@@ -159,3 +159,44 @@ def test_unported_paths_raise():
         at_queries = model(left, right, iters=1, coords=coords, scale=1.5).disp_final
         assert dense.shape == (B, H, W) and at_queries.shape == (B, 40)
         assert torch.isfinite(dense).all() and torch.isfinite(at_queries).all()
+
+
+@pytest.mark.parametrize("mode", ["eval", "train"])
+@pytest.mark.parametrize("core", ["igev", "raft"])
+def test_gru_loop_runs_channels_last(core, mode):
+    """Each conv of the update block reads a channels-last contiguous map
+    with stride 1 along C (the form a 1-channel map must take for a
+    concatenation to keep the layout), and each refinement step returns
+    channels-last hidden states; in training the block's weight gradients
+    come back finite and channels-last, as the weights are."""
+    from anystereo_tpu_torch.nn.layers import Conv
+
+    model = build_model((ModelConfig if core == "igev" else raft_config)(max_disp=MAX_DISP), "cpu", seed=0)
+    cl = torch.channels_last
+    read = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args, name=name: read.append(
+            (name, args[0].is_contiguous(memory_format=cl) and args[0].stride(1) == 1)))
+        for name, m in model.update_block.named_modules() if isinstance(m, Conv)]
+    states = []
+    step = model._gru_update
+
+    def recorded(*args):
+        net, disp = step(*args)
+        states.append([h.is_contiguous(memory_format=cl) for h in net])
+        return net, disp
+
+    model._gru_update = recorded
+    left, right = (torch.from_numpy(a) for a in _images())
+    out = model(left, right, iters=ITERS, mode=mode)
+    for h in hooks:
+        h.remove()
+    # every conv but convc1, whose 1x1 product the split lookup computes
+    assert len(read) == ITERS * (len(hooks) - 1), len(read)
+    assert [name for name, ok in read if not ok] == []
+    assert states == [[True] * model.cfg.n_gru_layers] * ITERS
+    if mode == "train":
+        out.disp_preds.mean().backward()
+        for name, p in model.update_block.named_parameters():
+            if p.dim() == 4:
+                assert p.grad.is_contiguous(memory_format=cl) and torch.isfinite(p.grad).all(), name

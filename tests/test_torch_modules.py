@@ -86,6 +86,32 @@ def _check(got, want, tol):
 # ----------------------------------------------------------------- layers
 
 
+@pytest.mark.parametrize("out_ch,in_ch,kernel,stride,padding", [
+    (64, 1, (7, 7), (1, 1), (3, 3)),  # convd1: the one-channel map's taps as channels
+    (8, 1, (3, 5), (2, 1), (1, 2)),
+    (5, 1, (7, 7), (2, 3), (3, 0)),
+    (1, 16, (3, 3), (1, 1), (1, 1)),  # the disparity head's single filter
+    (127, 24, (3, 3), (1, 1), (1, 1)),  # the motion encoder's 127
+    (16, 8, (3, 3), (2, 2), (1, 1)),
+])
+def test_nhwc_conv2d_is_conv2d(rng, out_ch, in_ch, kernel, stride, padding):
+    """The conv of a channels-last map, operands shaped for NHWC kernels,
+    is F.conv2d's in fp32 and comes back channels-last; `Conv` takes it for
+    a channels-last input.  The same products summed in another order: up to
+    216 terms of unit variance (sums ~15) move by a few fp32 ulps, 1e-4."""
+    x = torch.from_numpy(rng.randn(2, 11, 14, in_ch).astype(np.float32)).permute(0, 3, 1, 2)
+    w = torch.from_numpy(rng.randn(out_ch, in_ch, *kernel).astype(np.float32))
+    want = torch.nn.functional.conv2d(x.contiguous(), w, None, stride, padding)
+    got = tlay.nhwc_conv2d(x, w.contiguous(memory_format=torch.channels_last), stride, padding)
+    assert got.shape == want.shape and got.stride(1) == 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    conv = tlay.Conv(in_ch, out_ch, kernel, stride, padding)
+    conv.weight.data.copy_(w)
+    got = conv(x)
+    assert got.stride(1) == 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
 @pytest.mark.parametrize("norm", ["instance", "group", "layer", "frozen_batch", "none"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_conv_norm_act_2d(rng, norm, dtype):
